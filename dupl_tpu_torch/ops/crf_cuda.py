@@ -1,0 +1,98 @@
+"""Fused CRF kernel-apply (counterpart of ``dupl_tpu/ops/crf_pallas.py``).
+
+``kernel_apply`` computes ``exp(min(basis @ coef, logc)) @ vals`` with the
+kernel entries and the values rounded to bf16 and fp32 accumulation: the
+full-resolution slice of the fast mean-field CRF.  CPU tensors run the plain
+twin (the reference's XLA tile loop, ``dupl_tpu/ops/crf.py:171-185``); CUDA
+tensors launch kernel K5 (``csrc/crf_apply.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+_DIM = 11
+_MAX_V = 32
+
+
+def kernel_apply_ref(basis: torch.Tensor, coef: torch.Tensor,
+                     logc: torch.Tensor, vals: torch.Tensor,
+                     block_rows: int = 25088) -> torch.Tensor:
+    """Plain twin, tiled over ``block_rows`` pixel rows so the (rows, Ns)
+    score tile bounds memory.  basis (B, N, 11), coef (B, 11, Ns), logc
+    (B, Ns), vals (B, Ns, V) -> (B, N, V) float32."""
+    vb = vals.to(torch.bfloat16).float()
+    lc = logc[:, None, :]
+    out = []
+    for lo in range(0, basis.shape[1], block_rows):
+        logk = torch.matmul(basis[:, lo:lo + block_rows], coef)
+        k = torch.exp(torch.minimum(logk, lc)).to(torch.bfloat16).float()
+        out.append(torch.matmul(k, vb))
+    return torch.cat(out, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point of ``csrc/crf_apply.cu``, built on first use."""
+    from dupl_tpu_torch.kernels import build
+
+    fn = build.load("crf_apply").dupl_crf_apply
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
+                      logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Launch kernel K5 on the current stream; one launch covers the batch."""
+    from dupl_tpu_torch.kernels import build
+
+    dev = basis.device
+    for x, name in ((basis, "basis"), (coef, "coef"), (logc, "logc"),
+                    (vals, "vals")):
+        if x.device != dev or not x.is_cuda:
+            raise ValueError(f"crf kernel_apply: {name} must be on {dev} "
+                             f"(a CUDA device), got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"crf kernel_apply: {name} must be float32, "
+                            f"got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"crf kernel_apply: {name} must be contiguous")
+    b, n, d = basis.shape
+    ns, nv = vals.shape[1], vals.shape[2]
+    if (d != _DIM or coef.shape != (b, _DIM, ns) or logc.shape != (b, ns)
+            or vals.shape[0] != b):
+        raise ValueError(f"crf kernel_apply: want basis (B, N, {_DIM}), coef "
+                         f"(B, {_DIM}, Ns), logc (B, Ns), vals (B, Ns, V); got "
+                         f"{tuple(basis.shape)} {tuple(coef.shape)} "
+                         f"{tuple(logc.shape)} {tuple(vals.shape)}")
+    if not 1 <= nv <= _MAX_V:
+        raise ValueError(f"crf kernel_apply: V must be in [1, {_MAX_V}], "
+                         f"got {nv}")
+    out = torch.empty((b, n, nv), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _entry()(basis.data_ptr(), coef.data_ptr(), logc.data_ptr(),
+                          vals.data_ptr(), out.data_ptr(), b, n, ns, nv,
+                          stream)
+    build.check(status, "crf_apply")
+    kernel_apply_cuda.launches += 1
+    return out
+
+
+kernel_apply_cuda.launches = 0
+
+
+def kernel_apply(basis: torch.Tensor, coef: torch.Tensor, logc: torch.Tensor,
+                 vals: torch.Tensor, block_rows: int = 25088) -> torch.Tensor:
+    """Fused ``exp(min(basis @ coef, logc)) @ vals`` for a batch of images:
+    basis (B, N, 11), coef (B, 11, Ns), logc (B, Ns), vals (B, Ns, V) ->
+    (B, N, V) float32.  ``block_rows`` tiles the CPU twin only."""
+    if basis.device.type == "cpu":
+        return kernel_apply_ref(basis, coef, logc, vals, block_rows)
+    if basis.device.type != "cuda":
+        raise ValueError(f"crf kernel_apply: unsupported device {basis.device}")
+    return kernel_apply_cuda(basis, coef, logc, vals.float().contiguous())

@@ -1,0 +1,112 @@
+"""Image-space primitives (counterpart of ``dupl_tpu/ops/image.py``).
+
+Public functions take and return NHWC tensors like the reference; they
+permute to NCHW internally where torch's operators want it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+# ImageNet statistics in [0,255] units (reference: datasets/transforms.py:45).
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+def _spatial_apply(x: torch.Tensor, batch_dims: int, fn) -> torch.Tensor:
+    """Run ``fn`` on an NCHW view of ``x``: the ``batch_dims`` leading axes
+    fold into N and the axes after the two spatial ones into C."""
+    lead = x.shape[:batch_dims]
+    h, w = x.shape[batch_dims:batch_dims + 2]
+    trail = x.shape[batch_dims + 2:]
+    nchw = x.reshape(-1, h, w, trail.numel()).permute(0, 3, 1, 2)
+    y = fn(nchw)
+    return y.permute(0, 2, 3, 1).reshape(*lead, y.shape[2], y.shape[3], *trail)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], *,
+                    batch_dims: int = 1) -> torch.Tensor:
+    """Bilinear resize with half-pixel centers and no antialiasing over the
+    two dims after ``batch_dims`` (``F.interpolate(mode='bilinear',
+    align_corners=False)``, which the reference's jax resize was written to
+    match; antialias on downscale would shift a 0.5x resize by ~0.2)."""
+    return _spatial_apply(x, batch_dims, lambda t: F.interpolate(
+        t, size=tuple(size), mode="bilinear", align_corners=False,
+        antialias=False))
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int], *,
+                   batch_dims: int = 1) -> torch.Tensor:
+    """Nearest resize with half-pixel source indices
+    ``floor((i + 0.5) * in / out)`` computed in float32, as
+    ``jax.image.resize(method='nearest')`` does."""
+    out = x
+    for axis, n in zip((batch_dims, batch_dims + 1), size):
+        m = out.shape[axis]
+        src = (torch.arange(n, dtype=torch.float32) + 0.5) * m / n
+        idx = torch.floor(src).long().clamp_(max=m - 1).to(x.device)
+        out = out.index_select(axis, idx)
+    return out
+
+
+def _cubic_kernel(t: torch.Tensor, a: float = -0.75) -> torch.Tensor:
+    """Cubic convolution kernel with torch's A = -0.75."""
+    at = t.abs()
+    near = ((a + 2.0) * at - (a + 3.0)) * at * at + 1.0
+    far = a * (((at - 5.0) * at + 8.0) * at - 4.0)
+    return torch.where(at <= 1.0, near,
+                       torch.where(at < 2.0, far, torch.zeros_like(at)))
+
+
+def _bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """(out, in) sampling matrix for 1-D torch-style bicubic: half-pixel
+    centers, 4 taps, indices clamped to the border (replicate)."""
+    scale = in_size / out_size
+    src = (torch.arange(out_size, dtype=torch.float32) + 0.5) * scale - 0.5
+    i0 = torch.floor(src).long()
+    w = torch.zeros(out_size, in_size, dtype=torch.float32)
+    rows = torch.arange(out_size)
+    for k in range(-1, 3):
+        idx = (i0 + k).clamp(0, in_size - 1)
+        w.index_put_((rows, idx), _cubic_kernel(src - (i0 + k).float()),
+                     accumulate=True)
+    return w
+
+
+def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize matching ``F.interpolate(mode='bicubic',
+    align_corners=False)`` (A = -0.75, no antialias, border-clamped taps) as
+    two sampling matrices, the reference's formulation.  x: (B, H, W, C)."""
+    wh = _bicubic_weights(x.shape[1], size[0]).to(x.device, x.dtype)
+    ww = _bicubic_weights(x.shape[2], size[1]).to(x.device, x.dtype)
+    return torch.einsum("oh,bhwc,pw->bopc", wh, x, ww)
+
+
+def denormalize(x: torch.Tensor) -> torch.Tensor:
+    """ImageNet-normalised float image -> [0,1] floats."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x * std + mean) / 255.0
+
+
+def normalize(x01: torch.Tensor) -> torch.Tensor:
+    """[0,1] floats -> ImageNet-normalised."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x01.dtype, device=x01.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x01.dtype, device=x01.device)
+    return (x01 * 255.0 - mean) / std
+
+
+def prepare_inputs(image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """uint8 [0,255] or ImageNet-normalised float32 batch ->
+    ``(imagenet_normalised_f32, denormalised_01)``."""
+    if image.dtype == torch.uint8:
+        f = image.float()
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                            device=image.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                           device=image.device)
+        return (f - mean) / std, f / 255.0
+    return image, denormalize(image)
