@@ -36,10 +36,11 @@ VOC_CLASS_LIST = _cfg.VOC_CLASS_LIST
 COCO_CLASS_LIST = _cfg.COCO_CLASS_LIST
 ModelConfig = _cfg.ModelConfig
 CrfConfig = _cfg.CrfConfig
+ParConfig = _cfg.ParConfig
 DataConfig = _cfg.DataConfig
 TrainConfig = _cfg.TrainConfig
 voc_config = _cfg.voc_config
 coco_config = _cfg.coco_config
 
 __all__ = ["VOC_CLASS_LIST", "COCO_CLASS_LIST", "ModelConfig", "CrfConfig",
-           "DataConfig", "TrainConfig", "voc_config", "coco_config"]
+           "ParConfig", "DataConfig", "TrainConfig", "voc_config", "coco_config"]

@@ -1,5 +1,5 @@
-"""The serving program (counterpart of
-``dupl_tpu/engine/export.py:make_serving_fn``)."""
+"""The serving program and the pseudo-label factory (counterparts of
+``dupl_tpu/engine/export.py:make_serving_fn`` and ``make_pseudo_label_fn``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,9 @@ from typing import Sequence
 import torch
 
 from dupl_tpu_torch.engine.eval_seg import msc_seg_logits
+from dupl_tpu_torch.engine.train import refine
 from dupl_tpu_torch.models.network import DualStudent
+from dupl_tpu_torch.ops import cam as cam_ops
 from dupl_tpu_torch.ops import crf as crf_ops
 from dupl_tpu_torch.ops import image as image_ops
 
@@ -47,5 +49,45 @@ def make_serving_fn(cfg, model: DualStudent, *,
             pick = crf_ops.crf_from_config(image01, probs, cfg.crf,
                                            fast=True, return_logits=True)
         return pick.argmax(dim=-1).to(torch.uint8)
+
+    return fn
+
+
+def make_pseudo_label_fn(cfg, model: DualStudent):
+    """The pseudo-label factory (counterpart of
+    ``dupl_tpu/engine/export.py:make_pseudo_label_fn``): multi-scale + flip
+    CAMs of both students at ``cfg.cam_scales``, merged at half the input
+    size; PAR refinement of both into per-branch pseudo-labels; the fast
+    mean-field CRF over student 1's segmentation posteriors.
+
+    ``fn(images, cls_label, img_box)`` takes uint8 (B, H, W, 3) images,
+    (B, C_fg) multi-hot class labels and (B, 4) int boxes on the model's
+    device and returns ``(refined, crf_labels)``: uint8 (2, B, H, W)
+    pseudo-labels (``cfg.ignore_index`` marks the ignore band) and uint8
+    (B, H, W) CRF labels, both at the input resolution."""
+
+    @torch.inference_mode()
+    def fn(images: torch.Tensor, cls_label: torch.Tensor,
+           img_box: torch.Tensor):
+        # the class-budget branch is chosen on the host before this call
+        # queues anything, so reading cls_label does not wait for the CAMs
+        fits = cam_ops.fits_class_budget(cls_label, cfg.par.class_budget)
+        x, image01 = image_ops.prepare_inputs(images)
+        merge = (x.shape[1] // 2, x.shape[2] // 2)
+        cams, segs = [], []
+        for i in range(2):              # the JAX package vmaps the branches
+            s = model.student(i)
+            cam, _, out = cam_ops.multi_scale_cam_with_outputs(
+                s.forward_with_cams, s.cam_only, x, cfg.cam_scales,
+                with_aux=False, merge_size=merge)
+            cams.append(cam)
+            segs.append(out.seg)
+        refined = refine(cfg, torch.stack(cams), image01, cls_label, img_box,
+                         high_thre=cfg.high_thre, fits_budget=fits)
+        seg = image_ops.resize_bilinear(segs[0], x.shape[1:3])
+        logits = crf_ops.crf_from_config(image01, torch.softmax(seg, dim=-1),
+                                         cfg.crf, fast=True,
+                                         return_logits=True)
+        return refined.to(torch.uint8), logits.argmax(dim=-1).to(torch.uint8)
 
     return fn

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -83,13 +84,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all(verbose: bool = False) -> Dict[str, float]:
-    """Build every kernel source; returns seconds per source."""
-    secs = {}
-    for src in sorted(CSRC.glob("*.cu")):
+    """Build every kernel source, one nvcc per source, all at once; returns
+    seconds per source."""
+    def timed(name: str) -> float:
         t0 = time.perf_counter()
-        build(src.stem, verbose=verbose)
-        secs[src.stem] = time.perf_counter() - t0
-    return secs
+        build(name, verbose=verbose)
+        return time.perf_counter() - t0
+
+    names = [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def check(status: int, what: str) -> None:

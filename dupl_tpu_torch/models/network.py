@@ -52,24 +52,47 @@ class Student(nn.Module):
                                         bias=False)
 
     @staticmethod
-    def _pooled_logits(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """Global max pool then the 1x1 conv, computed in the promoted dtype
-        of features and weight (flax ``Dense`` with ``dtype=None``)."""
+    def _dense(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """The 1x1 conv over the last axis of ``x``, computed in the
+        promoted dtype of features and weight (flax ``Dense`` with
+        ``dtype=None``)."""
         w = conv.weight[:, :, 0, 0]
         dt = torch.promote_types(x.dtype, w.dtype)
-        return torch.matmul(x.amax(dim=(1, 2)).to(dt), w.to(dt).t())
+        return torch.matmul(x.to(dt), w.to(dt).t())
 
-    def forward(self, x: torch.Tensor) -> StudentOut:
-        """x: (B, H, W, 3) ImageNet-normalised -> StudentOut."""
+    def _features(self, x: torch.Tensor):
+        """x: (B, H, W, 3) -> (fmap, aux), each (B, h, w, D)."""
         b, hh, ww, _ = x.shape
         h, w = hh // self.patch_size, ww // self.patch_size
         _, tokens, aux_tokens = self.encoder(x)
         d = tokens.shape[-1]
-        fmap = tokens.reshape(b, h, w, d)
-        aux = aux_tokens.reshape(b, h, w, d)
-        seg = self.decoder(fmap)
-        return StudentOut(self._pooled_logits(self.classifier, fmap), seg,
-                          fmap, self._pooled_logits(self.aux_classifier, aux))
+        return tokens.reshape(b, h, w, d), aux_tokens.reshape(b, h, w, d)
+
+    def _heads(self, fmap: torch.Tensor, aux: torch.Tensor) -> StudentOut:
+        """Decoder and global-max-pooled classifiers."""
+        return StudentOut(self._dense(self.classifier, fmap.amax(dim=(1, 2))),
+                          self.decoder(fmap), fmap,
+                          self._dense(self.aux_classifier, aux.amax(dim=(1, 2))))
+
+    def forward(self, x: torch.Tensor) -> StudentOut:
+        """x: (B, H, W, 3) ImageNet-normalised -> StudentOut."""
+        return self._heads(*self._features(x))
+
+    def cam_only(self, x: torch.Tensor):
+        """CAM = the classifiers applied per pixel to the main and aux
+        feature maps, detached (model_dupl.py:81-84).  x: (B, H, W, 3) ->
+        (cam, cam_aux), each (B, h, w, C_fg) at patch resolution."""
+        fmap, aux = self._features(x)
+        return (self._dense(self.classifier, fmap).detach(),
+                self._dense(self.aux_classifier, aux).detach())
+
+    def forward_with_cams(self, x: torch.Tensor):
+        """One encoder pass -> (StudentOut, cam, cam_aux): the same values as
+        ``forward`` and ``cam_only`` run separately."""
+        fmap, aux = self._features(x)
+        return (self._heads(fmap, aux),
+                self._dense(self.classifier, fmap).detach(),
+                self._dense(self.aux_classifier, aux).detach())
 
 
 class DualStudent(nn.Module):
@@ -91,3 +114,15 @@ class DualStudent(nn.Module):
         branch axis of 2."""
         a, b = self.branch1(x), self.branch2(x)
         return StudentOut(*(torch.stack([u, v]) for u, v in zip(a, b)))
+
+    def cam_only(self, x: torch.Tensor):
+        """Both students' (cam, cam_aux), each (2, B, h, w, C_fg)."""
+        a, b = self.branch1.cam_only(x), self.branch2.cam_only(x)
+        return tuple(torch.stack([u, v]) for u, v in zip(a, b))
+
+    def forward_with_cams(self, x: torch.Tensor):
+        """Both students' (StudentOut, cam, cam_aux), branch-stacked."""
+        (oa, *ca), (ob, *cb) = (self.branch1.forward_with_cams(x),
+                                self.branch2.forward_with_cams(x))
+        out = StudentOut(*(torch.stack([u, v]) for u, v in zip(oa, ob)))
+        return (out, *(torch.stack([u, v]) for u, v in zip(ca, cb)))

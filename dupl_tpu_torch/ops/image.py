@@ -6,7 +6,7 @@ permute to NCHW internally where torch's operators want it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,3 +110,48 @@ def prepare_inputs(image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                            device=image.device)
         return (f - mean) / std, f / 255.0
     return image, denormalize(image)
+
+
+def box_mask(img_box: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, 4) [h0, h1, w0, w1] -> (B, H, W) bool mask of the valid crop
+    region (reference: utils/cam_helper.py:26-28)."""
+    rows = torch.arange(height, device=img_box.device)[None, :, None]
+    cols = torch.arange(width, device=img_box.device)[None, None, :]
+    h0, h1, w0, w1 = (img_box[:, i, None, None] for i in range(4))
+    return (rows >= h0) & (rows < h1) & (cols >= w0) & (cols < w1)
+
+
+def scale_box(img_box: torch.Tensor, factor_num: int,
+              factor_den: int) -> torch.Tensor:
+    """Rescale integer box coordinates by factor_num/factor_den (floor)."""
+    return img_box * factor_num // factor_den
+
+
+def spatial_minmax_norm(cam: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-(sample, class) spatial min-max normalisation over the two axes
+    before the channel axis (reference: utils/cam_helper.py:196-202).
+    cam: (..., H, W, C)."""
+    cam = cam - cam.amin(dim=(-3, -2), keepdim=True)
+    return cam / (cam.amax(dim=(-3, -2), keepdim=True) + eps)
+
+
+def shift_clamped(x: torch.Tensor, dy: int, dx: int,
+                  axis: int = 1) -> torch.Tensor:
+    """``out[.., y, x, ..] = x[.., clamp(y + dy), clamp(x + dx), ..]`` over
+    the row axis ``axis`` and the column axis after it: the tap of a
+    replicate-padded image, for any offset size."""
+    h, w = x.shape[axis], x.shape[axis + 1]
+    rows = (torch.arange(h, device=x.device) + dy).clamp_(0, h - 1)
+    cols = (torch.arange(w, device=x.device) + dx).clamp_(0, w - 1)
+    return x.index_select(axis, rows).index_select(axis + 1, cols)
+
+
+def dilated_neighbors(x: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
+    """The 8-connected neighbourhood at each dilation with replicate padding
+    (reference: model/PAR.py:39-49).  x: (B, H, W, C) -> (B, H, W, K, C),
+    K = 8 * len(dilations), taps dilation-major in ``ops.par.OFFSETS``
+    order."""
+    from dupl_tpu_torch.ops.par import OFFSETS
+
+    return torch.stack([shift_clamped(x, dy * d, dx * d)
+                        for d in dilations for dy, dx in OFFSETS], dim=3)

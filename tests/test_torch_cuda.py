@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
-shapes the serving path does not reach (ragged lengths, strided views,
-every head dim and value width the kernels take) and their input checks.
+shapes the main paths do not reach (ragged lengths, strided views, every
+head dim and value width the kernels take, images smaller than the PAR
+dilations) and their input checks.
 
 Needs a CUDA card and nvcc; skips elsewhere.  On the card:
 
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from dupl_tpu_torch.ops import attention, crf, crf_cuda
+from dupl_tpu_torch.ops import attention, crf, crf_cuda, par, par_cuda
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -140,3 +141,99 @@ def test_fast_crf_card_matches_cpu(dev):
     assert crf_cuda.kernel_apply_cuda.launches == n0 + 1
     want = crf.mean_field_crf(img, probs, **kw)
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.999
+
+
+DIL = (1, 2, 4, 8, 12, 24)
+
+
+def _smooth_image(b, h, w, dev, seed):
+    """Smooth gradients plus noise, quantised to uint8 / 255: flat
+    neighbourhoods, where the affinity's variance cancels in fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, h, device=dev),
+                            torch.linspace(0, 1, w, device=dev), indexing="ij")
+    img = torch.stack([0.5 + 0.4 * torch.sin(3 * xx + 2 * yy), yy, xx * yy], -1)
+    img = img + 0.02 * torch.randn(b, h, w, 3, generator=g, device=dev)
+    return (img.clamp(0, 1) * 255).round() / 255
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (3, 1, 30),
+                                   (1, 64, 1), (2, 224, 224)])
+@pytest.mark.parametrize("dil", [DIL, (1, 3)])
+def test_par_affinity_shapes(dev, b, h, w, dil):
+    """K3 against its twin at ragged sizes, sizes below the largest
+    dilation (every tap clamps) and another dilation set: bound 1e-5 on
+    values in [0, 1.01] (kernel and twin round alike, even where the
+    variance cancels; see chip_smoke.py)."""
+    img = _smooth_image(b, h, w, dev, seed=h * w)
+    n0 = par_cuda.affinity_cuda.launches
+    got = par_cuda.affinity(img, dil)
+    assert par_cuda.affinity_cuda.launches == n0 + 1
+    want = par_cuda.affinity_ref(img, dil)
+    assert got.shape == (b, 8 * len(dil), h, w)
+    assert (got - want).abs().max().item() <= 1e-5
+    torch.testing.assert_close(got.sum(1), torch.full_like(got[:, 0], 1.01),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [1, 5, 40, 84])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (1, 100, 7)])
+def test_par_propagate_shapes(dev, c, compute_dtype, b, h, w):
+    """K4 against its twin, 10 rounds: fp32 within 1e-5 of the output's
+    scale; bf16 within two bf16 ulps of each element (kernel and twin
+    round alike; dropping any of the bf16 roundings costs 3 ulps or more,
+    see chip_smoke.py)."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    logits = torch.randn(b, h, w, c, generator=g, device=dev) * 3
+    masks = torch.softmax(logits, -1)
+    aff = par_cuda.affinity(_smooth_image(b, h, w, dev, seed=c), DIL)
+    n0 = par_cuda.propagate_cuda.launches
+    got = par_cuda.propagate(masks, aff, DIL, 10, compute_dtype)
+    assert par_cuda.propagate_cuda.launches == n0 + 10
+    want = par_cuda.propagate_ref(masks, aff, DIL, 10, compute_dtype)
+    assert got.shape == masks.shape and got.dtype == torch.float32
+    err = (got - want).abs()
+    if compute_dtype == "float32":
+        assert err.max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        assert (err <= 2 * ulp).all()
+
+
+def test_par_refine_card_matches_cpu(dev):
+    """PAR on the card (K3, K4) against the CPU (twins): refined values
+    within 1e-4 (the affinities differ by fp32 roundings only)."""
+    img = _smooth_image(2, 48, 40, dev, seed=9)
+    masks = torch.softmax(torch.randn(2, 48, 40, 9, device=dev) * 2, -1)
+    got = par.par_refine(img, masks).cpu()
+    want = par.par_refine(img.cpu(), masks.cpu())
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_par_kernels_reject_bad_operands(dev):
+    img = torch.zeros(1, 8, 8, 3, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        par_cuda.affinity_cuda(img.double(), DIL)
+    with pytest.raises(ValueError, match="contiguous"):
+        par_cuda.affinity_cuda(torch.zeros(1, 3, 8, 8, device=dev)
+                               .permute(0, 2, 3, 1), DIL)
+    with pytest.raises(ValueError, match=r"\(B, H, W, 3\)"):
+        par_cuda.affinity_cuda(torch.zeros(1, 8, 8, 4, device=dev), DIL)
+    with pytest.raises(ValueError, match="dilations"):
+        par_cuda.affinity_cuda(img, (1, 2, 3, 4, 5, 6, 7))
+    with pytest.raises(ValueError, match="dilations"):
+        par_cuda.affinity_cuda(img, (0, 2))
+    m = torch.zeros(1, 5, 8, 8, device=dev)
+    aff = torch.zeros(1, 48, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="want aff"):
+        par_cuda.propagate_cuda(m, aff[:, :40], DIL, 2)
+    with pytest.raises(TypeError, match="float32"):
+        par_cuda.propagate_cuda(m.half(), aff, DIL, 2)
+    with pytest.raises(TypeError):
+        par_cuda.propagate_cuda(m, aff.half(), DIL, 2)
+    with pytest.raises(ValueError, match="dilations"):
+        par_cuda.propagate_cuda(m, aff, (1, 2, 4, 8, 12, 41), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        par_cuda.propagate_cuda(m, aff.cpu(), DIL, 2)
