@@ -1,5 +1,5 @@
-"""On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path
-and the pseudo-label path.
+"""On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path,
+the pseudo-label path and the training step.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ JAX.  Phases, each printing one result line:
 2. build: every CUDA kernel compiled from dupl_tpu_torch/csrc for sm_90a,
    one nvcc per source, all at once;
 3. K1 (exp-attention) against its plain twin on the card, bf16, at the
-   serving path's token counts and one case with logits past the clamp;
+   token counts and batch sizes of the serving, pseudo-label and training
+   paths and one case with logits past the clamp;
 4. K5 (CRF kernel-apply) against its plain twin at the fast CRF's
    full-resolution slice (2 images of 448^2, 3,136 pivots, V = 22 and 1);
 5. the serving slice: a ViT-B/16 dual student (VOC, 21 classes, crop 448,
@@ -31,9 +32,31 @@ JAX.  Phases, each printing one result line:
    which must launch K4 at full width and match the timed call's labels on
    the images it shares with it;
 10. the pseudo-label path at crop 224, batch 2, on the card and on the CPU,
-   within the class budget and past it: refined and CRF labels must agree.
+   within the class budget and past it: refined and CRF labels must agree;
+11. K2 (exp-attention backward) against its plain twin at the training
+   step's shapes (B 4, H 12, D 64, N 785 and 442), one case per other head
+   dim and one with scores past the clamp, k and v strided as the model
+   passes them; timed beside autograd's backward through
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+12. the training slice: ``Trainer.train_step`` of the production recipe
+   (ViT-B/16 dual student, crop 448, batch 4, bf16 compute, fp32 stream in
+   the differentiated pass, bf16 stream in the no-grad CAM passes) in the
+   ``warmup``, ``seg`` and ``full`` phases, one untimed and three timed
+   steps each: finite losses, every trainable parameter moved (but the
+   decoder in warm-up, and never ``pos_embed``), the launches of K1-K4 a
+   step as counted from the code, no plain twin run on a CUDA tensor, and
+   no host sync inside a step (``torch.cuda.set_sync_debug_mode("error")``);
+   then K3 and K4 against their twins on the operands one of those steps
+   handed them (4 images at 224^2, the compacted class axis, fp32);
+13. one full-phase ``grad_step`` at crop 224, batch 2, with the same
+   augmentation draws, on the card and on the CPU, on a batch and a
+   confidence threshold that keep every loss term live: each side's labels
+   must agree; on the card's labels, losses and gradient directions must
+   agree; and the strong view's backward must change the gradient.
 
-Then a JSON line with every kernel's launches, error and times, and last
+Then a JSON line with every kernel's launches, error, times and bound (the
+least time the card could take: operations over its peak rate or bytes over
+its memory rate, whichever is larger), and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
 """
@@ -66,6 +89,7 @@ def main() -> int:
         return 2
 
     import numpy as np
+    import torch.nn.functional as F
 
     from dupl_tpu_torch.kernels import build
     from dupl_tpu_torch.ops import attention, crf, crf_cuda, par_cuda
@@ -109,6 +133,18 @@ def main() -> int:
         return torch.exp2(torch.floor(torch.log2(
             x.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
 
+    # NVIDIA's published peaks of one H100 SXM: dense bf16 on the tensor
+    # cores, fp32 outside them, device memory.
+    peak_flops = {"bf16": 989e12, "fp32": 67e12}
+    hbm_bytes_per_s = 3.35e12
+
+    def bound_ms(flops, kind, nbytes):
+        """The least time the card could take: (ms, what bounds it)."""
+        ops_ms = 1e3 * flops / peak_flops[kind]
+        bytes_ms = 1e3 * nbytes / hbm_bytes_per_s
+        return ((ops_ms, "operations") if ops_ms >= bytes_ms
+                else (bytes_ms, "bytes"))
+
     # -- 3. K1 against its twin ----------------------------------------------------
     # Tolerance: one bf16 ulp at the scale of each output row (max |out| over
     # the head dim).  Kernel and twin round the same fp32 quantities to bf16;
@@ -116,10 +152,13 @@ def main() -> int:
     # a bf16(e) entry, and an element that nearly cancels carries that error
     # at its row's scale.
     g = torch.Generator(device=dev).manual_seed(0)
-    k1 = {"err": 0.0, "ms": {}, "plain_ms": {}}
+    k1 = {"err": 0.0, "ms": {}, "plain_ms": {}, "library_ms": {}}
     cases = [(2, 197, 1.0), (2, 785, 1.0), (2, 1226, 1.0), (2, 1765, 1.0),
              (2, 785, 40.0),               # logits far past the clamp at 60
-             (16, 785, 1.0), (16, 1226, 1.0), (16, 1765, 1.0)]  # batch-8 x flip
+             (16, 785, 1.0), (16, 1226, 1.0), (16, 1765, 1.0),  # batch-8 x flip
+             # the training step at batch 4: scale 1.0, scales 0.5 and 1.5
+             # with their flips, the strong view
+             (4, 785, 1.0), (8, 197, 1.0), (8, 1765, 1.0), (4, 442, 1.0)]
     for b, n, mult in cases:
         q, k, v = (torch.randn(b, n, 12, 64, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
@@ -146,10 +185,18 @@ def main() -> int:
             k1["ms"][key] = time_ms(lambda: attention.exp_attention_cuda(qs, k, v))
             k1["plain_ms"][key] = time_ms(lambda: attention.exp_attention_ref(
                 bhnd(qs), bhnd(k), bhnd(v)).to(torch.bfloat16))
+            if b == 16:  # the yardstick: one library call, same operands
+                ql, kl, vl = (x.permute(0, 2, 1, 3).contiguous()
+                              for x in (qs, k, v))
+                k1["library_ms"][key] = time_ms(
+                    lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                           scale=1.0))
+                del ql, kl, vl
         del q, k, v, qs, got, want, err, bound
     print(f"[K1 exp_attention] max_abs_err {k1['err']:.4g} (bound: 1 bf16 ulp "
           f"of the row) | kernel ms {json.dumps(k1['ms'])} | plain ms "
-          f"{json.dumps(k1['plain_ms'])}", flush=True)
+          f"{json.dumps(k1['plain_ms'])} | library (F.scaled_dot_product_"
+          f"attention) ms {json.dumps(k1['library_ms'])}", flush=True)
 
     # -- 4. K5 against its twin ----------------------------------------------------
     # Inputs are the fast CRF's own: the pivot lattice of two smooth 448^2
@@ -512,38 +559,484 @@ def main() -> int:
         f"{name}: refined label agreement {r:.4f}, CRF label agreement {c:.4f}"
         for name, (r, c) in agree10.items()), flush=True)
 
-    k3_key = "uint8"
-    k4_key = "B=16,224x224,C=40,float32"
+    # -- 11. K2 against its twin ------------------------------------------------------
+    # Error in bf16 ulps of each output row's scale (max |row| over the head
+    # dim).  Kernel and twin round the same fp32 quantities to bf16 (ds before
+    # both of its products, p for dv, the results once) and sum in different
+    # orders.  Bounds: 2 ulps at the maximum and 0.01 ulp on average.  On an
+    # H100 the kernel measured 1.0 and 2.5e-4 at most; a version without
+    # delta lands 40-170 ulps away at the maximum, one that leaves ds in fp32
+    # ~0.09 ulp on average (its maximum, 1-2 ulps, does not show it).  With
+    # scores past the clamp the rows are nearly one-hot, t - delta cancels and
+    # the two summation orders differ by 10-17 ulps (bound 64); without the
+    # clamp mask the result is 340 ulps away, and 45 on average.
+    def qkvg(b, n, h, d, mult):
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(
+            torch.bfloat16)
+        q_, k_, v_ = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
+                      for i in range(3))     # column slices, as the ViT's
+        qs_ = (q_.float() * mult * d ** -0.5).to(torch.bfloat16)
+        go_ = torch.randn(b, n, h, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        return qs_, k_, v_, go_
+
+    k2 = {"err": 0.0, "ulps": {}, "ms": {}, "plain_ms": {}, "library_ms": {}}
+    for b, n, h, d, mult in [(4, 785, 12, 64, 1.0), (4, 442, 12, 64, 1.0),
+                             (2, 300, 4, 16, 1.0), (2, 257, 4, 32, 1.0),
+                             (2, 200, 2, 80, 1.0), (2, 442, 12, 64, 24.0)]:
+        qs, k, v, go = qkvg(b, n, h, d, mult)
+        check(not k.is_contiguous(), "K2: k should be a strided view")
+        got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+        torch.cuda.synchronize()
+        ops = tuple(attention._to_bhnd(x) for x in (qs, k, v, go))
+        want = attention.exp_attention_bwd_ref(*ops)
+        key = f"B={b},N={n},H={h},D={d}" + ("" if mult == 1.0 else f",q x{mult}")
+        worst = mean = 0.0
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            x, w = attention._to_bhnd(x).float(), w.float()
+            check(bool(torch.isfinite(x).all()), f"K2 {key}: non-finite {name}")
+            err = (x - w).abs()
+            ulps = err / bf16_ulp(w.abs().amax(-1, keepdim=True))
+            worst = max(worst, ulps.max().item())
+            mean = max(mean, ulps.mean().item())
+            k2["err"] = max(k2["err"], err.max().item())
+        k2["ulps"][key] = [worst, mean]
+        check(worst <= (2.0 if mult == 1.0 else 64.0) and mean <= 0.01,
+              f"K2 {key}: {worst:.3g} bf16 ulps of the row at the maximum, "
+              f"{mean:.3g} on average")
+        if d == 64 and mult == 1.0:
+            k2["ms"][key] = time_ms(
+                lambda: attention.exp_attention_bwd_cuda(qs, k, v, go))
+            k2["plain_ms"][key] = time_ms(
+                lambda: attention.exp_attention_bwd_ref(*ops))
+            ql, kl, vl = (x.permute(0, 2, 1, 3).detach().clone()
+                          .requires_grad_() for x in (qs, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
+            gl = go.permute(0, 2, 1, 3).contiguous()
+            k2["library_ms"][key] = time_ms(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), gl, retain_graph=True))
+            del ql, kl, vl, out, gl
+        del qs, k, v, go, got, want, ops
+    print(f"[K2 exp_attention_bwd] max_abs_err {k2['err']:.4g} | bf16 ulps of "
+          f"the row [max, mean] {json.dumps(k2['ulps'])} (bounds 2, or 64 "
+          f"past the clamp, and 0.01) | kernel ms {json.dumps(k2['ms'])} | "
+          f"plain ms {json.dumps(k2['plain_ms'])} | library (backward of "
+          f"F.scaled_dot_product_attention) ms "
+          f"{json.dumps(k2['library_ms'])}", flush=True)
+
+    # -- 12. the training slice ------------------------------------------------------
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.engine.train import (Trainer, phase_of, phase_start,
+                                             production_config)
+
+    del model, pl_fn, cpu_fn, session
+    torch.cuda.empty_cache()
+    tcfg = production_config("voc")
+    check(tcfg.model.backbone == "deit_base_patch16"
+          and tcfg.data.crop_size == 448
+          and tcfg.model.cam_stream_dtype == "bfloat16"
+          and tcfg.cam_merge_downscale == 2,
+          "production_config() is not the ViT-B/16 training recipe")
+    trainer = Trainer(tcfg, device=dev)
+    state = trainer.init_state()
+    batch12 = trainer.put(synthetic_batch(4, crop=448,
+                                          num_fg=tcfg.model.num_fg))
+
+    # A plain twin must never see a CUDA tensor: count such calls.
+    twins = [(attention, "exp_attention_ref"),
+             (attention, "exp_attention_bwd_ref"),
+             (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
+             (crf_cuda, "kernel_apply_ref")]
+    twin_calls = []
+
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                twin_calls.append(name)
+            return fn(*a, **kw)
+        return fn, wrapped
+
+    train_counters = {"exp_attention": attention.exp_attention_cuda,
+                      "exp_attention_bwd": attention.exp_attention_bwd_cuda,
+                      "par_affinity": par_cuda.affinity_cuda,
+                      "par_propagate": par_cuda.propagate_cuda}
+    # per student: scale 1.0 with grad and its flip without, scales 0.5 and
+    # 1.5 with their flips in one batch, and in the full phase the strong
+    # view with grad; 12 blocks each, two students
+    expected = {
+        "warmup": {"exp_attention": 96, "exp_attention_bwd": 24,
+                   "par_affinity": 0, "par_propagate": 0},
+        "seg": {"exp_attention": 96, "exp_attention_bwd": 24,
+                "par_affinity": 1, "par_propagate": tcfg.par.num_iter},
+        "full": {"exp_attention": 120, "exp_attention_bwd": 48,
+                 "par_affinity": 1, "par_propagate": tcfg.par.num_iter},
+    }
+    originals = []
+    for mod, name in twins:
+        fn, wrapped = counting(mod, name)
+        originals.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    # The operands PAR hands K3 and K4 in a training step, kept from the seg
+    # phase's untimed step and held against the twins below.
+    par_operands = {}
+
+    def keeping(name):
+        fn = getattr(par_cuda, name)
+
+        def wrapped(*a):
+            par_operands[name] = tuple(
+                x.detach().clone() if isinstance(x, torch.Tensor) else x
+                for x in a)
+            return fn(*a)
+        return fn, wrapped
+
+    train12 = {}
+    try:
+        for phase in ("warmup", "seg", "full"):
+            state.step = state.optimizer.global_step = phase_start(tcfg, phase)
+            check(phase_of(tcfg, state.step) == phase, f"step is not in {phase}")
+            before12 = {n_: p_.detach().clone()
+                        for n_, p_ in state.model.named_parameters()}
+            kept = [("affinity",) + keeping("affinity"),
+                    ("propagate",) + keeping("propagate")] if phase == "seg" else []
+            for name, _, wrapped in kept:
+                setattr(par_cuda, name, wrapped)
+            try:
+                trainer.train_step(state, batch12)
+            finally:
+                for name, fn, _ in kept:
+                    setattr(par_cuda, name, fn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times12 = []
+            for _ in range(3):
+                for f in train_counters.values():
+                    f.launches = 0
+                t = time.perf_counter()
+                # no host sync inside a step: PyTorch raises on any of its
+                # own calls that would wait for the device
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    _, metrics12 = trainer.train_step(state, batch12)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                times12.append(time.perf_counter() - t)
+                step_launches = {k_: f.launches
+                                 for k_, f in train_counters.items()}
+                check(step_launches == expected[phase],
+                      f"{phase}: launches a step {step_launches}, expected "
+                      f"{expected[phase]}")
+            losses12 = {k_: v_.item() for k_, v_ in metrics12.items()}
+            check(all(np.isfinite(v_) for v_ in losses12.values()),
+                  f"{phase}: non-finite loss {losses12}")
+            for n_, p_ in state.model.named_parameters():
+                moved = not torch.equal(p_.detach(), before12[n_])
+                frozen = "pos_embed" in n_ or (phase == "warmup"
+                                               and ".decoder." in n_)
+                check(moved != frozen, f"{phase}: parameter {n_} "
+                      f"{'moved' if moved else 'did not move'}")
+            med12 = statistics.median(times12)
+            train12[phase] = {
+                "ms": 1e3 * med12, "launches": step_launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            print(f"[training slice] {phase}: ViT-B/16 dual student, crop 448, "
+                  f"batch 4 | median {1e3 * med12:.1f} ms/step of 3 "
+                  f"({', '.join(f'{1e3 * t:.1f}' for t in times12)}) | "
+                  f"{4 / med12:.3f} img/s | peak memory "
+                  f"{train12[phase]['peak_gib']:.3f} GiB | launches a step "
+                  f"{json.dumps(step_launches)} | loss {losses12['loss']:.4f}",
+                  flush=True)
+            del before12
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+
+        # -- 13. training step, card against CPU -----------------------------------
+        # One full-phase grad_step from the same weights, batch and
+        # augmentation draws, crop 224, batch 2, bf16 compute on both sides.
+        # The card runs K1 + K2 (max-free exp softmax, bf16 probabilities and
+        # ds), K3 and K4; the CPU runs exact softmax under plain autograd and
+        # the PAR twins.  bf16 rounds at different places, bilinear-resize
+        # backward on the card sums with atomics, and a pseudo-label pixel
+        # that flips moves the seg and consistency terms; so the bounds are:
+        # refined and filtered labels at least 98% equal, every loss term
+        # within 2e-2 of the larger side plus 5e-3, and the gradients of each
+        # group at a cosine of 0.98 (encoder) or 0.99 (heads, decoder) or
+        # more.
+        #
+        # Two things are set so that every term is live, and each is checked
+        # below.  (a) The synthetic batch's crop box starts at row 16, and the
+        # PTC targets apply the box's full-resolution coordinates to the
+        # 14 x 14 patch map (the reference's slice clamping), which leaves no
+        # labelled patch: no pair, and a PTC term of exactly 1.  Here image 0
+        # gets the whole image as its box and image 1 a box that starts
+        # inside the patch map.  (b) Seeded random weights are 0.06-0.14
+        # confident, never the recipe's ``reg_conf_thre`` of 0.9, which leaves
+        # the consistency term at exactly 0; here the threshold is 0.08, near
+        # the median, so the term has pixels and the threshold still masks.
+        #
+        # The labels are compared first, each side's own (at least 98%
+        # equal).  Losses and gradients are then compared on shared discrete
+        # intermediates: the CPU step takes the card step's PTC targets and
+        # its refined and filtered labels.  These weights label 0.3-3% of
+        # the pixels foreground, and the GMM filter drops the foreground
+        # pixels of highest loss, so on each side's own labels the seg
+        # term's foreground mean follows the ~150 pixels that differ: gaps
+        # of 0.003 to 0.6 over runs and seeds with labels 99.8% equal, which
+        # says nothing about the kernels.  Measured on an H100: labels 0.9980
+        # equal; on shared labels the largest loss gap 0.00053 (the
+        # classification term), cosines 0.99846, 1.00000 and 0.99986, the
+        # strong view's backward 3.1% of the gradient's norm.
+        # At this crop the scale-0.5 views (50 tokens) and the strong view
+        # (168^2, 101 tokens) are below the kernels' 128 tokens and take
+        # plain softmax on both sides: K1 and K2 run at 197 and 442 tokens.
+        import copy
+
+        from dupl_tpu_torch.engine.optimizer import group_of
+        from dupl_tpu_torch.ops import augment
+
+        tcfg13 = production_config("voc", reg_conf_thre=0.08)
+        batch13 = synthetic_batch(2, crop=224, num_fg=tcfg.model.num_fg)
+        batch13["img_box"] = np.array([[0, 224, 0, 224], [4, 224, 2, 216]],
+                                      batch13["img_box"].dtype)
+        step13 = phase_start(tcfg13, "full")
+        ops13 = augment.draw_ops(torch.Generator().manual_seed(13),
+                                 tcfg13.aug_n, 2)
+        card_trainer = Trainer(tcfg13, model=state.model, device=dev)
+        card_state = card_trainer.init_state(init=False)
+        cpu_model = copy.deepcopy(state.model).to("cpu")
+        cpu_trainer = Trainer(tcfg13, model=cpu_model, device="cpu")
+        cpu_state = cpu_trainer.init_state(init=False)
+        sides, shared13 = {}, {}
+
+        def share(tr, stage, give):
+            """Keep what a stage of the card's step returns, or hand it to
+            the CPU's step in place of its own."""
+            fn = getattr(tr, stage)
+
+            def wrapped(*a, **kw):
+                if give:
+                    return shared13[stage].to(tr.device)
+                shared13[stage] = fn(*a, **kw)
+                return shared13[stage]
+            setattr(tr, stage, wrapped)
+
+        for name, tr, st in (("card", card_trainer, card_state),
+                             ("cpu", cpu_trainer, cpu_state)):
+            labels = tr.full_phase_labels(batch13, step13)
+            for stage in ("_ptc_targets", "_refine", "_gmm_filter"):
+                share(tr, stage, give=name == "cpu")
+            for f in train_counters.values():
+                f.launches = 0
+            grads, metrics = tr.grad_step(st, batch13, step=step13,
+                                          aug_ops=ops13.to(tr.device))
+            sides[name] = ([x.cpu() for x in labels],
+                           {k_: v_.float().cpu() for k_, v_ in grads.items()},
+                           {k_: v_.item() for k_, v_ in metrics.items()},
+                           {k_: f.launches for k_, f in train_counters.items()})
+        check(sides["card"][3] == {"exp_attention": 72, "exp_attention_bwd": 24,
+                                   "par_affinity": 1,
+                                   "par_propagate": tcfg13.par.num_iter}
+              and not any(sides["cpu"][3].values()),
+              f"card vs CPU grad_step launches: card {sides['card'][3]}, "
+              f"CPU {sides['cpu'][3]}")
+        # The strong view's forward and backward add a gradient of their own:
+        # the same step on the card without the consistency term (its only
+        # consumer) must give another gradient.
+        noreg_trainer = Trainer(
+            production_config("voc", reg_conf_thre=0.08, w_reg=0.0),
+            model=state.model, device=dev)
+        noreg_grads, _ = noreg_trainer.grad_step(
+            noreg_trainer.init_state(init=False), batch13, step=step13,
+            aug_ops=ops13.to(dev))
+        num = sum((sides["card"][1][n_].double() - g_.double().cpu())
+                  .square().sum() for n_, g_ in noreg_grads.items())
+        den = sum(g_.double().square().sum()
+                  for g_ in sides["card"][1].values())
+        strong_share = (num.sqrt() / den.sqrt()).item()
+        del noreg_grads, noreg_trainer
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    # K3 and K4 against their twins on the operands of that training step:
+    # 4 images at 224^2 (the 448^2 crop halved by a bilinear resize, so not
+    # on the uint8 grid) and the compacted class axis in fp32.  Bounds as in
+    # phases 7 and 8.
+    img_t, *aff_args = par_operands["affinity"]
+    masks_t, aff_t, *prop_args = par_operands["propagate"]
+    check(img_t.shape == (4, 224, 224, 3) and masks_t.shape[:3] == (4, 224, 224)
+          and aff_t.shape == (4, 8 * len(tcfg.par.dilations), 224, 224),
+          f"training PAR operands: image {tuple(img_t.shape)}, masks "
+          f"{tuple(masks_t.shape)}, affinity {tuple(aff_t.shape)}")
+    got = par_cuda.affinity(img_t, *aff_args)
+    want = par_cuda.affinity_ref(img_t, *aff_args)
+    err3 = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err3 <= 1e-5,
+          f"K3 on the training step's image: error {err3:.3g} exceeds 1e-5")
+    check(bool(torch.equal(got, aff_t)), "K3 is not repeatable on the "
+          "training step's image")
+    k3["err"] = max(k3["err"], err3)
+    k3["ms"]["train"] = time_ms(lambda: par_cuda.affinity(img_t, *aff_args))
+    k3["plain_ms"]["train"] = time_ms(
+        lambda: par_cuda.affinity_ref(img_t, *aff_args))
+    got = par_cuda.propagate(masks_t, aff_t, *prop_args)
+    want = par_cuda.propagate_ref(masks_t, aff_t, *prop_args)
+    err4 = (got - want).abs().max().item()
+    bound4 = 1e-5 * want.abs().max().item()
+    check(prop_args[-1] == "float32", f"training PAR runs in {prop_args[-1]}")
+    check(bool(torch.isfinite(got).all()) and err4 <= bound4,
+          f"K4 on the training step's masks: error {err4:.3g} > {bound4:.3g}")
+    key4t = f"train B=4,224x224,C={masks_t.shape[3]},float32"
+    k4["err"][key4t] = err4
+    k4["ms"][key4t] = time_ms(
+        lambda: par_cuda.propagate(masks_t, aff_t, *prop_args))
+    k4["plain_ms"][key4t] = time_ms(
+        lambda: par_cuda.propagate_ref(masks_t, aff_t, *prop_args), iters=3,
+        warmup=1)
+    print(f"[K3, K4 on a training step's operands] image {tuple(img_t.shape)}, "
+          f"masks {tuple(masks_t.shape)}, {prop_args[1]} rounds | K3 "
+          f"max_abs_err {err3:.4g} (bound 1e-5), kernel ms "
+          f"{k3['ms']['train']:.4f}, plain ms {k3['plain_ms']['train']:.4f} | "
+          f"K4 max_abs_err {err4:.4g} (bound {bound4:.4g}), kernel ms "
+          f"{k4['ms'][key4t]:.4f}, plain ms {k4['plain_ms'][key4t]:.4f}",
+          flush=True)
+    del par_operands, img_t, masks_t, aff_t, got, want
+
+    (g_lab, g_grads, g_m, _), (c_lab, c_grads, c_m, _) = (sides["card"],
+                                                          sides["cpu"])
+    agree13 = [(a == b_).float().mean().item() for a, b_ in zip(g_lab, c_lab)]
+    check(min(agree13) >= 0.98, f"card vs CPU training labels: refined "
+          f"{agree13[0]:.4f}, filtered {agree13[1]:.4f}")
+    noise13 = ((g_lab[1] == tcfg13.ignore_index)
+               & (g_lab[0] != tcfg13.ignore_index)).float().mean().item()
+    fg13 = ((g_lab[1] != tcfg13.ignore_index)
+            & (g_lab[1] != 0)).float().mean().item()
+    pairs13 = int(((shared13["_ptc_targets"] == 0)
+                   | (shared13["_ptc_targets"] == 1)).sum().item())
+    check(fg13 > 0 and pairs13 > 0, f"no foreground label ({fg13:.4f} of the "
+          f"pixels) or no PTC pair ({pairs13})")
+    terms13 = ("cls_loss", "ptc_loss", "seg_loss", "sim_loss", "reg_loss",
+               "loss")
+    loss_gap = {}
+    for k_ in terms13:
+        check(np.isfinite(g_m[k_]), f"card {k_} is not finite")
+        loss_gap[k_] = abs(g_m[k_] - c_m[k_])
+        check(loss_gap[k_] <= 5e-3 + 2e-2 * max(abs(g_m[k_]), abs(c_m[k_])),
+              f"card vs CPU {k_}: {g_m[k_]:.5g} vs {c_m[k_]:.5g}")
+    # every term is live: PTC has pairs (it is exactly 1 without any), the
+    # consistency term has pixels (0 without), and the strong view's
+    # backward moves the gradient (two runs of one step differ by ~1e-6 of
+    # it through the resize backward's atomics)
+    for m_ in (g_m, c_m):
+        check(m_["ptc_loss"] != 1.0 and m_["reg_loss"] > 0.1
+              and m_["seg_loss"] > 0.1,
+              f"a loss term of the card-vs-CPU step is constant: {m_}")
+    check(strong_share > 1e-3, f"the strong view's backward changes the "
+          f"gradient by {strong_share:.3g} of its norm")
+    check(g_grads.keys() == c_grads.keys(), "card and CPU gradients differ "
+          "in which parameters have one")
+    cos13 = {}
+    for grp, cos_bound in (("base", 0.98), ("head", 0.99), ("decoder", 0.99)):
+        # float64: a float32 dot product over 86 M entries is itself
+        # several percent off
+        a = torch.cat([g_grads[n_].flatten() for n_ in g_grads
+                       if group_of(n_) == grp]).double()
+        b_ = torch.cat([c_grads[n_].flatten() for n_ in g_grads
+                        if group_of(n_) == grp]).double()
+        check(bool(torch.isfinite(a).all()), f"non-finite {grp} gradient")
+        cos13[grp] = F.cosine_similarity(a, b_, dim=0).item()
+        check(cos13[grp] >= cos_bound, f"card vs CPU gradient cosine of the "
+              f"{grp} group: {cos13[grp]:.4f} < {cos_bound}")
+    print(f"[training card vs cpu] crop 224 batch 2, full phase | labels equal: "
+          f"refined {agree13[0]:.4f}, filtered {agree13[1]:.4f} (bound 0.98; "
+          f"the GMM filter marks {noise13:.4f} of the pixels, {fg13:.4f} are "
+          f"foreground, {pairs13} PTC pairs) | on the card's labels: losses "
+          f"card "
+          f"{json.dumps({k_: round(g_m[k_], 6) for k_ in terms13})} | cpu "
+          f"{json.dumps({k_: round(c_m[k_], 6) for k_ in terms13})} | gaps "
+          f"{json.dumps({k_: round(v_, 6) for k_, v_ in loss_gap.items()})} "
+          f"(bound 5e-3 + 2e-2 relative) | gradient cosine "
+          f"{json.dumps({k_: round(v_, 5) for k_, v_ in cos13.items()})} "
+          f"(bounds 0.98, 0.99, 0.99) | the strong view's backward is "
+          f"{strong_share:.4f} of the gradient's norm (bound 1e-3) | launches "
+          f"of the card's step {json.dumps(sides['card'][3])}", flush=True)
+
+    # The kernels line.  ``launches``: the count of one run of the main path
+    # that uses the kernel (the serving round for K1 and K5, the timed
+    # pseudo-label calls for K3 and K4, one full-phase training step for K2),
+    # each read with the counts set to 0 just before.  ``bound_ms``: from the
+    # shapes timed here; each input read once, each output written once.
+    k1_key, k2_key = "BH=192,N=1765", "B=4,N=785,H=12,D=64"
+    k3_key, k4_key = "uint8", "B=16,224x224,C=40,float32"
+    k5_key = "B=2,N=200704,Ns=3136,V=22"
+    taps = 8 * len(cfg.par.dilations)
+    pix = 16 * 224 * 224
+    bounds = {
+        # 2 products of 2 N^2 D FLOPs a head; q, k, v in, out written, bf16
+        "exp_attention": bound_ms(4 * 192 * 1765 ** 2 * 64, "bf16",
+                                  4 * 192 * 1765 * 64 * 2),
+        # 5 products a head; q, k, v, g in, dq, dk, dv out, bf16
+        "exp_attention_bwd": bound_ms(10 * 48 * 785 ** 2 * 64, "bf16",
+                                      7 * 48 * 785 * 64 * 2),
+        # per (pixel, pivot): 11 + V fp32 FMAs; basis, coef, logc, values in,
+        # (N, V) out, fp32
+        "crf_apply": bound_ms(2 * (11 + 22) * 2 * 200704 * 3136, "fp32",
+                              4 * 2 * (200704 * 11 + 11 * 3136 + 3136
+                                       + 3136 * 22 + 200704 * 22)),
+        # per pixel ~20 fp32 operations a tap; 12 bytes in, 4 a tap out
+        "par_affinity": bound_ms(20 * taps * pix, "fp32", pix * (12 + 4 * taps)),
+        # 10 rounds of one fp32 FMA a tap and pixel-channel; masks in and
+        # out, the affinity in, fp32
+        "par_propagate": bound_ms(cfg.par.num_iter * 2 * taps * pix * 40,
+                                  "fp32", 4 * pix * (2 * 40 + taps)),
+    }
+
+    def entry(name, source, replaces, launches_, err, ms, plain, library,
+              **more):
+        b_ms, b_by = bounds[name]
+        return {"name": name, "route": "cuda",
+                "source": f"dupl_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+                **more}
+
+    def per_phase(name):
+        return {ph: train12[ph]["launches"][name] for ph in train12}
+
     kernels = [
-        {"name": "exp_attention", "route": "cuda",
-         "source": "dupl_tpu_torch/csrc/exp_attention.cu",
-         "replaces": "dupl_tpu/ops/attention.py:98",
-         "launches": launches["exp_attention"],
-         "launches_pseudo_label": pl_launches["exp_attention"],
-         "max_abs_err": k1["err"],
-         "ms": k1["ms"]["BH=192,N=1765"],
-         "plain_ms": k1["plain_ms"]["BH=192,N=1765"]},
-        {"name": "crf_apply", "route": "cuda",
-         "source": "dupl_tpu_torch/csrc/crf_apply.cu",
-         "replaces": "dupl_tpu/ops/crf_pallas.py:30",
-         "launches": launches["crf_apply"],
-         "launches_pseudo_label": pl_launches["crf_apply"],
-         "max_abs_err": k5["err"],
-         "ms": k5["ms"]["B=2,N=200704,Ns=3136,V=22"],
-         "plain_ms": k5["plain_ms"]["B=2,N=200704,Ns=3136,V=22"]},
-        {"name": "par_affinity", "route": "cuda",
-         "source": "dupl_tpu_torch/csrc/par_affinity.cu",
-         "replaces": "dupl_tpu/ops/par_pallas.py:141",
-         "launches": pl_launches["par_affinity"],
-         "max_abs_err": k3["err"],
-         "ms": k3["ms"][k3_key], "plain_ms": k3["plain_ms"][k3_key]},
-        {"name": "par_propagate", "route": "cuda",
-         "source": "dupl_tpu_torch/csrc/par_propagate.cu",
-         "replaces": "dupl_tpu/ops/par_pallas.py:37",
-         "launches": pl_launches["par_propagate"],
-         "max_abs_err": k4["err"][k4_key],
-         "ms": k4["ms"][k4_key], "plain_ms": k4["plain_ms"][k4_key]},
+        entry("exp_attention", "exp_attention.cu",
+              "dupl_tpu/ops/attention.py:98", launches["exp_attention"],
+              k1["err"], k1["ms"][k1_key], k1["plain_ms"][k1_key],
+              k1["library_ms"][k1_key],
+              launches_pseudo_label=pl_launches["exp_attention"],
+              launches_train=per_phase("exp_attention")),
+        entry("exp_attention_bwd", "exp_attention_bwd.cu",
+              "dupl_tpu/ops/attention.py:164",
+              train12["full"]["launches"]["exp_attention_bwd"], k2["err"],
+              k2["ms"][k2_key], k2["plain_ms"][k2_key],
+              k2["library_ms"][k2_key],
+              launches_train=per_phase("exp_attention_bwd")),
+        entry("crf_apply", "crf_apply.cu", "dupl_tpu/ops/crf_pallas.py:30",
+              launches["crf_apply"], k5["err"], k5["ms"][k5_key],
+              k5["plain_ms"][k5_key], None,
+              launches_pseudo_label=pl_launches["crf_apply"]),
+        entry("par_affinity", "par_affinity.cu",
+              "dupl_tpu/ops/par_pallas.py:141", pl_launches["par_affinity"],
+              k3["err"], k3["ms"][k3_key], k3["plain_ms"][k3_key], None,
+              launches_train=per_phase("par_affinity")),
+        entry("par_propagate", "par_propagate.cu",
+              "dupl_tpu/ops/par_pallas.py:37", pl_launches["par_propagate"],
+              k4["err"][k4_key], k4["ms"][k4_key], k4["plain_ms"][k4_key],
+              None, launches_train=per_phase("par_propagate")),
     ]
+    check(all(e["launches"] > 0 for e in kernels),
+          "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

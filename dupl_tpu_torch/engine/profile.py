@@ -1,11 +1,13 @@
-"""Where the time goes in the pseudo-label factory, on one card.
+"""Where the time goes in the pseudo-label factory or in a training step,
+on one card.
 
-    python -m dupl_tpu_torch.engine.profile [--batch 16] [--crop 448]
-                                            [--out build/profile]
+    python -m dupl_tpu_torch.engine.profile [--path pseudo_label|train]
+        [--batch N] [--crop 448] [--phase full] [--out build/profile]
 
-Builds ``voc_config()``'s ViT-B/16 dual student from seed 0 and feeds
-``make_pseudo_label_fn`` the synthetic inputs of :func:`pseudo_label_inputs`.
-After two warm-up calls it prints:
+``--path pseudo_label`` (the default, batch 16) builds ``voc_config()``'s
+ViT-B/16 dual student from seed 0 and feeds ``make_pseudo_label_fn`` the
+synthetic inputs of :func:`pseudo_label_inputs`.  After two warm-up calls it
+prints:
 
 * the wall time of five calls (median) and the host CPU time of one;
 * one call traced with ``torch.profiler``: its wall time, the device's busy
@@ -14,8 +16,17 @@ After two warm-up calls it prints:
 * the stages timed with CUDA events, each run on its own: the multi-scale
   CAM of each student, the PAR refinement of both, the fast CRF.
 
-The trace goes to ``<out>/pseudo_label_trace.json`` (open it in Perfetto),
-and the last line of the output is a JSON summary.
+``--path train`` (batch 4) builds the production training recipe
+(``engine.train.production_config``), seeded weights and one synthetic batch,
+takes two untimed ``Trainer.train_step`` calls in ``--phase`` and prints the
+same three things for a step: wall times of five steps and the host CPU time
+of one; one traced step (device busy time, idle share, kernels by device
+time); and the step's stages from CUDA events recorded where each stage's
+work has been queued (``Trainer.stage_hook``), so a stage's time includes
+any wait of the device for the host inside it.
+
+The trace goes to ``<out>/<path>_trace.json`` (open it in Perfetto), and the
+last line of the output is a JSON summary.
 """
 
 from __future__ import annotations
@@ -81,18 +92,107 @@ def kernel_table(events: Iterable[dict], top: int = 15) -> Dict[str, list]:
             for name, us in tot.most_common(top)}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--crop", type=int, default=448)
-    ap.add_argument("--out", default=os.path.join("build", "profile"))
-    args = ap.parse_args(argv)
-
+def measure(call, trace_path: str) -> Tuple[dict, Dict[str, list]]:
+    """Five timed calls, the host CPU time of one and one traced call of
+    ``call`` (already warmed up) -> (summary fields, kernel table)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile: no CUDA device", file=sys.stderr)
-        return 2
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    cpu0 = time.process_time()
+    call()
+    torch.cuda.synchronize()
+    host_cpu_ms = 1e3 * (time.process_time() - cpu0)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t)
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    busy_us, first, last = device_busy_us(events)
+    return {
+        "wall_ms_median_of_5": statistics.median(walls),
+        "wall_ms": walls, "host_cpu_ms": host_cpu_ms,
+        "traced_wall_ms": traced_ms, "device_busy_ms": busy_us / 1e3,
+        "device_span_ms": (last - first) / 1e3,
+        # tracing slows the host; where the host is the bound, the traced
+        # call is longer than an untraced one and its idle share larger
+        "device_idle_share": 1.0 - busy_us / 1e3 / traced_ms,
+        "device_busy_share_of_untraced_wall":
+            busy_us / 1e3 / statistics.median(walls),
+    }, kernel_table(events)
+
+
+def report(summary: dict, kernels: Dict[str, list], trace_path: str) -> None:
+    print("kernels by device time (ms, launches):")
+    for name, (ms, n) in kernels.items():
+        print(f"  {ms:9.3f} {n:5d}  {name}")
+    print(f"trace: {trace_path}")
+    print(json.dumps(summary), flush=True)
+
+
+def profile_train(args, trace_path: str) -> None:
+    import torch
+
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.engine.train import (Trainer, phase_start,
+                                             production_config)
+
+    cfg = production_config("voc")
+    trainer = Trainer(cfg, device="cuda:0")
+    state = trainer.init_state()
+    state.step = state.optimizer.global_step = phase_start(cfg, args.phase)
+    batch = trainer.put(synthetic_batch(args.batch, crop=args.crop,
+                                        num_fg=cfg.model.num_fg))
+
+    def step():
+        trainer.train_step(state, batch)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the stages first: once the profiler has run, its tracing library stays
+    # loaded and every later launch costs the host more
+    stage_runs = []
+    for _ in range(3):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def hook(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        trainer.stage_hook = hook
+        step()
+        trainer.stage_hook = None
+        torch.cuda.synchronize()
+        stage_runs.append({name: a.elapsed_time(b) for (_, a), (name, b)
+                           in zip(marks, marks[1:])})
+    summary, kernels = measure(step, trace_path)
+    stages = {name: statistics.median(r[name] for r in stage_runs)
+              for name in stage_runs[0]}
+    summary = {"device": torch.cuda.get_device_name(0), "path": "train",
+               "phase": args.phase, "batch": args.batch, "crop": args.crop,
+               **summary, "stages_ms": stages,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report(summary, kernels, trace_path)
+
+
+def profile_pseudo_label(args, trace_path: str) -> None:
+    import torch
+
     from dupl_tpu_torch.config import voc_config
     from dupl_tpu_torch.engine import train
     from dupl_tpu_torch.engine.export import make_pseudo_label_fn
@@ -103,8 +203,6 @@ def main(argv=None) -> int:
     from dupl_tpu_torch.ops import image as image_ops
 
     dev = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = voc_config()
     model = DualStudent(cfg.model)
     init_weights(model, torch.Generator().manual_seed(0))
@@ -116,31 +214,7 @@ def main(argv=None) -> int:
         fn(*call_args)
     torch.cuda.synchronize()
 
-    walls = []
-    for _ in range(5):
-        t = time.perf_counter()
-        fn(*call_args)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t))
-    cpu0 = time.process_time()
-    fn(*call_args)
-    torch.cuda.synchronize()
-    host_cpu_ms = 1e3 * (time.process_time() - cpu0)
-
-    os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, "pseudo_label_trace.json")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        fn(*call_args)
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t)
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    busy_us, first, last = device_busy_us(events)
-    kernels = kernel_table(events)
+    summary, kernels = measure(lambda: fn(*call_args), trace_path)
 
     def stage_ms(stage, reps=3):
         out = []
@@ -179,22 +253,39 @@ def main(argv=None) -> int:
         stages["crf"] = stage_ms(lambda: crf_ops.crf_from_config(
             image01, probs, cfg.crf, fast=True, return_logits=True))
 
-    summary = {
-        "device": torch.cuda.get_device_name(0),
-        "batch": args.batch, "crop": args.crop,
-        "wall_ms_median_of_5": statistics.median(walls),
-        "wall_ms": walls, "host_cpu_ms": host_cpu_ms,
-        "traced_wall_ms": traced_ms, "device_busy_ms": busy_us / 1e3,
-        "device_span_ms": (last - first) / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e3 / traced_ms,
-        "stages_ms": stages,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-    }
-    print("kernels by device time (ms, launches):")
-    for name, (ms, n) in kernels.items():
-        print(f"  {ms:9.3f} {n:5d}  {name}")
-    print(f"trace: {trace_path}")
-    print(json.dumps(summary), flush=True)
+    summary = {"device": torch.cuda.get_device_name(0),
+               "path": "pseudo_label", "batch": args.batch, "crop": args.crop,
+               **summary, "stages_ms": stages,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report(summary, kernels, trace_path)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", default="pseudo_label",
+                    choices=("pseudo_label", "train"))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 16 for pseudo_label, 4 for train")
+    ap.add_argument("--crop", type=int, default=448)
+    ap.add_argument("--phase", default="full",
+                    choices=("warmup", "seg", "full"),
+                    help="the curriculum phase of --path train")
+    ap.add_argument("--out", default=os.path.join("build", "profile"))
+    args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 16 if args.path == "pseudo_label" else 4
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    trace_path = os.path.join(args.out, f"{args.path}_trace.json")
+    {"pseudo_label": profile_pseudo_label,
+     "train": profile_train}[args.path](args, trace_path)
     return 0
 
 

@@ -8,11 +8,15 @@ by flax parameter path, every leaf branch-stacked on a leading axis of 2
 names (``branch1.encoder.blocks.0.attn.qkv.weight`` -> (3D, D)): Dense
 kernels are transposed, conv kernels go HWIO -> OIHW, the Dense classifiers
 become (C-1, D, 1, 1) 1x1 convs, LayerNorm ``scale`` becomes ``weight``.
+
+The mapping is a pure relayout, so it carries any tree shaped like the
+parameters: a JAX gradient tree, or the optimizer's first and second
+moments (:func:`optimizer_state_from_jax`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -65,6 +69,35 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
             name, leaf = _student_entry(key[len("params/"):], arr[i])
             sd[f"branch{i + 1}.{name}"] = torch.from_numpy(
                 np.ascontiguousarray(leaf))
+    return sd
+
+
+def optimizer_state_from_jax(optimizer, step: int,
+                             count: Mapping[str, Any],
+                             mu: Mapping[str, np.ndarray],
+                             nu: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """A JAX ``PhasedAdamWState`` -> a state dict for the port's
+    ``PolyWarmupAdamW`` (``optimizer.load_state_dict`` takes it), so a JAX
+    train state at step k continues in the port.  ``step`` is the schedule
+    step; ``count``, ``mu`` and ``nu`` are the state's three trees flattened
+    to flax paths as the weights are (``params/...``): per-leaf Adam step
+    counts, and branch-stacked first and second moments."""
+    mu_sd, nu_sd = state_dict_from_jax(mu), state_dict_from_jax(nu)
+    counts = {}
+    for key, c in count.items():
+        for i in range(2):
+            name, _ = _student_entry(key[len("params/"):],
+                                     np.asarray(mu[key])[i])
+            counts[f"branch{i + 1}.{name}"] = int(c)
+    sd = optimizer.state_dict()
+    state, index = {}, 0
+    for group in sd["param_groups"]:
+        for name in group["names"]:
+            state[index] = {"step": counts[name], "exp_avg": mu_sd[name],
+                            "exp_avg_sq": nu_sd[name]}
+            index += 1
+    sd["state"] = state
+    sd["global_step"] = int(step)
     return sd
 
 

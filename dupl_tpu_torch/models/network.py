@@ -10,7 +10,7 @@ leading branch axis so callers see the JAX package's shapes.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -60,11 +60,12 @@ class Student(nn.Module):
         dt = torch.promote_types(x.dtype, w.dtype)
         return torch.matmul(x.to(dt), w.to(dt).t())
 
-    def _features(self, x: torch.Tensor):
+    def _features(self, x: torch.Tensor,
+                  stream_dtype: Optional[torch.dtype] = None):
         """x: (B, H, W, 3) -> (fmap, aux), each (B, h, w, D)."""
         b, hh, ww, _ = x.shape
         h, w = hh // self.patch_size, ww // self.patch_size
-        _, tokens, aux_tokens = self.encoder(x)
+        _, tokens, aux_tokens = self.encoder(x, stream_dtype=stream_dtype)
         d = tokens.shape[-1]
         return tokens.reshape(b, h, w, d), aux_tokens.reshape(b, h, w, d)
 
@@ -78,11 +79,14 @@ class Student(nn.Module):
         """x: (B, H, W, 3) ImageNet-normalised -> StudentOut."""
         return self._heads(*self._features(x))
 
-    def cam_only(self, x: torch.Tensor):
+    def cam_only(self, x: torch.Tensor,
+                 stream_dtype: Optional[torch.dtype] = None):
         """CAM = the classifiers applied per pixel to the main and aux
         feature maps, detached (model_dupl.py:81-84).  x: (B, H, W, 3) ->
-        (cam, cam_aux), each (B, h, w, C_fg) at patch resolution."""
-        fmap, aux = self._features(x)
+        (cam, cam_aux), each (B, h, w, C_fg) at patch resolution.
+        ``stream_dtype`` runs this pass, with the same parameters, on
+        another residual-stream dtype (the trainer's no-grad CAM passes)."""
+        fmap, aux = self._features(x, stream_dtype)
         return (self._dense(self.classifier, fmap).detach(),
                 self._dense(self.aux_classifier, aux).detach())
 

@@ -9,6 +9,10 @@ input's patch grid on every call.
 Dtypes follow the reference: matmuls run in ``compute_dtype`` (inputs and
 weights cast, bias added in the output dtype), parameters stay float32, and
 the residual stream runs in ``stream_dtype``; LayerNorm statistics are fp32.
+``ViT.forward(x, stream_dtype=...)`` runs the same parameters with another
+stream dtype (the trainer's no-grad CAM passes run a bf16 stream beside the
+fp32 stream of the differentiated pass).  ``remat=True`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``).
 Module and parameter names follow timm's DeiT (``blocks.i.attn.qkv`` ...),
 which is what the reference's ``siamese_network.state_dict()`` holds.
 """
@@ -16,11 +20,12 @@ which is what the reference's ``siamese_network.state_dict()`` holds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dupl_tpu_torch.ops.attention import dot_attention
 from dupl_tpu_torch.ops.image import resize_bicubic
@@ -64,17 +69,16 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """eps 1e-6; statistics in fp32, output in ``out_dtype`` (the stream
-    dtype when that is not fp32, as flax's ``LayerNorm(dtype=...)``)."""
+    """eps 1e-6; statistics in fp32, output in the input's dtype: the
+    residual stream's (as flax's ``LayerNorm(dtype=stream_dtype)``)."""
 
-    def __init__(self, dim: int, out_dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int):
         super().__init__(dim, eps=1e-6)
-        self.out_dtype = out_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
-        return y.to(self.out_dtype)
+        return y.to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -109,15 +113,15 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN residual block; the residual stream runs in ``stream_dtype``."""
+    """Pre-LN residual block; the residual stream keeps the dtype of the
+    block's input."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 compute_dtype: torch.dtype, gelu_approximate: bool,
-                 stream_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, gelu_approximate: bool):
         super().__init__()
-        self.norm1 = LayerNorm(dim, stream_dtype)
+        self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, compute_dtype)
-        self.norm2 = LayerNorm(dim, stream_dtype)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype,
                        gelu_approximate)
 
@@ -150,9 +154,7 @@ class ViT(nn.Module):
         super().__init__()
         if quant:
             raise NotImplementedError("int8 inference is not ported")
-        if remat:
-            raise NotImplementedError("remat is a training option; training "
-                                      "is not ported")
+        self.remat = remat
         self.spec = spec
         self.aux_layer = aux_layer
         self.stream_dtype = stream_dtype
@@ -163,9 +165,9 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(spec.patch_size, d, compute_dtype)
         self.blocks = nn.ModuleList([
             Block(d, spec.num_heads, spec.mlp_ratio, compute_dtype,
-                  gelu_approximate, stream_dtype)
+                  gelu_approximate)
             for _ in range(spec.depth)])
-        self.norm = LayerNorm(d, stream_dtype)
+        self.norm = LayerNorm(d)
 
     def interpolated_pos_embed(self, h: int, w: int) -> torch.Tensor:
         """Bicubic-resize the patch position table to an (h, w) grid and
@@ -177,22 +179,26 @@ class ViT(nn.Module):
             patch_pos = resize_bicubic(patch_pos, (h, w))
         return torch.cat([cls_pos, patch_pos.reshape(1, h * w, d)], dim=1)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                stream_dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (B, H, W, 3) -> (cls (B, D), patch tokens (B, hw, D), aux tokens
-        (B, hw, D))."""
+        (B, hw, D)).  ``stream_dtype`` overrides the model's residual-stream
+        dtype for this call; the parameters are the same."""
         b, hh, ww, _ = x.shape
         p = self.spec.patch_size
         h, w = hh // p, ww // p
         tokens = self.patch_embed(x).float()
         cls = self.cls_token.expand(b, 1, self.spec.embed_dim)
         x = torch.cat([cls, tokens], dim=1)
-        x = (x + self.interpolated_pos_embed(h, w)).to(self.stream_dtype)
+        x = (x + self.interpolated_pos_embed(h, w)).to(
+            stream_dtype or self.stream_dtype)
 
         aux_idx = self.aux_layer % self.spec.depth
         aux = None
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i == aux_idx:
                 aux = x
         x = self.norm(x)

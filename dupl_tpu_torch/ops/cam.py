@@ -16,6 +16,15 @@ import torch
 from dupl_tpu_torch.ops import image as image_ops
 
 
+def _threshold(value, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or tensor threshold as a tensor of ``like``'s dtype on its
+    device.  A Python scalar is filled in on the device: a copy from the
+    host would wait for all work queued there."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=like.device, dtype=like.dtype)
+    return torch.full((), float(value), dtype=like.dtype, device=like.device)
+
+
 def cam_to_label(cam: torch.Tensor, cls_label: torch.Tensor, *,
                  bkg_thre: float, img_box: Optional[torch.Tensor] = None,
                  ignore_mid: bool = False, high_thre=None, low_thre=None,
@@ -34,7 +43,7 @@ def cam_to_label(cam: torch.Tensor, cls_label: torch.Tensor, *,
     label = label + 1
     label = torch.where(cam_value <= bkg_thre, 0, label)
     if ignore_mid:
-        high = torch.as_tensor(high_thre, dtype=cam.dtype, device=cam.device)
+        high = _threshold(high_thre, cam)
         if high.dim() == 1:
             high = high[:, None, None]
         label = torch.where(cam_value <= high, ignore_index, label)
@@ -187,7 +196,7 @@ def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
 
     # resize acts per channel and keeps constants: the constant background
     # planes are made at the small size, not resized
-    high = torch.as_tensor(high_thre, dtype=cams.dtype, device=cams.device)
+    high = _threshold(high_thre, cams)
     if high.dim() <= 1:
         bkg_h = high.reshape(-1, 1, 1, 1).expand(b, hs, ws, 1)
     else:

@@ -6,6 +6,7 @@ permute to NCHW internally where torch's operators want it.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -14,6 +15,16 @@ import torch.nn.functional as F
 # ImageNet statistics in [0,255] units (reference: datasets/transforms.py:45).
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+# Constants are copied to a device once and kept: a copy from the host waits
+# for all work queued on the device, so it must not happen on every call.
+# They are made outside inference mode, so that recorded ops may use them.
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device):
+    with torch.inference_mode(False):
+        return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+                torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
 
 
 def _spatial_apply(x: torch.Tensor, batch_dims: int, fn) -> torch.Tensor:
@@ -46,8 +57,9 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int], *,
     out = x
     for axis, n in zip((batch_dims, batch_dims + 1), size):
         m = out.shape[axis]
-        src = (torch.arange(n, dtype=torch.float32) + 0.5) * m / n
-        idx = torch.floor(src).long().clamp_(max=m - 1).to(x.device)
+        src = (torch.arange(n, dtype=torch.float32, device=x.device)
+               + 0.5) * m / n
+        idx = torch.floor(src).long().clamp_(max=m - 1)
         out = out.index_select(axis, idx)
     return out
 
@@ -76,26 +88,31 @@ def _bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
     return w
 
 
+@functools.lru_cache(maxsize=64)
+def _bicubic_weights_on(in_size: int, out_size: int, dtype: torch.dtype,
+                        device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return _bicubic_weights(in_size, out_size).to(device, dtype)
+
+
 def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Bicubic resize matching ``F.interpolate(mode='bicubic',
     align_corners=False)`` (A = -0.75, no antialias, border-clamped taps) as
     two sampling matrices, the reference's formulation.  x: (B, H, W, C)."""
-    wh = _bicubic_weights(x.shape[1], size[0]).to(x.device, x.dtype)
-    ww = _bicubic_weights(x.shape[2], size[1]).to(x.device, x.dtype)
+    wh = _bicubic_weights_on(x.shape[1], size[0], x.dtype, x.device)
+    ww = _bicubic_weights_on(x.shape[2], size[1], x.dtype, x.device)
     return torch.einsum("oh,bhwc,pw->bopc", wh, x, ww)
 
 
 def denormalize(x: torch.Tensor) -> torch.Tensor:
     """ImageNet-normalised float image -> [0,1] floats."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean, std = _imagenet_stats(x.dtype, x.device)
     return (x * std + mean) / 255.0
 
 
 def normalize(x01: torch.Tensor) -> torch.Tensor:
     """[0,1] floats -> ImageNet-normalised."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x01.dtype, device=x01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x01.dtype, device=x01.device)
+    mean, std = _imagenet_stats(x01.dtype, x01.device)
     return (x01 * 255.0 - mean) / std
 
 
@@ -104,10 +121,7 @@ def prepare_inputs(image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``(imagenet_normalised_f32, denormalised_01)``."""
     if image.dtype == torch.uint8:
         f = image.float()
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                            device=image.device)
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                           device=image.device)
+        mean, std = _imagenet_stats(torch.float32, image.device)
         return (f - mean) / std, f / 255.0
     return image, denormalize(image)
 

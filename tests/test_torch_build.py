@@ -40,21 +40,50 @@ def test_library_name_follows_the_sources():
     assert build._digest(src) == build._digest(src)
     assert build._digest(src) != build._digest(build.CSRC / "crf_apply.cu")
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
-        "crf_apply", "exp_attention", "par_affinity", "par_propagate"]
+        "crf_apply", "exp_attention", "exp_attention_bwd", "par_affinity",
+        "par_propagate"]
 
 
 def test_port_never_imports_jax():
     """Every module of dupl_tpu_torch, imported in a fresh interpreter,
-    leaves no jax module behind."""
+    leaves behind no module of jax, flax or optax, none of the JAX package
+    (``dupl_tpu``), and no copy of its config loaded by file path."""
     names = sorted(m.name for m in pkgutil.walk_packages(
         dupl_tpu_torch.__path__, "dupl_tpu_torch."))
-    assert "dupl_tpu_torch.ops.par_cuda" in names
+    for expected in ("dupl_tpu_torch.ops.par_cuda", "dupl_tpu_torch.config",
+                     "dupl_tpu_torch.engine.train",
+                     "dupl_tpu_torch.engine.optimizer",
+                     "dupl_tpu_torch.ops.augment", "dupl_tpu_torch.ops.gmm",
+                     "dupl_tpu_torch.data.pipeline"):
+        assert expected in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
+            "bad = ('jax', 'jaxlib', 'flax', 'optax', 'dupl_tpu')\n"
             "print(sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))))")
+            "             if m in bad or m.startswith(tuple(b + '.' for b in bad))\n"
+            "             or m == 'dupl_tpu_torch._reference_config'))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True,
                          cwd=Path(dupl_tpu_torch.__file__).parents[1]).stdout
     assert out.strip() == "[]", out
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/serve_torch.py",
+                                    "tools/bench_train_torch.py",
+                                    "dupl_tpu_torch/engine/profile.py"])
+def test_port_scripts_name_no_jax_module(script):
+    """The port's scripts import nothing of jax, flax, optax or the JAX
+    package, by name or by file path."""
+    import ast
+    root = Path(dupl_tpu_torch.__file__).parents[1]
+    tree = ast.parse((root / script).read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    bad = ("jax", "jaxlib", "flax", "optax", "dupl_tpu")
+    assert not [m for m in mods if m.split(".")[0] in bad], mods
+    assert "spec_from_file_location" not in (root / script).read_text()

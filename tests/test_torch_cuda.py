@@ -94,6 +94,195 @@ def test_exp_attention_rejects_bad_operands(dev):
             1, 130, 2, 128, device=dev, dtype=torch.bfloat16)[..., ::2])
 
 
+def _qkvg(dev, b, n, h, d, seed, q_mult=1.0):
+    """Operands as the ViT hands them to the kernels: q (pre-scaled), k, v
+    column slices of one (B, N, 3C) projection, and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = h * d
+    qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
+               for i in range(3))
+    qs = (q.float() * q_mult * d ** -0.5).to(torch.bfloat16)
+    go = torch.randn(b, n, h, d, generator=g, device=dev).to(torch.bfloat16)
+    return qs, k, v, go
+
+
+def _row_ulps(got, want):
+    """(max, mean) of |got - want| in bf16 ulps of each row's scale."""
+    want = want.float()
+    scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    err = (got.float() - want).abs() / torch.exp2(
+        torch.floor(torch.log2(scale)) - 7)
+    return err.max().item(), err.mean().item()
+
+
+@pytest.mark.parametrize("b,n,h,d", [(1, 64, 2, 64), (3, 100, 2, 64),
+                                     (2, 442, 3, 64), (2, 197, 3, 16),
+                                     (1, 300, 4, 32), (2, 257, 2, 80),
+                                     (1, 1226, 2, 64)])
+def test_exp_attention_bwd_matches_twin(dev, b, n, h, d):
+    """K2 against its twin at ragged lengths, every head dim, strided k and
+    v, and one length past the reference kernel's 896.  Kernel and twin
+    round the same fp32 quantities to bf16 and sum in different orders:
+    every output within 2 bf16 ulps of its row's scale, and within 0.01 ulp
+    on average (a kernel that leaves ds in fp32 is ~0.1 ulp off on average,
+    one without delta tens of ulps at the maximum)."""
+    qs, k, v, go = _qkvg(dev, b, n, h, d, seed=n)
+    assert not k.is_contiguous()
+    n0 = attention.exp_attention_bwd_cuda.launches
+    got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+    torch.cuda.synchronize()
+    assert attention.exp_attention_bwd_cuda.launches == n0 + 1
+    want = attention.exp_attention_bwd_ref(*(
+        attention._to_bhnd(x) for x in (qs, k, v, go)))
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == qs.shape and x.dtype == torch.bfloat16
+        assert x.is_contiguous() and torch.isfinite(x.float()).all()
+        worst, mean = _row_ulps(attention._to_bhnd(x), w)
+        assert worst <= 2.0 and mean <= 0.01, (name, worst, mean)
+
+
+def test_exp_attention_bwd_clamp_mask(dev):
+    """Scores far past the clamp at 60: ds is zero there.  Rows are nearly
+    one-hot, so t - delta cancels and the two summation orders differ by
+    more than elsewhere (10-17 ulps of the row measured on an H100); a
+    kernel without the mask is hundreds of ulps away, and tens on average."""
+    qs, k, v, go = _qkvg(dev, 2, 442, 4, 64, seed=7, q_mult=24.0)
+    ops = tuple(attention._to_bhnd(x) for x in (qs, k, v, go))
+    s = ops[0].float() @ ops[1].float().transpose(-1, -2)
+    assert (s >= 60).float().mean().item() > 0.001
+    got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+    want = attention.exp_attention_bwd_ref(*ops)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        worst, mean = _row_ulps(attention._to_bhnd(x), w)
+        assert worst <= 64.0 and mean <= 0.01, (name, worst, mean)
+
+
+def _wrong_twin(q, k, v, g, kind):
+    """``exp_attention_bwd_ref`` with one step left out ((BH, N, D))."""
+    qf, kf, vf, gf = (x.to(torch.bfloat16).float() for x in (q, k, v, g))
+    s = qf @ kf.transpose(-1, -2)
+    e = torch.exp(s.clamp(max=60.0))
+    p = e / e.sum(-1, keepdim=True)
+    t = gf @ vf.transpose(-1, -2)
+    delta = (p * t).sum(-1, keepdim=True)
+    if kind == "no_delta":
+        delta = torch.zeros_like(delta)
+    ds = p * (t - delta)
+    if kind != "no_clamp_mask":
+        ds = torch.where(s < 60.0, ds, torch.zeros_like(ds))
+    if kind != "ds_fp32":
+        ds = ds.to(torch.bfloat16).float()
+    dq, dk = ds @ kf, ds.transpose(-1, -2) @ qf
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("kind,n,q_mult,max_bound", [
+    ("none", 442, 1.0, 2.0), ("no_delta", 442, 1.0, 2.0),
+    ("ds_fp32", 442, 1.0, 2.0), ("ds_fp32", 785, 1.0, 2.0),
+    ("none", 442, 24.0, 64.0), ("no_clamp_mask", 442, 24.0, 64.0)])
+def test_exp_attention_bwd_bounds_tell_a_wrong_kernel(dev, kind, n, q_mult,
+                                                      max_bound):
+    """The bounds K2 is held to (2 bf16 ulps of the row at the maximum, 64
+    past the clamp, 0.01 on average) are tight enough to be worth
+    something: held against a twin that drops delta, drops the clamp mask
+    or leaves ds in fp32, the kernel is outside them; against the unchanged
+    formulation (``none``) it is inside."""
+    qs, k, v, go = _qkvg(dev, 4, n, 12, 64, seed=n, q_mult=q_mult)
+    ops = tuple(attention._to_bhnd(x) for x in (qs, k, v, go))
+    got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+    worst = mean = 0.0
+    for x, w in zip(got, _wrong_twin(*ops, kind=kind)):
+        a, b = _row_ulps(attention._to_bhnd(x), w)
+        worst, mean = max(worst, a), max(mean, b)
+    inside = worst <= max_bound and mean <= 0.01
+    assert inside == (kind == "none"), (kind, worst, mean)
+
+
+def test_exp_attention_function_backward_runs_the_kernel(dev, monkeypatch):
+    """Under autograd on CUDA tensors ``exp_attention`` launches K1 forward
+    and K2 backward, never a twin, and its gradients are the twin's."""
+    def no_twin(*a, **k):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+    monkeypatch.setattr(attention, "exp_attention_ref", no_twin)
+    monkeypatch.setattr(attention, "exp_attention_bwd_ref", no_twin)
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n, h, d = 2, 300, 3, 64
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev,
+                      requires_grad=True)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+               for i in range(3))
+    f0 = attention.exp_attention_cuda.launches
+    b0 = attention.exp_attention_bwd_cuda.launches
+    out = attention.dot_attention(q, k, v, scale=d ** -0.5)
+    go = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert attention.exp_attention_cuda.launches == f0 + 1
+    assert attention.exp_attention_bwd_cuda.launches == b0 + 1
+    monkeypatch.undo()
+    qkv_c = qkv.detach().cpu().requires_grad_()
+    qc, kc, vc = (qkv_c[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+                  for i in range(3))
+    attention.exp_attention(qc, kc, vc, scale=d ** -0.5).backward(go.cpu())
+    scale = qkv_c.grad.abs().max().item()
+    assert (qkv.grad.cpu() - qkv_c.grad).abs().max().item() <= 2 ** -7 * scale
+
+
+def test_train_step_runs_the_kernels_without_a_host_sync(dev):
+    """``Trainer.train_step`` on the card, tiny ViT (head dim 16), crop 256:
+    every phase launches K1 and K2 as counted from the code (12 blocks
+    become 4; the scale-0.5 views, 65 tokens, take plain softmax), never
+    waits for the device inside a step (PyTorch's sync debug mode raises),
+    and moves the weights."""
+    import dataclasses
+
+    from dupl_tpu_torch.config import GmmConfig
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.engine.train import (Trainer, phase_start,
+                                             production_config)
+
+    cfg = production_config("voc", gmm=GmmConfig(min_pixels=100))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone="test_tiny_patch16"))
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state()
+    batch = trainer.put(synthetic_batch(2, crop=256))
+    for phase, k1, k2 in (("warmup", 24, 8), ("seg", 24, 8), ("full", 32, 16)):
+        state.step = state.optimizer.global_step = phase_start(cfg, phase)
+        trainer.train_step(state, batch)          # first use: builds, caches
+        before = state.model.branch1.encoder.cls_token.detach().clone()
+        attention.exp_attention_cuda.launches = 0
+        attention.exp_attention_bwd_cuda.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, metrics = trainer.train_step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert attention.exp_attention_cuda.launches == k1, phase
+        assert attention.exp_attention_bwd_cuda.launches == k2, phase
+        assert all(torch.isfinite(v) for v in metrics.values()), phase
+        assert not torch.equal(
+            state.model.branch1.encoder.cls_token.detach(), before)
+
+
+def test_exp_attention_bwd_rejects_bad_operands(dev):
+    x = torch.zeros(1, 130, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention.exp_attention_bwd_cuda(x, x, x, x.float())
+    y = torch.zeros(1, 130, 2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.exp_attention_bwd_cuda(y, y, y, y)
+    with pytest.raises(ValueError, match="shapes"):
+        attention.exp_attention_bwd_cuda(x, x, x, x[:, :100])
+    with pytest.raises(ValueError, match="strides"):
+        attention.exp_attention_bwd_cuda(x, x, x, torch.zeros(
+            1, 130, 2, 128, device=dev, dtype=torch.bfloat16)[..., ::2])
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.exp_attention_bwd_cuda(x, x.cpu(), x, x)
+
+
 @pytest.mark.parametrize("nv", [1, 5, 21, 22, 32])
 def test_crf_apply_widths(dev, nv):
     """K5 against the twin at ragged pixel and pivot counts, B = 3."""

@@ -53,3 +53,32 @@ def test_normalize_and_prepare_inputs():
     for t, j in zip(timg.prepare_inputs(torch.from_numpy(xn)),
                     jimg.prepare_inputs(jnp.asarray(xn))):
         _close(t, j)
+
+
+def test_constants_are_sent_to_a_device_once():
+    """The ImageNet statistics and the bicubic sampling matrices are made
+    once per device and dtype (a copy from the host in every call would
+    wait for the device), outside inference mode, so that recorded ops can
+    use what an inference call made first."""
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        timg.normalize(torch.zeros(1, 4, 4, 3))
+        w = timg._bicubic_weights_on(3, 5, torch.float32, cpu)
+    mean, std = timg._imagenet_stats(torch.float32, cpu)
+    assert mean is timg._imagenet_stats(torch.float32, cpu)[0]
+    assert w is timg._bicubic_weights_on(3, 5, torch.float32, cpu)
+    assert not (mean.is_inference() or std.is_inference() or w.is_inference())
+    assert timg._imagenet_stats(torch.float64, cpu)[0].dtype == torch.float64
+    x = torch.ones(1, 3, 3, 2, requires_grad=True)
+    timg.resize_bicubic(x, (5, 5)).sum().backward()
+    assert torch.isfinite(x.grad).all()
+
+
+def test_scalar_threshold_is_filled_on_the_device():
+    from dupl_tpu_torch.ops import cam as tcam
+    like = torch.zeros(2, 3, dtype=torch.float64)
+    t = tcam._threshold(0.7, like)
+    assert t.shape == () and t.dtype == torch.float64 and t.item() == 0.7
+    per_sample = torch.tensor([0.5, 0.6])
+    got = tcam._threshold(per_sample, like)
+    assert got.dtype == torch.float64 and got.shape == (2,)

@@ -60,15 +60,22 @@ def test_dilated_neighbors_matches_jax():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_rgb_affinity_matches_jax(dtype):
+def test_rgb_affinity_matches_jax(dtype, tmp_path):
     """Taps-last layout against the XLA path; the port computes in fp32
-    whatever float dtype the image arrives in."""
+    whatever float dtype the image arrives in.  This comparison failed once
+    under six parallel workers and never again; a failure leaves the input
+    and both results on disk, named in the message."""
     x = _noise((2, 24, 20, 3), seed=1)
     got = tpar.rgb_affinity(torch.from_numpy(x.astype(dtype)), DIL)
     want = jpar.rgb_affinity(jnp.asarray(x), DIL)
     assert got.dtype == torch.float32 and got.shape == (2, 24, 20, 48)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
-                               atol=ATOL)
+    got, want = got.numpy(), np.asarray(want)
+    if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+        dump = tmp_path / f"rgb_affinity_{dtype}.npz"
+        np.savez(dump, image=x, got=got, want=want)
+        np.testing.assert_allclose(
+            got, want, rtol=RTOL, atol=ATOL,
+            err_msg=f"input and both results saved to {dump}")
 
 
 def test_affinity_ref_matches_pallas_and_xla_on_noise():
