@@ -1,5 +1,5 @@
 """On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path,
-the pseudo-label path and the training step.
+the pseudo-label path, the training step and the evaluation path.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,32 @@ JAX.  Phases, each printing one result line:
    augmentation draws, on the card and on the CPU, on a batch and a
    confidence threshold that keep every loss term live: each side's labels
    must agree; on the card's labels, losses and gradient directions must
-   agree; and the strong view's backward must change the gradient.
+   agree; and the strong view's backward must change the gradient;
+14. L1f (flash-attention forward) against its plain twin at the evaluation
+   path's shape (B 16, N 2117, H 12, D 64: eight 500 x 500 images and their
+   flips at scale 1.5) and at (B 2, N 5185) (a 768 crop at scale 1.5), k and
+   v strided as the model passes them; timed beside
+   ``F.scaled_dot_product_attention``;
+15. L1b (flash-attention backward) against its plain twin at (B 2, N 2305,
+   H 12, D 64) (a 768 crop and its flip) on the forward kernel's out and
+   log-sum-exp, and against three wrong twins, which must fall outside the
+   bounds; timed beside autograd's backward through the library call;
+16. the evaluation path: a synthetic VOC-structured tree written here (24
+   JPEGs with masks: 8 each of 500 x 375, 375 x 500 and 500 x 500),
+   ``SegEvaluator`` of the VOC protocol (native resolution, scales 1.0 /
+   1.5 / 1.25 x flip, max merge, both passes, device CRF) at batch 8, twice
+   (the second run is measured and its forwards run under
+   ``torch.cuda.set_sync_debug_mode("error")``): three buckets of one batch,
+   the launches of K1, L1f and K5 a batch as counted from the code, no twin
+   on a CUDA tensor, K5 against its twin on a batch's own operands (N
+   189,504, 2,961 pivots, V 21), histograms that sum to the labelled
+   pixels; then ``Validator.run`` on the same tree at crop 448, batch 8;
+17. the differentiated flash attention on a path: one warm-up
+   ``Trainer.grad_step`` at crop 768, batch 1, full width and depth (2305
+   tokens with grad, 5185 without): launches of L1f and L1b as counted from
+   the code, a finite loss, a finite gradient for every parameter of the
+   phase's graph; then, at depth 2 and full width, card against CPU: one
+   500 x 500 image through ``msc_seg_logits`` and one such ``grad_step``.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -966,14 +991,463 @@ def main() -> int:
           f"{strong_share:.4f} of the gradient's norm (bound 1e-3) | launches "
           f"of the card's step {json.dumps(sides['card'][3])}", flush=True)
 
+    # -- 14. L1f against its twin -----------------------------------------------------
+    # Error in bf16 ulps of each output row's scale.  Kernel and twin walk the
+    # same 64-key tiles with the same running maximum and round the same fp32
+    # quantities to bf16 (p before p.v, the result once); their exps and sum
+    # orders differ.  Bounds: 1 ulp at the maximum, 0.01 on average (measured
+    # on an H100: 1.0 and <= 8.5e-4; a kernel that leaves p in fp32, or rounds
+    # it against another maximum than the running one, is 0.08-0.1 off on
+    # average).  The log-sum-exp within 1e-5.
+    def flash_ops(b, n, h=12, d=64):
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(
+            torch.bfloat16)
+        q_, k_, v_ = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
+                      for i in range(3))     # column slices, as the ViT's
+        go_ = torch.randn(b, n, h, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        return q_, k_, v_, go_
+
+    def row_ulps(got, want):
+        want = want.float()
+        u = (got.float() - want).abs() / bf16_ulp(
+            want.abs().amax(-1, keepdim=True))
+        return u.max().item(), u.mean().item()
+
+    bhn = attention._to_bhn
+    l1f = {"err": 0.0, "ulps": {}, "ms": {}, "plain_ms": {}, "library_ms": {}}
+    for b, n in ((16, 2117), (2, 5185)):
+        q, k, v, _ = flash_ops(b, n)
+        check(not k.is_contiguous(), "L1f: k should be a strided view")
+        out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_attention_ref(bhn(q), bhn(k), bhn(v),
+                                                       0.125)
+        key = f"B={b},N={n},H=12,D=64"
+        check(bool(torch.isfinite(out.float()).all()), f"L1f {key}: non-finite")
+        worst, mean = row_ulps(bhn(out), want)
+        lse_err = (lse - want_lse).abs().max().item()
+        l1f["ulps"][key] = [worst, mean]
+        l1f["err"] = max(l1f["err"],
+                         (bhn(out).float() - want.float()).abs().max().item())
+        check(worst <= 1.0 and mean <= 0.01 and lse_err <= 1e-5,
+              f"L1f {key}: {worst:.3g} bf16 ulps of the row at the maximum, "
+              f"{mean:.3g} on average, lse off by {lse_err:.3g}")
+        l1f["ms"][key] = time_ms(
+            lambda: attention.flash_attention_cuda(q, k, v, 0.125))
+        l1f["plain_ms"][key] = time_ms(lambda: attention.flash_attention_ref(
+            bhn(q), bhn(k), bhn(v), 0.125), iters=3, warmup=1)
+        ql, kl, vl = (bhn(x).contiguous() for x in (q, k, v))
+        l1f["library_ms"][key] = time_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125))
+        del q, k, v, out, lse, want, want_lse, ql, kl, vl
+    print(f"[L1f flash_attention] max_abs_err {l1f['err']:.4g} | bf16 ulps of "
+          f"the row [max, mean] {json.dumps(l1f['ulps'])} (bounds 1 and 0.01) "
+          f"| kernel ms {json.dumps(l1f['ms'])} | plain ms "
+          f"{json.dumps(l1f['plain_ms'])} | library (F.scaled_dot_product_"
+          f"attention) ms {json.dumps(l1f['library_ms'])}", flush=True)
+
+    # -- 15. L1b against its twin -----------------------------------------------------
+    # On the forward kernel's own out and lse.  Kernel and twin round the same
+    # fp32 quantities to bf16 (ds before both of its products, p for dv, the
+    # results once) and sum in different orders.  Bounds: 2 bf16 ulps of the
+    # row at the maximum and 0.01 on average (measured on an H100: 1.0 and
+    # <= 8.1e-4).  A wrong twin must fall outside them: without delta
+    # (110-450 ulps at the maximum), with ds left in fp32 (0.09-0.13 ulp on
+    # average; its maximum, 1-2 ulps, does not show it), with the row maximum
+    # in place of the log-sum-exp (230-255 ulps).
+    def flash_bwd_wrong(q_, k_, v_, o_, lse_, g_, scale, kind):
+        qf, kf, vf, of, gf = (x.float() for x in (q_, k_, v_, o_, g_))
+        s_ = scale * (qf @ kf.transpose(-1, -2))
+        if kind == "lse_is_max":
+            lse_ = s_.amax(-1)
+        p_ = torch.exp(s_ - lse_[..., None])
+        del s_
+        t_ = gf @ vf.transpose(-1, -2)
+        delta = (of * gf).sum(-1, keepdim=True)
+        if kind == "no_delta":
+            delta = torch.zeros_like(delta)
+        ds = p_ * (t_ - delta)
+        del t_
+        if kind != "ds_fp32":
+            ds = ds.to(torch.bfloat16).float()
+        dq_, dk_ = scale * (ds @ kf), scale * (ds.transpose(-1, -2) @ qf)
+        dv_ = p_.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+        return tuple(x.to(torch.bfloat16) for x in (dq_, dk_, dv_))
+
+    l1b = {"err": 0.0, "ulps": {}, "ms": {}, "plain_ms": {}, "library_ms": {},
+           "wrong": {}}
+    b, n = 2, 2305
+    l1b_key = f"B={b},N={n},H=12,D=64"
+    q, k, v, go = flash_ops(b, n)
+    out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+    got = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, 0.125)
+    torch.cuda.synchronize()
+    ops15 = (bhn(q), bhn(k), bhn(v), bhn(out), lse, bhn(go))
+    want = attention.flash_attention_bwd_ref(*ops15, 0.125)
+    worst = mean = 0.0
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(x.float()).all()), f"L1b: non-finite {name}")
+        a_, m_ = row_ulps(bhn(x), w)
+        worst, mean = max(worst, a_), max(mean, m_)
+        l1b["err"] = max(l1b["err"],
+                         (bhn(x).float() - w.float()).abs().max().item())
+    l1b["ulps"][l1b_key] = [worst, mean]
+    check(worst <= 2.0 and mean <= 0.01,
+          f"L1b {l1b_key}: {worst:.3g} bf16 ulps of the row at the maximum, "
+          f"{mean:.3g} on average")
+    for kind in ("no_delta", "ds_fp32", "lse_is_max"):
+        worst = mean = 0.0
+        for x, w in zip(got, flash_bwd_wrong(*ops15, 0.125, kind)):
+            a_, m_ = row_ulps(bhn(x), w)
+            worst, mean = max(worst, a_), max(mean, m_)
+        l1b["wrong"][kind] = [worst, mean]
+        check(worst > 2.0 or mean > 0.01,
+              f"L1b: the bounds do not tell the wrong twin {kind!r} "
+              f"({worst:.3g} at the maximum, {mean:.3g} on average)")
+    l1b["ms"][l1b_key] = time_ms(lambda: attention.flash_attention_bwd_cuda(
+        q, k, v, out, lse, go, 0.125))
+    l1b["plain_ms"][l1b_key] = time_ms(
+        lambda: attention.flash_attention_bwd_ref(*ops15, 0.125), iters=3,
+        warmup=1)
+    ql, kl, vl = (bhn(x).detach().clone().requires_grad_() for x in (q, k, v))
+    out_l = F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)
+    gl = bhn(go).contiguous()
+    l1b["library_ms"][l1b_key] = time_ms(lambda: torch.autograd.grad(
+        out_l, (ql, kl, vl), gl, retain_graph=True))
+    del q, k, v, go, out, lse, got, want, ops15, ql, kl, vl, out_l, gl
+    print(f"[L1b flash_attention_bwd] max_abs_err {l1b['err']:.4g} | bf16 ulps "
+          f"of the row [max, mean] {json.dumps(l1b['ulps'])} (bounds 2 and "
+          f"0.01) | wrong twins {json.dumps(l1b['wrong'])} (each outside) | "
+          f"kernel ms {json.dumps(l1b['ms'])} | plain ms "
+          f"{json.dumps(l1b['plain_ms'])} | library (backward of F.scaled_dot_"
+          f"product_attention) ms {json.dumps(l1b['library_ms'])}", flush=True)
+
+    # -- 16. the evaluation path ------------------------------------------------------
+    import tempfile
+
+    from dupl_tpu_torch.data.voc import VocSegDataset, write_synthetic_voc
+    from dupl_tpu_torch.engine.eval_seg import SegEvaluator
+    from dupl_tpu_torch.engine.validate import Validator
+    from dupl_tpu_torch.utils.metrics import format_score_table
+
+    del trainer, state, card_trainer, card_state, cpu_trainer, cpu_state
+    del cpu_model, sides
+    torch.cuda.empty_cache()
+    twins += [(attention, "flash_attention_ref"),
+              (attention, "flash_attention_bwd_ref")]
+    eval_counters = {"exp_attention": attention.exp_attention_cuda,
+                     "flash_attention": attention.flash_attention_cuda,
+                     "crf_apply": crf_cuda.kernel_apply_cuda}
+    sizes16 = [(375, 500), (500, 375), (500, 500)] * 8     # (height, width)
+    emodel = DualStudent(cfg.model)
+    init_weights(emodel, torch.Generator().manual_seed(0))
+    emodel.to(dev).eval()
+    k5_eval = {}
+    k5_twin = crf_cuda.kernel_apply_ref   # unwrapped: the comparison below
+    originals = []
+    for mod, name in twins:
+        fn, wrapped = counting(mod, name)
+        originals.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        with tempfile.TemporaryDirectory() as tmp16:
+            root16, lists16 = write_synthetic_voc(tmp16, sizes16, seed=16)
+            ds16 = VocSegDataset(root16, lists16, "val",
+                                 transfer_dtype="uint8")
+            ev = SegEvaluator(cfg, emodel, scales=(1.0, 1.5, 1.25),
+                              merge="max", input_mode="native")
+            chunks16 = ev._chunks(ds16, list(range(len(ds16))), 8)
+            check([len(c) for c in chunks16] == [8, 8, 8]
+                  and len({ds16.image_size(c[0]) for c in chunks16}) == 3,
+                  f"evaluation buckets: {chunks16}")
+            res16 = ev.run(ds16, batch_size=8, crf="device")   # builds, caches
+            torch.cuda.synchronize()
+
+            # The second run: every forward under the sync debug mode (the
+            # run's one synchronous copy a batch, the labels, comes after
+            # it), the launches of each forward and of the CRF after it, and
+            # the operands of one K5 launch at V = 21.
+            forwards = []
+            plain_msc, plain_k5 = ev.msc_logits, crf_cuda.kernel_apply_cuda
+
+            def counted_msc(x):
+                before = {k_: f.launches for k_, f in eval_counters.items()}
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out_ = plain_msc(x)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                forwards.append((tuple(x.shape[1:3]), before, {
+                    k_: f.launches for k_, f in eval_counters.items()}))
+                return out_
+
+            def keeping_k5(*a):
+                if not k5_eval and a[3].shape[2] == 21:
+                    k5_eval["operands"] = tuple(x.detach().clone() for x in a)
+                return plain_k5(*a)
+            keeping_k5.launches = plain_k5.launches
+
+            ev.msc_logits = counted_msc
+            crf_cuda.kernel_apply_cuda = keeping_k5
+            eval_counters["crf_apply"] = keeping_k5
+            for f in eval_counters.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t = time.perf_counter()
+                res16 = ev.run(ds16, batch_size=8, crf="device")
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t
+            finally:
+                crf_cuda.kernel_apply_cuda = plain_k5
+                plain_k5.launches = keeping_k5.launches
+                del ev.msc_logits
+            eval_launches = {k_: f.launches for k_, f in eval_counters.items()}
+            peak16 = torch.cuda.max_memory_allocated()
+
+            # per forward: K1 and L1f by the bucket's token counts (12 blocks
+            # x 2 students a scale: 1611 / 1611 / 2117 tokens at scale 1.5);
+            # per CRF pass 1 + iter_max K5 launches
+            check(len(forwards) == 6, f"{len(forwards)} forwards in two passes")
+            end_k5 = eval_launches["crf_apply"]
+            for i, (hw, before, after) in enumerate(forwards):
+                d_ = {k_: after[k_] - before[k_] for k_ in after}
+                square = hw == (500, 500)
+                check(d_["exp_attention"] == (48 if square else 72)
+                      and d_["flash_attention"] == (24 if square else 0)
+                      and d_["crf_apply"] == 0,
+                      f"forward {i} at {hw}: launches {d_}")
+                nxt = (forwards[i + 1][1]["crf_apply"] if i + 1 < 6 else end_k5)
+                check(nxt - after["crf_apply"]
+                      == (0 if i < 3 else 1 + cfg.crf.iter_max),
+                      f"K5 launches after forward {i}: "
+                      f"{nxt - after['crf_apply']}")
+            labelled = sum(h * w - 4 for h, w in sizes16)
+            for k_ in ("hist_1", "hist_2", "crf_hist"):
+                check(res16[k_].sum() == labelled,
+                      f"{k_} sums to {res16[k_].sum()}, labelled {labelled}")
+            check(res16["crf_branch"] == res16["branch"] in (1, 2)
+                  and all(np.isfinite(res16[k_]["miou"]) for k_ in
+                          ("seg_score_1", "seg_score_2", "crf_score")),
+                  "evaluation scores")
+            print(format_score_table(
+                [res16["seg_score_1"], res16["seg_score_2"],
+                 res16["crf_score"]],
+                ["Seg_1", "Seg_2", f"branch{res16['branch']}+CRF"],
+                cfg.class_list).splitlines()[-1], flush=True)
+
+            # K5 on a batch's own operands against its twin (bound as in
+            # phase 4): the padded 504 x 376 (or 376 x 504) lattice
+            kb, kc, kl_, kv = k5_eval["operands"]
+            check(kb.shape == (8, 189504, 11) and kc.shape == (8, 11, 2961)
+                  and kv.shape == (8, 2961, 21),
+                  f"evaluation K5 operands: {tuple(kb.shape)} "
+                  f"{tuple(kc.shape)} {tuple(kv.shape)}")
+            got = crf_cuda.kernel_apply_cuda(kb, kc, kl_, kv)
+            torch.cuda.synchronize()
+            rows16 = 47 * 504      # row_chunk = _auto_tile(376, 56) = 47
+            want = k5_twin(kb[:2], kc[:2], kl_[:2], kv[:2], block_rows=rows16)
+            err = (got[:2] - want).abs()
+            scale = want.abs().amax(dim=(0, 1))
+            check(bool(torch.isfinite(got).all())
+                  and bool((err.amax(dim=(0, 1)) <= 2e-3 * scale).all()),
+                  f"K5 on the evaluation's operands: error "
+                  f"{err.max().item():.3g} exceeds 2e-3 of the column scale")
+            k5["err"] = max(k5["err"], err.max().item())
+            k5_eval["err"] = err.max().item()
+            k5_eval["key"] = "eval B=8,N=189504,Ns=2961,V=21"
+            k5_eval["ms"] = time_ms(
+                lambda: crf_cuda.kernel_apply_cuda(kb, kc, kl_, kv))
+            k5_eval["plain_ms"] = time_ms(
+                lambda: k5_twin(kb, kc, kl_, kv, block_rows=rows16), iters=3,
+                warmup=1)
+            del kb, kc, kl_, kv, got, want, err, k5_eval["operands"]
+            print(f"[evaluation slice] ViT-B/16 dual student, VOC protocol "
+                  f"(native resolution, MSC 1.0/1.5/1.25 x flip, max merge, "
+                  f"two passes, device CRF), 24 images in 3 buckets of 8 | "
+                  f"second run {eval_s:.3f} s | {24 / eval_s:.3f} img/s | peak "
+                  f"memory {peak16 / 2**30:.3f} GiB | launches of the run "
+                  f"{json.dumps(eval_launches)} (a forward: K1 72 / 72 / 48, "
+                  f"L1f 0 / 0 / 24; K5 {1 + cfg.crf.iter_max} a CRF batch) | "
+                  f"K5 on a batch's operands: max_abs_err "
+                  f"{k5_eval['err']:.4g} (bound 2e-3 of the column), kernel ms "
+                  f"{k5_eval['ms']:.4f}, plain ms {k5_eval['plain_ms']:.4f}",
+                  flush=True)
+
+            # in-training validation on the same tree
+            val = Validator(cfg, emodel)
+            val.run(ds16, batch_size=8)
+            torch.cuda.synchronize()
+            for f in eval_counters.values():
+                f.launches = 0
+            t = time.perf_counter()
+            res_val = val.run(ds16, batch_size=8)
+            torch.cuda.synchronize()
+            val_s = time.perf_counter() - t
+            # per student and batch: scales 1.0, 0.5, 1.5 x flip at crop 448
+            check(attention.exp_attention_cuda.launches == 3 * 3 * 24
+                  and attention.flash_attention_cuda.launches == 0,
+                  f"validation launches: K1 "
+                  f"{attention.exp_attention_cuda.launches}")
+            check(all(np.isfinite(res_val[k_]) for k_ in res_val
+                      if k_.endswith("_miou") or k_.startswith("cls_f1")),
+                  "validation scores")
+            print(f"[validation] Validator.run, crop 448, batch 8, 24 images | "
+                  f"{val_s:.3f} s | {24 / val_s:.3f} img/s | seg mIoU "
+                  f"{res_val['seg_1_miou']:.4f} / {res_val['seg_2_miou']:.4f} "
+                  f"| CAM mIoU {res_val['cam_1_miou']:.4f} / "
+                  f"{res_val['cam_2_miou']:.4f}", flush=True)
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+
+        # -- 17. the differentiated flash attention on a path ---------------------
+        # Warm-up phase, crop 768, batch 1.  Per student: scale 1.0 with grad
+        # (2305 tokens: L1f and L1b in each of 12 blocks), its flip without,
+        # scale 1.5 and its flip (5185 tokens) through L1f, scale 0.5 and its
+        # flip (577 tokens) through K1.
+        del emodel, ev, val
+        torch.cuda.empty_cache()
+        counters17 = {"exp_attention": attention.exp_attention_cuda,
+                      "exp_attention_bwd": attention.exp_attention_bwd_cuda,
+                      "flash_attention": attention.flash_attention_cuda,
+                      "flash_attention_bwd": attention.flash_attention_bwd_cuda}
+        tcfg17 = production_config("voc")
+        batch17 = synthetic_batch(1, crop=768, num_fg=tcfg17.model.num_fg)
+        trainer17 = Trainer(tcfg17, device=dev)
+        state17 = trainer17.init_state()
+        step17 = phase_start(tcfg17, "warmup")
+        trainer17.grad_step(state17, batch17, step=step17)    # caches
+        torch.cuda.synchronize()
+        for f in counters17.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        grads17, metrics17 = trainer17.grad_step(state17, batch17, step=step17)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t
+        launches17 = {k_: f.launches for k_, f in counters17.items()}
+        peak17 = torch.cuda.max_memory_allocated()
+        check(launches17 == {"exp_attention": 24, "exp_attention_bwd": 0,
+                             "flash_attention": 72, "flash_attention_bwd": 24},
+              f"grad_step at crop 768: launches {launches17}")
+        loss17 = metrics17["loss"].item()
+        check(np.isfinite(loss17), f"grad_step at crop 768: loss {loss17}")
+        for n_, p_ in state17.model.named_parameters():
+            in_graph = p_.requires_grad and ".decoder." not in n_
+            check((n_ in grads17) == in_graph, f"gradient of {n_}: "
+                  f"{'present' if n_ in grads17 else 'missing'}")
+            if in_graph:
+                check(bool(torch.isfinite(grads17[n_]).all()),
+                      f"non-finite gradient of {n_}")
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+        print(f"[grad_step at crop 768] warm-up, batch 1, full depth | "
+              f"{1e3 * grad_s:.1f} ms | peak memory {peak17 / 2**30:.3f} GiB | "
+              f"launches {json.dumps(launches17)} | loss {loss17:.4f}",
+              flush=True)
+        del grads17, trainer17, state17
+        torch.cuda.empty_cache()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    # Card against CPU at depth 2, full width, the same seeded weights.  The
+    # card runs K1 below 2048 tokens and L1f / L1b from there, the CPU exact
+    # softmax under plain autograd; both compute in bf16 as the recipe says,
+    # rounding at slightly different places, and seeded weights leave many
+    # pixels with two classes nearly tied.  Bounds as in phase 6: merged
+    # logits within 5e-2 of their scale; argmax labels of each student at
+    # least 99% equal (measured on an H100: 0.9945 and 0.9969 merged; each
+    # scale alone is printed too: 1.5 is the one through L1f); gradient
+    # cosine of each group at least 0.98.
+    import dataclasses
+
+    def shallow(model_, depth):
+        """The first ``depth`` blocks of each student's encoder."""
+        for i in range(2):
+            enc = model_.student(i).encoder
+            enc.blocks = enc.blocks[:depth]
+            enc.spec = dataclasses.replace(enc.spec, depth=depth)
+        return model_
+
+    smodel = DualStudent(tcfg17.model)
+    init_weights(smodel, torch.Generator().manual_seed(17))
+    shallow(smodel, 2)
+    img17 = np.asarray(Image.open(io.BytesIO(bodies[13][0])).convert("RGB"))
+    check(img17.shape == (500, 500, 3), f"image of {img17.shape}")
+    labels17, logits17, grads_cc = {}, {}, {}
+    for side in ("card", "cpu"):
+        m_ = copy.deepcopy(smodel).to(dev if side == "card" else "cpu").eval()
+        x17, _ = image_ops.prepare_inputs(
+            torch.tensor(img17[None], device=next(m_.parameters()).device))
+        for f in counters17.values():
+            f.launches = 0
+        with torch.inference_mode():
+            logits17[side] = msc_seg_logits(
+                lambda z: m_(z).seg, x17, (500, 500), (1.0, 1.5, 1.25), "max",
+                batch_dims=2).float().cpu()
+            msc_launches = {k_: f.launches for k_, f in counters17.items()}
+            labels17[side] = [logits17[side].argmax(-1)] + [
+                msc_seg_logits(lambda z: m_(z).seg, x17, (500, 500), (sc,),
+                               "max", batch_dims=2).argmax(-1).cpu()
+                for sc in (1.0, 1.25, 1.5)]
+        check(msc_launches == ({"exp_attention": 8, "exp_attention_bwd": 0,
+                                "flash_attention": 4, "flash_attention_bwd": 0}
+                               if side == "card" else dict.fromkeys(
+                                   counters17, 0)),
+              f"{side} msc launches at depth 2: {msc_launches}")
+        tr_ = Trainer(tcfg17, model=m_.train(), device=next(
+            m_.parameters()).device)
+        g_, mt_ = tr_.grad_step(tr_.init_state(init=False), batch17,
+                                step=step17)
+        grads_cc[side] = ({k_: v_.float().cpu() for k_, v_ in g_.items()},
+                          mt_["loss"].item())
+        del m_, tr_, g_
+    # [merged, scale 1.0, 1.25, 1.5] x [student 1, student 2]
+    agree17 = [[(a[i] == b_[i]).float().mean().item() for i in range(2)]
+               for a, b_ in zip(labels17["card"], labels17["cpu"])]
+    err17 = (logits17["card"] - logits17["cpu"]).abs().max().item()
+    scale17 = logits17["cpu"].abs().max().item()
+    check(bool(torch.isfinite(logits17["card"]).all())
+          and err17 <= 5e-2 * scale17,
+          f"card vs CPU logits of a 500 x 500 image at depth 2: {err17:.4g} > "
+          f"5e-2 x {scale17:.4g}")
+    check(min(min(a) for a in agree17) >= 0.99, f"card vs CPU labels of a "
+          f"500 x 500 image at depth 2: {agree17}")
+    cos17 = {}
+    for grp in ("base", "head"):
+        a = torch.cat([grads_cc["card"][0][n_].flatten()
+                       for n_ in grads_cc["card"][0]
+                       if group_of(n_) == grp]).double()
+        b_ = torch.cat([grads_cc["cpu"][0][n_].flatten()
+                        for n_ in grads_cc["card"][0]
+                        if group_of(n_) == grp]).double()
+        check(bool(torch.isfinite(a).all()), f"non-finite {grp} gradient")
+        cos17[grp] = F.cosine_similarity(a, b_, dim=0).item()
+        check(cos17[grp] >= 0.98, f"card vs CPU gradient cosine of the {grp} "
+              f"group at crop 768: {cos17[grp]:.4f} < 0.98")
+    print(f"[flash path card vs cpu] depth 2, full width | 500 x 500 image, "
+          f"MSC 1.0/1.5/1.25 x flip: logits max abs err {err17:.4g} (scale "
+          f"{scale17:.4g}, bound 5e-2 of it), labels equal "
+          f"{agree17[0][0]:.4f} / {agree17[0][1]:.4f} (bound 0.99), scales "
+          f"1.0, 1.25 (K1) and 1.5 (L1f) alone "
+          f"{json.dumps([[round(v_, 4) for v_ in a] for a in agree17[1:]])} | "
+          f"warm-up grad_step at crop 768: "
+          f"loss card {grads_cc['card'][1]:.5f} cpu {grads_cc['cpu'][1]:.5f}, "
+          f"gradient cosine "
+          f"{json.dumps({k_: round(v_, 5) for k_, v_ in cos17.items()})} "
+          f"(bound 0.98)", flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
-    # pseudo-label calls for K3 and K4, one full-phase training step for K2),
-    # each read with the counts set to 0 just before.  ``bound_ms``: from the
+    # pseudo-label calls for K3 and K4, one full-phase training step for K2,
+    # the measured evaluation run for L1f, the grad_step at crop 768 for
+    # L1b), each read with the counts set to 0 just before.  ``bound_ms``: from the
     # shapes timed here; each input read once, each output written once.
     k1_key, k2_key = "BH=192,N=1765", "B=4,N=785,H=12,D=64"
     k3_key, k4_key = "uint8", "B=16,224x224,C=40,float32"
     k5_key = "B=2,N=200704,Ns=3136,V=22"
+    l1f_key = "B=16,N=2117,H=12,D=64"
     taps = 8 * len(cfg.par.dilations)
     pix = 16 * 224 * 224
     bounds = {
@@ -994,7 +1468,18 @@ def main() -> int:
         # out, the affinity in, fp32
         "par_propagate": bound_ms(cfg.par.num_iter * 2 * taps * pix * 40,
                                   "fp32", 4 * pix * (2 * 40 + taps)),
+        # 2 products of 2 N^2 D FLOPs a head; q, k, v in, out written, bf16,
+        # and the fp32 log-sum-exp
+        "flash_attention": bound_ms(4 * 192 * 2117 ** 2 * 64, "bf16",
+                                    192 * 2117 * (4 * 64 * 2 + 4)),
+        # 5 products a head; q, k, v, out, g and lse in, dq, dk, dv out
+        "flash_attention_bwd": bound_ms(10 * 24 * 2305 ** 2 * 64, "bf16",
+                                        24 * 2305 * (8 * 64 * 2 + 4)),
     }
+    # K5 at the evaluation's shape, beside its entry's serving shape
+    k5_eval_bound = bound_ms(2 * (11 + 21) * 8 * 189504 * 2961, "fp32",
+                             4 * 8 * (189504 * 11 + 11 * 2961 + 2961
+                                      + 2961 * 21 + 189504 * 21))
 
     def entry(name, source, replaces, launches_, err, ms, plain, library,
               **more):
@@ -1015,6 +1500,7 @@ def main() -> int:
               k1["err"], k1["ms"][k1_key], k1["plain_ms"][k1_key],
               k1["library_ms"][k1_key],
               launches_pseudo_label=pl_launches["exp_attention"],
+              launches_eval=eval_launches["exp_attention"],
               launches_train=per_phase("exp_attention")),
         entry("exp_attention_bwd", "exp_attention_bwd.cu",
               "dupl_tpu/ops/attention.py:164",
@@ -1025,7 +1511,11 @@ def main() -> int:
         entry("crf_apply", "crf_apply.cu", "dupl_tpu/ops/crf_pallas.py:30",
               launches["crf_apply"], k5["err"], k5["ms"][k5_key],
               k5["plain_ms"][k5_key], None,
-              launches_pseudo_label=pl_launches["crf_apply"]),
+              launches_pseudo_label=pl_launches["crf_apply"],
+              launches_eval=eval_launches["crf_apply"],
+              eval_shape=k5_eval["key"], ms_eval=k5_eval["ms"],
+              plain_ms_eval=k5_eval["plain_ms"],
+              bound_ms_eval=k5_eval_bound[0], bound_by_eval=k5_eval_bound[1]),
         entry("par_affinity", "par_affinity.cu",
               "dupl_tpu/ops/par_pallas.py:141", pl_launches["par_affinity"],
               k3["err"], k3["ms"][k3_key], k3["plain_ms"][k3_key], None,
@@ -1034,6 +1524,17 @@ def main() -> int:
               "dupl_tpu/ops/par_pallas.py:37", pl_launches["par_propagate"],
               k4["err"][k4_key], k4["ms"][k4_key], k4["plain_ms"][k4_key],
               None, launches_train=per_phase("par_propagate")),
+        entry("flash_attention", "flash_attention.cu",
+              "dupl_tpu/ops/attention.py:295",
+              eval_launches["flash_attention"], l1f["err"],
+              l1f["ms"][l1f_key], l1f["plain_ms"][l1f_key],
+              l1f["library_ms"][l1f_key],
+              launches_grad_step_768=launches17["flash_attention"]),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu",
+              "dupl_tpu/ops/attention.py:295",
+              launches17["flash_attention_bwd"], l1b["err"],
+              l1b["ms"][l1b_key], l1b["plain_ms"][l1b_key],
+              l1b["library_ms"][l1b_key]),
     ]
     check(all(e["launches"] > 0 for e in kernels),
           "a kernel of a main path never launched")

@@ -1,8 +1,9 @@
-"""Where the time goes in the pseudo-label factory or in a training step,
-on one card.
+"""Where the time goes in the pseudo-label factory, in a training step or
+in the evaluation of one native-resolution batch, on one card.
 
-    python -m dupl_tpu_torch.engine.profile [--path pseudo_label|train]
-        [--batch N] [--crop 448] [--phase full] [--out build/profile]
+    python -m dupl_tpu_torch.engine.profile [--path pseudo_label|train|eval]
+        [--batch N] [--crop 448] [--phase full] [--image-size 375 500]
+        [--out build/profile]
 
 ``--path pseudo_label`` (the default, batch 16) builds ``voc_config()``'s
 ViT-B/16 dual student from seed 0 and feeds ``make_pseudo_label_fn`` the
@@ -24,6 +25,17 @@ of one; one traced step (device busy time, idle share, kernels by device
 time); and the step's stages from CUDA events recorded where each stage's
 work has been queued (``Trainer.stage_hook``), so a stage's time includes
 any wait of the device for the host inside it.
+
+``--path eval`` (batch 8) writes a synthetic VOC-structured tree of
+``--batch`` JPEGs of ``--image-size`` (height, width; 375 x 500 is VOC's most
+common, 500 x 500 reaches 2117 tokens at scale 1.5 and with them the flash
+kernel) and runs ``SegEvaluator.run`` of the VOC protocol (native
+resolution, scales 1.0 / 1.5 / 1.25 x flip, max merge, device CRF) over
+that one batch: both passes, each recomputing the forward.  It prints the
+same wall, host CPU, traced and kernel figures for the run, and the stages:
+JPEG and PNG decode on the host, the copy to the device, the forward of each
+scale, the argmax and the copy of the uint8 labels, the padded mean-field
+CRF, and the histograms on the host.
 
 The trace goes to ``<out>/<path>_trace.json`` (open it in Perfetto), and the
 last line of the output is a JSON summary.
@@ -140,6 +152,121 @@ def report(summary: dict, kernels: Dict[str, list], trace_path: str) -> None:
     print(json.dumps(summary), flush=True)
 
 
+def stage_ms(stage, reps: int = 3) -> float:
+    """Median device time of ``stage()`` from CUDA events, each run on its
+    own."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        stage()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def host_ms(stage, reps: int = 3) -> float:
+    """Median wall time of a host-only ``stage()``."""
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        stage()
+        out.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(out)
+
+
+def profile_eval(args, trace_path: str) -> None:
+    import torch
+
+    from dupl_tpu_torch.config import voc_config
+    from dupl_tpu_torch.data.voc import VocSegDataset, write_synthetic_voc
+    from dupl_tpu_torch.engine.eval_seg import (SegEvaluator, _pad_edge,
+                                                msc_seg_logits)
+    from dupl_tpu_torch.models.convert import init_weights
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.ops import attention
+    from dupl_tpu_torch.ops import crf as crf_ops
+    from dupl_tpu_torch.ops import image as image_ops
+    from dupl_tpu_torch.utils.metrics import add_hist
+
+    dev = torch.device("cuda:0")
+    cfg = voc_config()
+    model = DualStudent(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev).eval()
+    size = tuple(args.image_size)
+    root, lists = write_synthetic_voc(
+        os.path.join(args.out, f"eval_tree_{size[0]}x{size[1]}"),
+        [size] * args.batch, seed=0)
+    ds = VocSegDataset(root, lists, "val", transfer_dtype="uint8")
+    scales = (1.0, 1.5, 1.25)
+    ev = SegEvaluator(cfg, model, scales=scales, merge="max",
+                      input_mode="native")
+
+    def run():
+        return ev.run(ds, batch_size=args.batch, crf="device")
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the stages first: once the profiler has run, its tracing library stays
+    # loaded and every later launch costs the host more
+    stages = {"host_decode": host_ms(
+        lambda: [ds[i] for i in range(args.batch)])}
+    samples = [ds[i] for i in range(args.batch)]
+    stack = np.stack([s["image"] for s in samples])
+    stages["copy_to_device"] = stage_ms(
+        lambda: torch.from_numpy(stack).to(dev))
+    imgs = torch.from_numpy(stack).to(dev)
+    attention_kernel = {}       # which attention kernel each scale's views take
+    with torch.inference_mode():
+        x, image01 = image_ops.prepare_inputs(imgs)
+        for sc in scales:
+            launches = attention.flash_attention_cuda.launches
+            stages[f"forward_scale_{sc}"] = stage_ms(lambda: msc_seg_logits(
+                lambda both: model(both).seg, x, size, (sc,), "max",
+                batch_dims=2))
+            attention_kernel[str(sc)] = (
+                "flash_attention" if attention.flash_attention_cuda.launches
+                > launches else "exp_attention")
+        logits = ev.msc_logits(imgs)
+        stages["argmax_and_copy"] = stage_ms(
+            lambda: logits.argmax(dim=-1).to(torch.uint8).cpu())
+        labels = logits.argmax(dim=-1).to(torch.uint8).cpu().numpy()
+        ph, pw = -(-size[0] // 8) * 8, -(-size[1] // 8) * 8
+
+        def crf_stage():
+            probs = torch.softmax(_pad_edge(logits[0].float(), ph, pw), -1)
+            refined = crf_ops.crf_from_config(_pad_edge(image01, ph, pw),
+                                              probs, cfg.crf)
+            return refined[:, :size[0], :size[1]].argmax(dim=-1).to(
+                torch.uint8).cpu()
+
+        stages["crf_and_copy"] = stage_ms(crf_stage)
+    hist = np.zeros((cfg.num_classes, cfg.num_classes), np.float64)
+    stages["host_histograms"] = host_ms(lambda: [
+        add_hist(hist, s["label"], labels[k, i])
+        for i, s in enumerate(samples) for k in (0, 1)])
+
+    summary, kernels = measure(run, trace_path)
+    wall = summary["wall_ms_median_of_5"]
+    summary = {"device": torch.cuda.get_device_name(0), "path": "eval",
+               "batch": args.batch, "image_size": list(size),
+               "tokens_per_scale": [
+                   (int(size[0] * sc) // 16) * (int(size[1] * sc) // 16) + 1
+                   for sc in scales],
+               **summary, "img_per_s": 1e3 * args.batch / wall,
+               "stages_ms": stages, "attention_kernel": attention_kernel,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report(summary, kernels, trace_path)
+
+
 def profile_train(args, trace_path: str) -> None:
     import torch
 
@@ -216,18 +343,6 @@ def profile_pseudo_label(args, trace_path: str) -> None:
 
     summary, kernels = measure(lambda: fn(*call_args), trace_path)
 
-    def stage_ms(stage, reps=3):
-        out = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            stage()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b))
-        return statistics.median(out)
-
     images, cls_label, img_box = call_args
     with torch.inference_mode():
         x, image01 = image_ops.prepare_inputs(images)
@@ -263,17 +378,21 @@ def profile_pseudo_label(args, trace_path: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", default="pseudo_label",
-                    choices=("pseudo_label", "train"))
+                    choices=("pseudo_label", "train", "eval"))
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 16 for pseudo_label, 4 for train")
+                    help="default: 16 for pseudo_label, 4 for train, 8 for "
+                         "eval")
     ap.add_argument("--crop", type=int, default=448)
     ap.add_argument("--phase", default="full",
                     choices=("warmup", "seg", "full"),
                     help="the curriculum phase of --path train")
+    ap.add_argument("--image-size", type=int, nargs=2, default=(375, 500),
+                    metavar=("H", "W"),
+                    help="the images of --path eval (height, width)")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args(argv)
     if args.batch is None:
-        args.batch = 16 if args.path == "pseudo_label" else 4
+        args.batch = {"pseudo_label": 16, "train": 4, "eval": 8}[args.path]
 
     import torch
 
@@ -284,8 +403,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
     trace_path = os.path.join(args.out, f"{args.path}_trace.json")
-    {"pseudo_label": profile_pseudo_label,
-     "train": profile_train}[args.path](args, trace_path)
+    {"pseudo_label": profile_pseudo_label, "train": profile_train,
+     "eval": profile_eval}[args.path](args, trace_path)
     return 0
 
 

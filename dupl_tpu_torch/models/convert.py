@@ -108,6 +108,16 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
         return state_dict_from_jax({k: data[k] for k in data.files})
 
 
+def load_model(cfg, path: str, device) -> torch.nn.Module:
+    """A ``DualStudent`` of ``cfg.model`` with the weights of a ``.npz``
+    file (:func:`load_weights`), in eval mode on ``device``."""
+    from dupl_tpu_torch.models.network import DualStudent
+
+    model = DualStudent(cfg.model)
+    model.load_state_dict(load_weights(path))
+    return model.to(device).eval()
+
+
 def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
     torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                 generator=gen)

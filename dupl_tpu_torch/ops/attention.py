@@ -14,11 +14,18 @@
   head on chip and therefore stops at 896 padded tokens, beyond which the
   reference differentiates its plain formulation; K2 is tiled, so it takes
   every length K1 takes and the port has no such second path;
-* CUDA tensors with N >= 2048: not ported yet (the reference's library flash
-  kernel); raises.
+* CUDA tensors with N >= 2048: exact softmax attention by the flash kernels
+  (``csrc/flash_attention.cu`` forward, kernel L1f, and
+  ``csrc/flash_attention_bwd.cu`` backward, kernel L1b, paired in one
+  ``torch.autograd.Function``), where the reference calls jax's library
+  Pallas flash attention.  The line is drawn on the unpadded length.  The
+  native-resolution evaluation reaches it: a 500 x 500 image at scale 1.5 is
+  2117 tokens.
 
 The exp form is softmax without the max subtraction: logits are clamped at
-60 so exp never overflows fp32, which ViT attention logits never reach.
+60 so exp never overflows fp32, which ViT attention logits never reach.  One
+run may therefore send some batches through the max-free kernel and others
+through the exact one, as the reference does.
 """
 
 from __future__ import annotations
@@ -72,16 +79,17 @@ def exp_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
 
 
-def _check_operand(x: torch.Tensor, name: str) -> None:
+def _check_operand(x: torch.Tensor, name: str,
+                   kernel: str = "exp_attention") -> None:
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"exp_attention kernel: {name} must be bfloat16, "
+        raise TypeError(f"{kernel} kernel: {name} must be bfloat16, "
                         f"got {x.dtype}")
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]):
-        raise ValueError(f"exp_attention kernel: {name} needs a contiguous "
+        raise ValueError(f"{kernel} kernel: {name} needs a contiguous "
                          f"head dim and strides that are multiples of 8, got "
                          f"strides {x.stride()}")
     if x.data_ptr() % 16:
-        raise ValueError(f"exp_attention kernel: {name} must be 16-byte aligned")
+        raise ValueError(f"{kernel} kernel: {name} must be 16-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,6 +246,216 @@ def exp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, tile: int = 64):
+    """Plain twin of the flash-attention forward kernel: unscaled q, k, v,
+    each (..., N, D) -> (out (..., N, D) bf16, lse (..., N) fp32).  Roundings
+    as the kernel: operands rounded to bf16; s = scale * (q . k^T) in fp32;
+    online softmax over ``tile``-key tiles with a running row maximum m, the
+    running sum l of the fp32 p = exp(s - m) and the accumulator of
+    bf16(p) . v both rescaled by exp(m_old - m_new); out = acc / l rounded to
+    bf16 once; lse = m + log(l)."""
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    n = qf.shape[-2]
+    m = torch.full_like(qf[..., :1], float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, n, tile):
+        s = torch.matmul(qf, kf[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(torch.bfloat16).float(),
+                                        vf[..., k0:k0 + tile, :])
+        m = m_new
+    return (acc / l).to(torch.bfloat16), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor,
+                            g: torch.Tensor, scale: float):
+    """Plain twin of the flash-attention backward kernel: unscaled q, k, v,
+    the forward's out and the output cotangent g, each (..., N, D), and the
+    forward's lse (..., N) -> (dq, dk, dv), each (..., N, D) bf16.  Roundings
+    as the kernel: operands rounded to bf16; p = exp(scale * s - lse), t =
+    g . v^T and delta = rowsum(out * g) in fp32; ds = p * (t - delta) rounded
+    to bf16 before both of its products, p rounded to bf16 for dv; fp32 sums;
+    dq = scale * ds . k, dk = scale * ds^T . q, dv = p^T . g, each rounded to
+    bf16 once."""
+    qf, kf, vf, of, gf = (x.to(torch.bfloat16).float()
+                          for x in (q, k, v, out, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp(scale * s - lse.float()[..., None])
+    t = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (of * gf).sum(dim=-1, keepdim=True)
+    ds = (p * (t - delta)).to(torch.bfloat16).float()
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.to(torch.bfloat16).float().transpose(-1, -2), gf)
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _check_flash_operands(kernel: str, operands) -> None:
+    """Shared checks of the flash kernels' (B, N, H, D) bf16 operands."""
+    q = operands[0][0]
+    if not (q.is_cuda and all(x.device == q.device for x, _ in operands)):
+        raise ValueError(f"{kernel} kernel: operands must share one CUDA "
+                         f"device")
+    if q.dim() != 4 or any(x.shape != q.shape for x, _ in operands):
+        raise ValueError(f"{kernel} kernel: want equal (B, N, H, D) shapes, "
+                         f"got {[tuple(x.shape) for x, _ in operands]}")
+    if q.shape[3] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel: head dim must be one of "
+                         f"{_KERNEL_HEAD_DIMS}, got {q.shape[3]}")
+    for x, name in operands:
+        _check_operand(x, name, kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_entry():
+    """The C entry point of ``csrc/flash_attention.cu``, built on first
+    use."""
+    from dupl_tpu_torch.kernels import build
+
+    fn = build.load("flash_attention").dupl_flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64),
+                      ctypes.c_void_p])
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float):
+    """Launch kernel L1f on the current stream.  Unscaled q, k, v:
+    (B, N, H, D) bf16 on one CUDA device, D in {16, 32, 64, 80}, each
+    possibly a strided view -> (out (B, N, H, D) bf16 contiguous, lse
+    (B, H, N) fp32).  Any N; the scale is applied to the scores in the
+    kernel."""
+    from dupl_tpu_torch.kernels import build
+
+    _check_flash_operands("flash_attention", ((q, "q"), (k, "k"), (v, "v")))
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _flash_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), lse.data_ptr(), b, n, h, d,
+                                float(scale), strides, stream)
+    build.check(status, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out, lse
+
+
+flash_attention_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_entry():
+    """The C entry point of ``csrc/flash_attention_bwd.cu``, built on first
+    use."""
+    from dupl_tpu_torch.kernels import build
+
+    fn = build.load("flash_attention_bwd").dupl_flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64),
+                      ctypes.c_void_p])
+    return fn
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, g: torch.Tensor, scale: float):
+    """Launch kernel L1b on the current stream.  Unscaled q, k, v, the
+    forward's out and the output cotangent g: (B, N, H, D) bf16 on one CUDA
+    device, each possibly a strided view; lse: the forward's (B, H, N) fp32
+    -> (dq, dk, dv), each (B, N, H, D) bf16 contiguous."""
+    from dupl_tpu_torch.kernels import build
+
+    _check_flash_operands("flash_attention_bwd", (
+        (q, "q"), (k, "k"), (v, "v"), (out, "out"), (g, "g")))
+    b, n, h, d = q.shape
+    if (lse.shape != (b, h, n) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd kernel: lse must be a "
+                         f"contiguous float32 {(b, h, n)} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16,
+                              device=q.device) for _ in range(3))
+    # delta = rowsum(out * g), written by the kernel's first pass and read
+    # by its second
+    delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 15)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3],
+                                    *g.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _flash_bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, n, h, d, float(scale),
+            strides, stream)
+    build.check(status, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def _to_bhn(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, D) -> (B, H, N, D), a view."""
+    return x.permute(0, 2, 1, 3)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel L1f forward, kernel L1b backward, on unscaled (B, N, H, D)
+    bf16 operands.  CPU tensors take the two plain twins; CUDA tensors
+    launch the kernels or raise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cuda":
+            out, lse = flash_attention_cuda(q, k, v, scale)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_ref(_to_bhn(q), _to_bhn(k), _to_bhn(v),
+                                           scale)
+            out = _to_bhn(out).contiguous()
+        else:
+            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)  # k, v: views of the qkv product
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        if q.device.type == "cuda":
+            return (*flash_attention_bwd_cuda(q, k, v, out, lse,
+                                              g.contiguous(), ctx.scale), None)
+        grads = flash_attention_bwd_ref(*(_to_bhn(x) for x in (q, k, v, out)),
+                                        lse, _to_bhn(g), ctx.scale)
+        return (*(_to_bhn(x) for x in grads), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """Exact softmax attention by the flash kernels; q, k, v: (B, N, H, D)
+    -> same, in ``q.dtype``.  Operands are rounded to bf16 and the result is
+    bf16, as the reference's library kernel takes and gives them; the scale
+    is an fp32 argument applied to the scores.  CPU tensors run the plain
+    twins; CUDA tensors launch the kernels, forward and backward."""
+    out = _FlashAttention.apply(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                                v.to(torch.bfloat16), float(scale))
+    return out.to(q.dtype)
+
+
 def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: float) -> torch.Tensor:
     """Exact softmax attention, (B, N, H, D) -> (B, N, H, D), with the
@@ -255,12 +473,12 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float) -> torch.Tensor:
-    """q, k, v: (B, N, H, D) -> (B, N, H, D)."""
+    """q, k, v: (B, N, H, D) -> (B, N, H, D).  CPU tensors take exact
+    softmax at every length; CUDA tensors the kernels by the unpadded token
+    count: max-free exp attention below 2048, flash attention from there."""
     n = q.shape[1]
     if q.device.type == "cpu" or n < _EXP_MIN_SEQ:
         return softmax_attention(q, k, v, scale=scale)
     if n < _EXP_MAX_SEQ:
         return exp_attention(q, k, v, scale=scale)
-    raise ValueError(
-        f"dot_attention: {n} tokens on {q.device} needs the flash-attention "
-        f"kernel (N >= {_EXP_MAX_SEQ}), which is not ported yet")
+    return flash_attention(q, k, v, scale=scale)

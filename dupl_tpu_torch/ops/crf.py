@@ -15,7 +15,7 @@ the plain tile loop for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -202,3 +202,33 @@ def crf_from_config(image01, probs, cfg, **kw):
         pos_xy_std=cfg.pos_xy_std, bi_w=cfg.bi_w, bi_xy_std=cfg.bi_xy_std,
         bi_rgb_std=cfg.bi_rgb_std, **kw,
     )
+
+
+def crf_labels_from_config(image01: torch.Tensor, probs: torch.Tensor, cfg,
+                           class_budget: Optional[int] = None,
+                           **kw) -> torch.Tensor:
+    """CRF -> argmax labels (B, H, W) int64, optionally with the class axis
+    compacted to a per-image budget (the wide-class-axis throughput lever:
+    COCO runs 81 classes).
+
+    Compaction picks each image's ``class_budget`` most plausible classes by
+    total spatial probability mass (``torch.topk`` over the per-class sum)
+    and runs mean-field on those slots only, which conditions the CRF on
+    "the label is one of the image's K dominant classes".  Mass, not max:
+    mean-field with a long-range bilateral kernel is itself a mass vote.
+    Slot indices map back to class ids with a one-hot matmul, as in the
+    reference."""
+    b, h, w, c = probs.shape
+    if class_budget is None or class_budget >= c:
+        lg = crf_from_config(image01, probs, cfg, return_logits=True, **kw)
+        return lg.argmax(dim=-1)
+
+    k = class_budget
+    score = probs.sum(dim=(1, 2))                            # (B, C)
+    idx = torch.topk(score, k, dim=-1).indices               # (B, k)
+    sel = torch.nn.functional.one_hot(idx, c).to(probs.dtype)   # (B, k, C)
+    compact = torch.einsum("bhwc,bkc->bhwk", probs, sel)
+    lg = crf_from_config(image01, compact, cfg, return_logits=True, **kw)
+    onehot = torch.nn.functional.one_hot(lg.argmax(dim=-1), k).float()
+    ids = torch.einsum("bhwk,bk->bhw", onehot, idx.float())
+    return ids.long()

@@ -18,3 +18,8 @@ def voc_colormap(n: int = 256) -> np.ndarray:
             c >>= 3
         cmap[i] = (r, g, b)
     return cmap
+
+
+def encode_cmap(label: np.ndarray) -> np.ndarray:
+    """Class-index map -> RGB image."""
+    return voc_colormap()[np.asarray(label, np.int32)]

@@ -40,8 +40,8 @@ def test_library_name_follows_the_sources():
     assert build._digest(src) == build._digest(src)
     assert build._digest(src) != build._digest(build.CSRC / "crf_apply.cu")
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
-        "crf_apply", "exp_attention", "exp_attention_bwd", "par_affinity",
-        "par_propagate"]
+        "crf_apply", "exp_attention", "exp_attention_bwd", "flash_attention",
+        "flash_attention_bwd", "par_affinity", "par_propagate"]
 
 
 def test_port_never_imports_jax():
@@ -54,7 +54,12 @@ def test_port_never_imports_jax():
                      "dupl_tpu_torch.engine.train",
                      "dupl_tpu_torch.engine.optimizer",
                      "dupl_tpu_torch.ops.augment", "dupl_tpu_torch.ops.gmm",
-                     "dupl_tpu_torch.data.pipeline"):
+                     "dupl_tpu_torch.data.pipeline",
+                     "dupl_tpu_torch.data.voc", "dupl_tpu_torch.data.transforms",
+                     "dupl_tpu_torch.utils.metrics", "dupl_tpu_torch.utils.device",
+                     "dupl_tpu_torch.ops.crf_native",
+                     "dupl_tpu_torch.engine.validate",
+                     "dupl_tpu_torch.engine.eval_seg"):
         assert expected in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -71,6 +76,8 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/serve_torch.py",
                                     "tools/bench_train_torch.py",
+                                    "tools/eval_seg_torch.py",
+                                    "tools/infer_cam_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
     """The port's scripts import nothing of jax, flax, optax or the JAX

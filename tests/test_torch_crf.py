@@ -89,3 +89,63 @@ def test_crf_from_config_matches_jax():
                                cfg, fast=True, return_logits=True).numpy()
     assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
     assert tcrf._auto_tile(48, 56) == jcrf._auto_tile(48, 56) == 48
+
+
+@pytest.mark.parametrize("class_budget", [None, 3, 5, 8])
+def test_crf_labels_from_config_matches_jax(class_budget):
+    """Argmax labels of the full mean field, with the class axis compacted
+    to each image's ``class_budget`` heaviest classes (top-k over the mass,
+    one-hot matmul back to class ids) or not (None, and a budget >= C).
+    Labels at least 99.9% equal: the bf16 kernel entries may round
+    differently where fp32 sums differ in order."""
+    rs = np.random.RandomState(11)
+    img, probs = _scene(rs, 2, 48, 64, 6)
+    cfg = CrfConfig(iter_max=3)
+    want = np.asarray(jcrf.crf_labels_from_config(
+        jnp.asarray(img), jnp.asarray(probs), cfg, class_budget=class_budget))
+    got = tcrf.crf_labels_from_config(torch.from_numpy(img),
+                                      torch.from_numpy(probs), cfg,
+                                      class_budget=class_budget)
+    assert got.shape == (2, 48, 64) and got.dtype == torch.int64
+    assert (got.numpy() == want).mean() >= 0.999
+    assert len(np.unique(want)) > 2
+    if class_budget == 3:   # only the three heaviest classes of each image
+        mass = probs.sum((1, 2))
+        for b in range(2):
+            assert set(np.unique(got[b].numpy())) <= set(
+                np.argsort(-mass[b])[:3])
+
+
+def test_native_crf_bridge_matches_jax(tmp_path, monkeypatch):
+    """The port's ctypes bridge builds ``native/densecrf`` into the build
+    folder (never beside the sources) and gives the bits of the JAX
+    package's bridge to the same sources."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build native/densecrf")
+    from dupl_tpu.ops import crf_native as jnative
+    from dupl_tpu_torch.ops import crf_native as tnative
+
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative, "_lib", None)
+    before = sorted(p.name for p in tnative.NATIVE_DIR.iterdir()
+                    if p.name != "libdensecrf.so")   # the JAX bridge's own
+    rs = np.random.RandomState(5)
+    img, probs = _scene(rs, 1, 32, 48, 4)
+    image = (img[0] * 255).astype(np.uint8)
+    pm = probs[0].transpose(2, 0, 1)
+    cfg = CrfConfig(iter_max=3)
+    got = tnative.DenseCRF.from_config(cfg)(image, pm)
+    want = jnative.DenseCRF.from_config(cfg)(image, pm)
+    assert got.shape == want.shape == (4, 32, 48) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    libs = list((tmp_path / "build").glob("densecrf-*.so"))
+    assert len(libs) == 1 and tnative.build() == libs[0]
+    assert sorted(p.name for p in tnative.NATIVE_DIR.iterdir()
+                  if p.name != "libdensecrf.so") == before
+    outs = tnative.crf_batch([image, image], [pm, pm], cfg, workers=2)
+    np.testing.assert_array_equal(outs[0], want)
+    np.testing.assert_array_equal(outs[1], want)
+    with pytest.raises(ValueError, match="does not match"):
+        tnative.DenseCRF()(image[:, :40], pm)

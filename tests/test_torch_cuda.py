@@ -64,8 +64,9 @@ def test_exp_attention_clamp(dev):
 
 
 def test_dot_attention_dispatch(dev):
-    """Below 128 tokens plain softmax (no launch), 128..2047 the kernel,
-    2048 and above raises until the flash kernel is ported."""
+    """Below 128 tokens plain softmax (no launch), 128..2047 the max-free
+    kernel, 2048 and above the flash kernel: the line is the unpadded
+    length."""
     n0 = attention.exp_attention_cuda.launches
     x = torch.randn(1, 127, 2, 64, device=dev, dtype=torch.bfloat16)
     attention.dot_attention(x, x, x, scale=0.125)
@@ -73,9 +74,16 @@ def test_dot_attention_dispatch(dev):
     x = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16)
     attention.dot_attention(x, x, x, scale=0.125)
     assert attention.exp_attention_cuda.launches == n0 + 1
-    x = torch.zeros(1, 2048, 1, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="flash"):
-        attention.dot_attention(x, x, x, scale=0.125)
+    f0 = attention.flash_attention_cuda.launches
+    x = torch.randn(1, 2047, 1, 64, device=dev, dtype=torch.bfloat16)
+    attention.dot_attention(x, x, x, scale=0.125)
+    assert attention.exp_attention_cuda.launches == n0 + 2
+    assert attention.flash_attention_cuda.launches == f0
+    x = torch.randn(1, 2048, 1, 64, device=dev, dtype=torch.bfloat16)
+    out = attention.dot_attention(x, x, x, scale=0.125)
+    assert attention.exp_attention_cuda.launches == n0 + 2
+    assert attention.flash_attention_cuda.launches == f0 + 1
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
 
 
 def test_exp_attention_rejects_bad_operands(dev):
@@ -426,3 +434,260 @@ def test_par_kernels_reject_bad_operands(dev):
         par_cuda.propagate_cuda(m, aff, (1, 2, 4, 8, 12, 41), 2)
     with pytest.raises(ValueError, match="CUDA"):
         par_cuda.propagate_cuda(m, aff.cpu(), DIL, 2)
+
+
+# -- the flash-attention kernels (L1f forward, L1b backward) ------------------
+
+def _flash_ops(dev, b, n, h, d, seed, q_mult=1.0):
+    """Unscaled q, k, v as column slices of one (B, N, 3C) projection, and a
+    cotangent."""
+    qs, k, v, go = _qkvg(dev, b, n, h, d, seed, q_mult=q_mult * d ** 0.5)
+    return qs, k, v, go
+
+
+_FLASH_SHAPES = [(1, 64, 2, 64), (3, 100, 2, 64), (2, 197, 3, 16),
+                 (1, 300, 4, 32), (2, 257, 2, 80), (1, 2117, 2, 64),
+                 (1, 2305, 12, 64)]
+
+
+@pytest.mark.parametrize("b,n,h,d", _FLASH_SHAPES)
+def test_flash_attention_matches_twin(dev, b, n, h, d):
+    """L1f against its twin at ragged lengths (partial last tiles), every
+    head dim, strided k and v.  Kernel and twin walk the same 64-key tiles
+    with the same running maximum and round the same fp32 quantities to
+    bf16; their exps and sum orders differ.  Bounds: 1 bf16 ulp of the row
+    at the maximum, 0.01 on average (measured on an H100: <= 1.0 and
+    <= 8.5e-4; a kernel that leaves p in fp32, or one that rounds p
+    against another maximum than the running one, is 0.08-0.1 ulp off on
+    average).  The log-sum-exp within 1e-5."""
+    q, k, v, _ = _flash_ops(dev, b, n, h, d, seed=n)
+    assert not k.is_contiguous()
+    n0 = attention.flash_attention_cuda.launches
+    out, lse = attention.flash_attention_cuda(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == n0 + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.is_contiguous() and lse.shape == (b, h, n)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    want, want_lse = attention.flash_attention_ref(
+        *(attention._to_bhn(x) for x in (q, k, v)), d ** -0.5)
+    worst, mean = _row_ulps(attention._to_bhn(out), want)
+    assert worst <= 1.0 and mean <= 0.01, (worst, mean)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n", [442, 1765])
+def test_flash_attention_against_exp_attention(dev, n):
+    """Below 2048 tokens L1f and K1 compute the same softmax, K1 without the
+    max subtraction and with q pre-scaled in bf16 (exact at head dim 64):
+    the outputs differ by the rounding of p against another reference point
+    only.  Bounds: 2 bf16 ulps of the row, 0.25 on average (measured on an
+    H100: 2.0, 0.12-0.18)."""
+    q, k, v, _ = _flash_ops(dev, 2, n, 12, 64, seed=n)
+    out, _ = attention.flash_attention_cuda(q, k, v, 0.125)
+    k1 = attention.exp_attention_cuda(q * 0.125, k, v)
+    worst, mean = _row_ulps(attention._to_bhn(out), attention._to_bhn(k1))
+    assert worst <= 2.0 and mean <= 0.25, (worst, mean)
+
+
+def test_flash_attention_large_logits(dev):
+    """Logits up to the hundreds, where max-free exp would overflow: finite,
+    and within the same bounds of the twin."""
+    q, k, v, _ = _flash_ops(dev, 1, 2100, 2, 64, seed=11, q_mult=30.0)
+    s = (attention._to_bhn(q).float()
+         @ attention._to_bhn(k).float().transpose(-1, -2)) * 0.125
+    assert s.max().item() > 100
+    out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+    want, want_lse = attention.flash_attention_ref(
+        *(attention._to_bhn(x) for x in (q, k, v)), 0.125)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    worst, mean = _row_ulps(attention._to_bhn(out), want)
+    assert worst <= 1.0 and mean <= 0.01, (worst, mean)
+
+
+@pytest.mark.parametrize("b,n,h,d", _FLASH_SHAPES)
+def test_flash_attention_bwd_matches_twin(dev, b, n, h, d):
+    """L1b against its twin on the forward kernel's own out and lse.  Kernel
+    and twin round the same fp32 quantities to bf16 and sum in different
+    orders: within 2 bf16 ulps of the row at the maximum and 0.01 on average
+    (measured on an H100: <= 1.0 and <= 8.1e-4)."""
+    q, k, v, go = _flash_ops(dev, b, n, h, d, seed=n)
+    out, lse = attention.flash_attention_cuda(q, k, v, d ** -0.5)
+    n0 = attention.flash_attention_bwd_cuda.launches
+    got = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, d ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_bwd_cuda.launches == n0 + 1
+    want = attention.flash_attention_bwd_ref(
+        *(attention._to_bhn(x) for x in (q, k, v, out)), lse,
+        attention._to_bhn(go), d ** -0.5)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == q.shape and x.dtype == torch.bfloat16
+        assert x.is_contiguous() and torch.isfinite(x.float()).all()
+        worst, mean = _row_ulps(attention._to_bhn(x), w)
+        assert worst <= 2.0 and mean <= 0.01, (name, worst, mean)
+
+
+def test_flash_attention_bwd_peaked_rows(dev):
+    """Logits six times wider: rows are nearly one-hot, t - delta cancels
+    and the two summation orders differ by more (13 ulps of the row measured
+    on an H100, bound 64); the mean stays within 0.01."""
+    q, k, v, go = _flash_ops(dev, 2, 2117, 12, 64, seed=2117, q_mult=6.0)
+    out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+    got = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, 0.125)
+    want = attention.flash_attention_bwd_ref(
+        *(attention._to_bhn(x) for x in (q, k, v, out)), lse,
+        attention._to_bhn(go), 0.125)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        worst, mean = _row_ulps(attention._to_bhn(x), w)
+        assert worst <= 64.0 and mean <= 0.01, (name, worst, mean)
+
+
+def flash_wrong_twin(q, k, v, out, lse, g, scale, kind):
+    """``flash_attention_bwd_ref`` with one step done wrongly
+    ((..., N, D)): ``no_delta`` drops delta, ``ds_fp32`` leaves ds unrounded,
+    ``lse_is_max`` normalises by the row maximum instead of the
+    log-sum-exp."""
+    qf, kf, vf, of, gf = (x.to(torch.bfloat16).float()
+                          for x in (q, k, v, out, g))
+    s = scale * (qf @ kf.transpose(-1, -2))
+    if kind == "lse_is_max":
+        lse = s.amax(-1)
+    p = torch.exp(s - lse[..., None])
+    t = gf @ vf.transpose(-1, -2)
+    delta = (of * gf).sum(-1, keepdim=True)
+    if kind == "no_delta":
+        delta = torch.zeros_like(delta)
+    ds = p * (t - delta)
+    if kind != "ds_fp32":
+        ds = ds.to(torch.bfloat16).float()
+    dq, dk = scale * (ds @ kf), scale * (ds.transpose(-1, -2) @ qf)
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("kind", ["none", "no_delta", "ds_fp32", "lse_is_max"])
+@pytest.mark.parametrize("n", [300, 2305])
+def test_flash_attention_bwd_bounds_tell_a_wrong_kernel(dev, kind, n):
+    """The bounds L1b is held to (2 bf16 ulps of the row at the maximum,
+    0.01 on average) tell a wrong kernel: against a twin without delta
+    (110-450 ulps at the maximum), with ds left in fp32 (0.09-0.13 ulp on
+    average; the maximum, 1-2 ulps, does not show it) or with the row
+    maximum in place of the log-sum-exp (230-255 ulps) the kernel is
+    outside them; against the unchanged formulation (``none``) inside."""
+    q, k, v, go = _flash_ops(dev, 2, n, 12, 64, seed=n)
+    out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+    got = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, 0.125)
+    ops = (*(attention._to_bhn(x) for x in (q, k, v, out)), lse,
+           attention._to_bhn(go))
+    worst = mean = 0.0
+    for x, w in zip(got, flash_wrong_twin(*ops, 0.125, kind)):
+        a, b = _row_ulps(attention._to_bhn(x), w)
+        worst, mean = max(worst, a), max(mean, b)
+    inside = worst <= 2.0 and mean <= 0.01
+    assert inside == (kind == "none"), (kind, worst, mean)
+
+
+def test_flash_attention_bwd_is_repeatable_and_masks_the_tail(dev):
+    """No atomics: two launches give the same bits.  And a ragged tail has
+    no padded key: with one key fewer, the gradients of the keys that remain
+    are those of the same problem computed on its own."""
+    q, k, v, go = _flash_ops(dev, 1, 2050, 2, 64, seed=4)
+    out, lse = attention.flash_attention_cuda(q, k, v, 0.125)
+    a = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, 0.125)
+    b = attention.flash_attention_bwd_cuda(q, k, v, out, lse, go, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    n = 2049                        # one row into the 33rd tile
+    qs, ks, vs, gs = (x[:, :n] for x in (q, k, v, go))
+    out_s, lse_s = attention.flash_attention_cuda(qs, ks, vs, 0.125)
+    got = attention.flash_attention_bwd_cuda(qs, ks, vs, out_s, lse_s, gs,
+                                             0.125)
+    want = attention.flash_attention_bwd_ref(
+        *(attention._to_bhn(x) for x in (qs, ks, vs, out_s)), lse_s,
+        attention._to_bhn(gs), 0.125)
+    for x, w in zip(got, want):
+        assert x.shape == (1, n, 2, 64)
+        worst, mean = _row_ulps(attention._to_bhn(x), w)
+        assert worst <= 2.0 and mean <= 0.01, (worst, mean)
+
+
+def test_flash_attention_function_backward_runs_the_kernels(dev, monkeypatch):
+    """Under autograd on CUDA tensors ``dot_attention`` at 2048 tokens or
+    more launches L1f forward and L1b backward, never a twin, and its
+    gradients are the twins' (the CPU function's)."""
+    def no_twin(*a, **k):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+    monkeypatch.setattr(attention, "flash_attention_ref", no_twin)
+    monkeypatch.setattr(attention, "flash_attention_bwd_ref", no_twin)
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n, h, d = 1, 2060, 3, 64
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev,
+                      requires_grad=True)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+               for i in range(3))
+    f0 = attention.flash_attention_cuda.launches
+    b0 = attention.flash_attention_bwd_cuda.launches
+    out = attention.dot_attention(q, k, v, scale=d ** -0.5)
+    go = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == f0 + 1
+    assert attention.flash_attention_bwd_cuda.launches == b0 + 1
+    monkeypatch.undo()
+    qkv_c = qkv.detach().cpu().requires_grad_()
+    qc, kc, vc = (qkv_c[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+                  for i in range(3))
+    attention.flash_attention(qc, kc, vc, scale=d ** -0.5).backward(go.cpu())
+    scale = qkv_c.grad.abs().max().item()
+    assert (qkv.grad.cpu() - qkv_c.grad).abs().max().item() <= 2 ** -7 * scale
+
+
+def test_flash_attention_rejects_bad_operands(dev):
+    x = torch.zeros(1, 130, 2, 64, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 130, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention.flash_attention_cuda(x.float(), x, x, 0.125)
+    y = torch.zeros(1, 130, 2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention_cuda(y, y, y, 0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        attention.flash_attention_cuda(x, x, x[:, :100], 0.125)
+    with pytest.raises(ValueError, match="strides"):
+        attention.flash_attention_cuda(x, x, torch.zeros(
+            1, 130, 2, 128, device=dev, dtype=torch.bfloat16)[..., ::2], 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.flash_attention_cuda(x, x.cpu(), x, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        attention.flash_attention_bwd_cuda(x, x, x, x, lse[:, :, :100], x,
+                                           0.125)
+    with pytest.raises(ValueError, match="lse"):
+        attention.flash_attention_bwd_cuda(x, x, x, x, lse.double(), x, 0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention.flash_attention_bwd_cuda(x, x, x, x, lse, x.float(), 0.125)
+
+
+def test_crf_apply_at_the_evaluator_shape(dev):
+    """K5 at the native-resolution evaluator's shape: a 500 x 375 image
+    edge-padded to 504 x 376 (N 189,504 pixels, 2,961 pivots), V 21 and
+    V 1, through ``kernel_apply`` with the evaluator's ``block_rows``
+    (``_auto_tile(376, 56)`` = 47 rows of 504).  Bound as elsewhere: 2e-3 of
+    each column's scale."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    h, w = 376, 504
+    assert crf._auto_tile(h, 56) == 47 and crf._auto_tile(h, 8) == 8
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, h, device=dev),
+                            torch.linspace(0, 1, w, device=dev), indexing="ij")
+    img = torch.stack([torch.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)[None]
+    img = (img + 0.03 * torch.randn(img.shape, generator=g, device=dev)
+           ).clamp(0, 1)
+    basis, coef, logc, _, _ = crf.pivot_lattice(img, 8, 121.0, 5.0)
+    assert basis.shape == (1, 189504, 11) and coef.shape == (1, 11, 2961)
+    for nv in (21, 1):
+        vals = torch.rand(1, 2961, nv, generator=g, device=dev) * 64.0
+        n0 = crf_cuda.kernel_apply_cuda.launches
+        got = crf_cuda.kernel_apply(basis, coef, logc, vals,
+                                    block_rows=47 * w)
+        assert crf_cuda.kernel_apply_cuda.launches == n0 + 1
+        want = crf_cuda.kernel_apply_ref(basis, coef, logc, vals,
+                                         block_rows=47 * w)
+        scale = want.abs().amax(dim=(0, 1))
+        assert ((got - want).abs().amax(dim=(0, 1)) <= 2e-3 * scale).all()
