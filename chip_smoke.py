@@ -1,5 +1,6 @@
 """On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path,
-the pseudo-label path, the training step and the evaluation path.
+the pseudo-label path, the training step, the evaluation path, the four
+kernel-experiment tools and the training run.
 
     python3 chip_smoke.py
 
@@ -78,6 +79,30 @@ JAX.  Phases, each printing one result line:
    the code, a finite loss, a finite gradient for every parameter of the
    phase's graph; then, at depth 2 and full width, card against CPU: one
    500 x 500 image through ``msc_seg_logits`` and one such ``grad_step``.
+
+18. P1 (exp attention with the row sum taken by the second product) and
+19. P2 (exp attention with the q scale in the kernel), each through its
+   experiment tool's ``run`` at the tool's full shapes (BH 768 / B 64, H 12,
+   D 64, N 197, 785, 1765) beside K1, then against its twin in bf16 ulps of
+   the row and against a wrong twin (the fp32 row sum; the scale left in
+   fp32) that must fall outside, beside ``F.scaled_dot_product_attention``;
+20. P3 (CRF kernel-apply with the exp taken in bf16) through its tool at
+   (16, 200,704, 11) x (16, 11, 3,136) x (16, 3,136, 22) beside K5 and the
+   plain tile loop, then against its twin and the fp32-exp twin (outside),
+   with pivots of logc = -inf, which give exactly 0;
+21. P4 (the instruction-rate probe) through its tool: six functions in fp32, five
+   in bf16, (512, 1024) x 4096 passes: ms, Gop/s, each against its twin and
+   beside the bound of the unit that binds it;
+22. the training run: ``tools/train_torch.py`` in-process on a synthetic VOC
+   tree of 40 train and 8 val JPEGs at full width and depth (crop 448, batch
+   4, uint8 wire format): 12 steps through warm-up, seg and full with
+   validation, checkpoint and weight export at steps 6 and 12, every step
+   that is neither a log nor an eval boundary under the sync debug mode, the
+   launches of K1-K4 in every step as in phase 12, no twin on a CUDA tensor;
+   then ``--resume`` to step 14, which must start at step 12 on batch 12 of
+   the loader's index stream; s/it per phase beside phase 12's bare step,
+   the feeder's wait, the host-to-device copy, validation and checkpoint
+   times.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -1438,6 +1463,408 @@ def main() -> int:
           f"{json.dumps({k_: round(v_, 5) for k_, v_ in cos17.items()})} "
           f"(bound 0.98)", flush=True)
 
+    # -- 18-21. the experiment kernels, through their tools -------------------------
+    # Each tool's ``run`` is the main path of its kernel: the counts are set
+    # to 0 just before it and read just after.  Then the kernel is held
+    # against its twin at the tool's full shapes.
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tools"))
+    import crf_apply_experiment_torch as crf_tool
+    import exp_attn_experiment_torch as ones_tool
+    import exp_attn_layout_experiment_torch as bnhd_tool
+    import exp_rate_experiment_torch as rate_tool
+
+    from dupl_tpu_torch.ops import experiments
+
+    torch.cuda.empty_cache()
+    peak_flops["sfu"] = peak_flops["fp32"] / 2 / 8   # 16 of 128 lanes an SM
+    peak_flops["fp32_instr"] = peak_flops["fp32"] / 2
+    exp_counters = {"exp_attention_ones": experiments.exp_attention_ones_cuda,
+                    "exp_attention_bnhd": experiments.exp_attention_bnhd_cuda,
+                    "crf_apply_bf16": experiments.kernel_apply_bf16_cuda,
+                    "exp_rate": experiments.exp_rate_cuda}
+
+    def tool_run(name, run, **kw):
+        for f in exp_counters.values():
+            f.launches = 0
+        records = run(dev, **kw)
+        torch.cuda.synchronize()
+        return records, exp_counters[name].launches
+
+    def row_ulps(got, want):
+        """(max, mean) error in bf16 ulps of the row."""
+        e = (got.float() - want).abs() / bf16_ulp(
+            want.abs().amax(-1, keepdim=True))
+        return e.max().item(), e.mean().item()
+
+    def by_heads(fn, ops, chunk=96):
+        """A twin over (BH, N, D) operands in chunks of heads: its fp32
+        score matrix at 768 heads and 1765 tokens would take 9.6 GB."""
+        return torch.cat([fn(*(x[i:i + chunk] for x in ops)).to(torch.bfloat16)
+                          for i in range(0, ops[0].shape[0], chunk)])
+
+    # -- 18. P1 against its twin ---------------------------------------------------
+    # Bounds, written before the run: within 2 bf16 ulps of the row at the
+    # maximum (kernel and twin sum in fp32 in different orders; that can flip
+    # the bf16 rounding of an e entry, which a small element of the row
+    # carries at the row's scale) and 1e-3 ulp on average.  The wrong twin
+    # (fp32 row sum: the exp-attention twin) must exceed the mean bound.
+    p1_records, p1_launches = tool_run("exp_attention_ones", ones_tool.run)
+    p1 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {}, "k1_ms": {},
+          "plain_ms": {}, "library_ms": {}, "rel_k1": {}}
+    for rec in p1_records:
+        n, key = rec["n"], f"BH={rec['bh']},N={rec['n']}"
+        ops18 = ones_tool.make_inputs(rec["bh"], n, dev)
+        got = experiments.exp_attention_ones(*ops18)
+        torch.cuda.synchronize()
+        want = by_heads(experiments.exp_attention_ones_ref, ops18).float()
+        wrong = by_heads(attention.exp_attention_ref, ops18).float()
+        mx, mean = row_ulps(got, want)
+        wmean = row_ulps(got, wrong)[1]
+        check(bool(torch.isfinite(got.float()).all()), f"P1 N={n}: non-finite")
+        check(mx <= 2.0 and mean <= 1e-3,
+              f"P1 {key}: {mx:.2f} ulp max, {mean:.2e} mean vs its twin "
+              f"(bounds 2, 1e-3)")
+        check(wmean > 1e-3, f"P1 {key}: the fp32-row-sum twin is inside the "
+              f"mean bound ({wmean:.2e} ulp)")
+        p1["err"] = max(p1["err"], (got.float() - want).abs().max().item())
+        p1["ulps"][key], p1["wrong_mean"][key] = (mx, mean), wmean
+        p1["ms"][key], p1["k1_ms"][key] = rec["ones_ms"], rec["current_ms"]
+        p1["rel_k1"][key] = rec["max_rel_diff"]
+        p1["plain_ms"][key] = time_ms(lambda: by_heads(
+            experiments.exp_attention_ones_ref, ops18), iters=2, warmup=1)
+        ql, kl, vl = (x[None] for x in ops18)
+        p1["library_ms"][key] = time_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=1.0))
+        del ops18, got, want, wrong, ql, kl, vl
+    print(f"[P1 exp_attention_ones] max_abs_err {p1['err']:.4g} | bf16 ulps of "
+          f"the row (max, mean) {json.dumps(p1['ulps'])} (bounds 2, 1e-3) | "
+          f"wrong twin (fp32 row sum) mean ulps {json.dumps(p1['wrong_mean'])} "
+          f"(outside 1e-3) | kernel ms {json.dumps(p1['ms'])} | K1 ms "
+          f"{json.dumps(p1['k1_ms'])} | max-rel-diff vs K1 "
+          f"{json.dumps(p1['rel_k1'])} | plain ms {json.dumps(p1['plain_ms'])} "
+          f"| library ms {json.dumps(p1['library_ms'])} | launches of the "
+          f"tool's run {p1_launches}", flush=True)
+
+    # -- 19. P2 against its twin ---------------------------------------------------
+    # Same bounds as P1.  At the tool's scale of 1/8 a twin that leaves the
+    # scale in fp32 is the same function (bf16 holds 1/8), so the wrong twin
+    # is checked at scale 0.11, which bf16 rounds to 0.10986.
+    p2_records, p2_launches = tool_run("exp_attention_bnhd", bnhd_tool.run)
+    p2 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {}, "k1_ms": {},
+          "plain_ms": {}, "library_ms": {}, "rel_k1": {}}
+
+    def by_batch(fn, ops, scale, chunk=8):
+        return torch.cat([fn(*(x[i:i + chunk] for x in ops), scale).to(
+            torch.bfloat16) for i in range(0, ops[0].shape[0], chunk)])
+
+    def fp32_scale_twin(q, k, v, scale):
+        qs = (q.float() * scale).to(torch.bfloat16)
+        out = attention.exp_attention_ref(*(attention._to_bhnd(x)
+                                            for x in (qs, k, v)))
+        return attention._from_bhnd(out, q.shape[0])
+
+    for rec in p2_records:
+        n, key = rec["n"], f"B={rec['b']},N={rec['n']},H=12,D=64"
+        ops19 = bnhd_tool.make_inputs(rec["b"], n, dev)
+        for scale in (0.125, 0.11):
+            got = experiments.exp_attention_bnhd(*ops19, scale)
+            torch.cuda.synchronize()
+            want = by_batch(experiments.exp_attention_bnhd_ref, ops19,
+                            scale).float()
+            mx, mean = row_ulps(got, want)
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"P2 N={n}: non-finite")
+            check(mx <= 2.0 and mean <= 1e-3,
+                  f"P2 {key} scale {scale}: {mx:.2f} ulp max, {mean:.2e} mean "
+                  f"vs its twin (bounds 2, 1e-3)")
+            p2["err"] = max(p2["err"], (got.float() - want).abs().max().item())
+            if scale == 0.125:
+                p2["ulps"][key] = (mx, mean)
+            else:
+                wrong = by_batch(fp32_scale_twin, ops19, scale).float()
+                wmean = row_ulps(got, wrong)[1]
+                check(wmean > 1e-3, f"P2 {key}: the fp32-scale twin is inside "
+                      f"the mean bound ({wmean:.2e} ulp)")
+                p2["wrong_mean"][key] = wmean
+                del wrong
+            del got, want
+        p2["ms"][key], p2["k1_ms"][key] = rec["bnhd_ms"], rec["current_ms"]
+        p2["rel_k1"][key] = rec["max_rel_diff"]
+        p2["plain_ms"][key] = time_ms(lambda: by_batch(
+            experiments.exp_attention_bnhd_ref, ops19, 0.125), iters=2,
+            warmup=1)
+        ql, kl, vl = (x.permute(0, 2, 1, 3) for x in ops19)
+        p2["library_ms"][key] = time_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125))
+        del ops19, ql, kl, vl
+    print(f"[P2 exp_attention_bnhd] max_abs_err {p2['err']:.4g} | bf16 ulps of "
+          f"the row (max, mean) {json.dumps(p2['ulps'])} (bounds 2, 1e-3) | "
+          f"wrong twin (scale 0.11 left in fp32) mean ulps "
+          f"{json.dumps(p2['wrong_mean'])} (outside 1e-3) | kernel ms "
+          f"{json.dumps(p2['ms'])} | scale pass + K1 ms "
+          f"{json.dumps(p2['k1_ms'])} | max-rel-diff vs that "
+          f"{json.dumps(p2['rel_k1'])} | plain ms {json.dumps(p2['plain_ms'])} "
+          f"| library ms {json.dumps(p2['library_ms'])} | launches of the "
+          f"tool's run {p2_launches}", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 20. P3 against its twin ---------------------------------------------------
+    # Bounds, written before the run: at most 5e-4 of a column's largest
+    # output and 1e-4 of it on average (kernel and twin differ where a
+    # score's fp32 sum crosses a bf16 rounding boundary, or the exp of a bf16
+    # value rounds the other way: rare, and small in a sum over 3,136
+    # pivots).  The wrong twin (exp of the fp32 score: K5's roundings) must
+    # exceed both.  Every seventh pivot has logc = -inf; with all of them
+    # -inf the output is exactly 0.
+    p3_records, p3_launches = tool_run("crf_apply_bf16", crf_tool.run)
+    rec20 = p3_records[0]
+    ops20 = list(crf_tool.make_inputs(rec20["batch"], rec20["n"], rec20["ns"],
+                                      dev))
+    ops20[2][:, ::7] = float("-inf")
+    got = experiments.kernel_apply_bf16(*ops20)
+    torch.cuda.synchronize()
+    rows20 = rec20["n"] // 16
+    want = experiments.kernel_apply_bf16_ref(*ops20, block_rows=rows20)
+    wrong = crf_cuda.kernel_apply_ref(*ops20, block_rows=rows20)
+    scale20 = want.abs().amax(dim=(0, 1))
+    err20, werr20 = (got - want).abs(), (got - wrong).abs()
+    p3 = {"err": err20.max().item(),
+          "max_rel": (err20.amax(dim=(0, 1)) / scale20).max().item(),
+          "mean_rel": (err20.mean(dim=(0, 1)) / scale20).max().item(),
+          "wrong_max_rel": (werr20.amax(dim=(0, 1)) / scale20).max().item(),
+          "wrong_mean_rel": (werr20.mean(dim=(0, 1)) / scale20).min().item()}
+    check(bool(torch.isfinite(got).all()), "P3: non-finite")
+    check(p3["max_rel"] <= 5e-4 and p3["mean_rel"] <= 1e-4,
+          f"P3 vs its twin: {p3['max_rel']:.2e} max, {p3['mean_rel']:.2e} mean "
+          f"of the column (bounds 5e-4, 1e-4)")
+    check(p3["wrong_max_rel"] > 5e-4 and p3["wrong_mean_rel"] > 1e-4,
+          f"P3: the fp32-exp twin is inside the bounds "
+          f"({p3['wrong_max_rel']:.2e}, {p3['wrong_mean_rel']:.2e})")
+    del want, wrong, err20, werr20
+    ops20[2].fill_(float("-inf"))
+    check(experiments.kernel_apply_bf16(*ops20).abs().max().item() == 0.0,
+          "P3: pivots with logc = -inf do not give exactly 0")
+    key20 = f"B={rec20['batch']},N={rec20['n']},Ns={rec20['ns']},V={rec20['v']}"
+    ops20 = crf_tool.make_inputs(rec20["batch"], rec20["n"], rec20["ns"], dev)
+    p3["plain_ms"] = time_ms(lambda: experiments.kernel_apply_bf16_ref(
+        *ops20, block_rows=rows20), iters=2, warmup=1)
+    del ops20, got
+    torch.cuda.empty_cache()
+    print(f"[P3 crf_apply_bf16] {key20} | max_abs_err {p3['err']:.4g}, of the "
+          f"column {p3['max_rel']:.2e} max / {p3['mean_rel']:.2e} mean (bounds "
+          f"5e-4, 1e-4) | wrong twin (fp32 exp) {p3['wrong_max_rel']:.2e} / "
+          f"{p3['wrong_mean_rel']:.2e} (outside) | -inf pivots give 0 | kernel "
+          f"{rec20['bf16_ms']:.3f} ms | K5 {rec20['fp32_ms']:.3f} ms | max-rel "
+          f"vs the fp32-exp tile loop {rec20['bf16_max_rel']:.2e} (K5 "
+          f"{rec20['fp32_max_rel']:.2e}) | plain: its twin "
+          f"{p3['plain_ms']:.1f} ms, the tool's tile loop "
+          f"{rec20['plain_ms']:.1f} ms | launches of the tool's run "
+          f"{p3_launches}", flush=True)
+
+    # -- 21. P4 against its twin ---------------------------------------------------
+    # Tolerances, written before the run.  fp32: 1e-5 * iters of the largest
+    # result (4096 roundings accumulate; tanh.approx.f32 is good to 2^-11).
+    # bf16 mul, exp, exp_min: the packed instructions round as the twin's
+    # operations do (h2exp is the fp32 exp rounded to bf16), so within 2 bf16
+    # ulps of the largest result.  bf16 exp2 and tanh are the card's packed
+    # approximations, good to about a bf16 ulp, and an accumulator that
+    # stagnates at a power of two depends on them discontinuously: 99% of the
+    # elements within 2 bf16 ulps, all within a factor of 2.
+    # Bounds: n = 512 * 1024 * 4096 element-passes.  The special-function
+    # unit has 16 lanes an SM against 128 for fp32 arithmetic: 67e12 / 2 / 8
+    # = 4.19e12 instructions a second; every variant but mul executes one MUFU
+    # an element-pass (h2exp: two fp32 MUFU a pair) and is bound by that
+    # unit; the packed ex2 / tanh forms are bounded as if the unit took a
+    # pair a lane-slot (half of it).  mul is bound by the fp32 instruction rate (two FFMA an
+    # element-pass) or the packed bf16 one (HMUL2, HADD2, HMUL2, HADD2 a pair).
+    p4_records, p4_launches = tool_run("exp_rate", rate_tool.run)
+    n21 = 512 * 1024 * 4096
+    p4 = {"err": 0.0, "variants": {}}
+    for rec in p4_records:
+        dtype = getattr(torch, rec["dtype"])
+        name = rec["name"]
+        x21 = rate_tool.make_input(512, 1024, dtype, dev)
+        got = experiments.exp_rate(x21, name, 4096).float()
+        torch.cuda.synchronize()
+        plain_ms = time_ms(lambda: experiments.exp_rate_ref(x21, name, 4096),
+                           iters=1, warmup=0)
+        want = experiments.exp_rate_ref(x21, name, 4096).float()
+        err = (got - want).abs()
+        top = want.abs().max()
+        check(bool(torch.isfinite(got).all()), f"P4 {rec['dtype']} {name}: "
+              f"non-finite")
+        if dtype == torch.float32:
+            ok = bool(err.max() <= 1e-5 * 4096 * top)
+        elif name in ("exp2", "tanh"):
+            close = err <= 2.0 ** -7 * want.abs().clamp_min(1e-3)
+            ok = (close.float().mean().item() >= 0.99
+                  and bool((err <= want.abs() + 1e-3).all()))
+        else:
+            ok = bool(err.max() <= 2.0 ** -7 * top)
+        check(ok, f"P4 {rec['dtype']} {name}: error {err.max().item():.4g} of "
+              f"{top.item():.4g} outside its tolerance")
+        if name == "mul":
+            b21 = bound_ms(2 * n21, "fp32_instr", 0)
+            unit = "fp32 instruction rate" if dtype == torch.float32 else "packed bf16 instruction rate"
+        elif dtype == torch.bfloat16 and name in ("exp2", "tanh"):
+            b21, unit = bound_ms(n21 / 2, "sfu", 0), "special-function unit"
+        else:
+            b21, unit = bound_ms(n21, "sfu", 0), "special-function unit"
+        p4["err"] = max(p4["err"], err.max().item())
+        p4["variants"][f"{rec['dtype']} {name}"] = {
+            "ms": rec["ms"], "gops": rec["gops"], "plain_ms": plain_ms,
+            "bound_ms": b21[0], "binds": unit,
+            "rel_err": (err.max() / top).item()}
+        del x21, got, want, err
+    print(f"[P4 exp_rate] (512, 1024) x 4096 passes | "
+          f"{json.dumps({k_: {a: (round(b_, 4) if isinstance(b_, float) else b_) for a, b_ in v_.items()} for k_, v_ in p4['variants'].items()})} "
+          f"| launches of the tool's run {p4_launches}", flush=True)
+
+    # -- 22. the training run ------------------------------------------------------
+    # tools/train_torch.py in-process on a synthetic VOC tree (40 train and 8
+    # val JPEGs of VOC-like sizes), full width and depth: 12 steps through
+    # warm-up, seg and full with validation at 6 and 12, then --resume to 14.
+    import train_torch
+
+    from dupl_tpu_torch.data.pipeline import PrefetchLoader
+    from dupl_tpu_torch.data.voc import VocClsDataset
+    from dupl_tpu_torch.engine import train as train_mod
+    from dupl_tpu_torch.models.convert import load_model
+
+    all_counters = {**train_counters, **eval_counters, **exp_counters,
+                    "flash_attention_bwd": attention.flash_attention_bwd_cuda}
+    twins += [(experiments, n_) for n_ in (
+        "exp_attention_ones_ref", "exp_attention_bnhd_ref",
+        "kernel_apply_bf16_ref", "exp_rate_ref")]
+    twin_calls.clear()
+    originals = []
+    for mod, name in twins:
+        fn, wrapped = counting(mod, name)
+        originals.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    steps22 = []          # (step, launches of that train_step, its image batch)
+    plain_step = train_mod.Trainer.train_step
+
+    def counted_step(self, state_, batch_, step=None, aug_ops=None):
+        before = {k_: f.launches for k_, f in train_counters.items()}
+        out_ = plain_step(self, state_, batch_, step, aug_ops)
+        steps22.append((step, {k_: f.launches - before[k_]
+                               for k_, f in train_counters.items()},
+                        batch_["image"].clone() if step == 12 else None))
+        return out_
+
+    sizes22 = [(375, 500), (500, 375), (500, 500), (333, 500), (500, 334),
+               (281, 500), (366, 500), (480, 360)]
+    train_mod.Trainer.train_step = counted_step
+    try:
+        with tempfile.TemporaryDirectory() as tmp22:
+            root22, lists22 = write_synthetic_voc(
+                os.path.join(tmp22, "voc"), sizes22, seed=22,
+                train_sizes=sizes22 * 5)
+            work22 = os.path.join(tmp22, "run")
+            argv22 = ["--data-folder", root22, "--list-folder", lists22,
+                      "--cam-iters", "4", "--gmm-iters", "8", "--eval-iters",
+                      "6", "--log-iters", "2", "--sync-debug"]
+            for f in all_counters.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t22 = time.perf_counter()
+            check(train_torch.main(argv22 + ["--work-dir", work22,
+                                             "--max-iters", "12"]) == 0,
+                  "the training run did not exit 0")
+            run_s = time.perf_counter() - t22
+            run_launches = {k_: f.launches for k_, f in all_counters.items()}
+            run22 = os.path.join(work22, os.listdir(work22)[0])
+            ck22 = os.path.join(run22, "checkpoints")
+            recs22 = train_torch.read_metrics(os.path.join(run22,
+                                                           "metrics.jsonl"))
+            train22 = [r for r in recs22 if r["event"] == "train"]
+            val22 = [r for r in recs22 if r["event"] == "val"]
+            done22 = [r for r in recs22 if r["event"] == "done"][-1]
+            check([r["step"] for r in train22] == [2, 4, 6, 8, 10, 12]
+                  and [r["phase"] for r in train22]
+                  == ["warmup"] * 2 + ["seg"] * 2 + ["full"] * 2,
+                  f"train records: {[(r['step'], r['phase']) for r in train22]}")
+            check(all(np.isfinite(r[k_]) for r in train22 for k_ in
+                      ("loss", "cls_loss", "ptc_loss", "seg_loss", "sim_loss",
+                       "reg_loss")), "non-finite loss in the training run")
+            check(train22[2]["seg_loss"] > 0, "the seg phase has no seg loss")
+            check([r["step"] for r in val22] == [6, 12]
+                  and all(0.0 <= r["seg_1_miou"] <= 1.0 for r in val22),
+                  f"val records: {val22}")
+            saved = sorted(e for e in os.listdir(ck22) if e.endswith(".pt"))
+            check(saved == ["step_12.pt", "step_6.pt"] and len(saved) <= 3,
+                  f"checkpoints: {os.listdir(ck22)}")
+            lm = load_model(tcfg, os.path.join(ck22, "weights.npz"), dev)
+            check(all(bool(torch.isfinite(p_).all()) for p_ in lm.parameters()),
+                  "exported weights are not finite")
+            del lm
+            for step, got_l, _ in steps22:
+                phase = phase_of(dataclasses.replace(
+                    tcfg, cam_iters=4, gmm_iters=8), step)
+                check(got_l == expected[phase], f"training run step {step} "
+                      f"({phase}): launches {got_l}, expected {expected[phase]}")
+            check([s_ for s_, _, _ in steps22] == list(range(12)),
+                  f"steps of the run: {[s_ for s_, _, _ in steps22]}")
+
+            # resume: two more steps from the step-12 checkpoint
+            del steps22[:]
+            check(train_torch.main(argv22 + ["--work-dir", run22, "--resume",
+                                             "--max-iters", "14"]) == 0,
+                  "the resumed run did not exit 0")
+            check([s_ for s_, _, _ in steps22] == [12, 13],
+                  f"the resumed run's steps: {[s_ for s_, _, _ in steps22]}")
+            ds22 = VocClsDataset(root22, lists22, tcfg.data.train_split,
+                                 crop_size=448, rescale_range=tcfg.data.rescale_range,
+                                 num_classes=tcfg.num_classes,
+                                 ignore_index=tcfg.ignore_index,
+                                 transfer_dtype="uint8")
+            loader22 = PrefetchLoader(ds22, 4, seed=0, num_workers=2,
+                                      start_step=12)
+            batch_12 = next(iter(loader22))
+            loader22.stop()
+            check(torch.equal(steps22[0][2].cpu(),
+                              torch.from_numpy(batch_12["image"])),
+                  "the resumed run's first batch is not batch 12 of the stream")
+            recs22b = train_torch.read_metrics(os.path.join(run22,
+                                                            "metrics.jsonl"))
+            check([r["step"] for r in recs22b if r["event"] == "train"]
+                  == [2, 4, 6, 8, 10, 12, 14], "metrics after the resume")
+    finally:
+        train_mod.Trainer.train_step = plain_step
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    check(all(run_launches[k_] > 0 for k_ in train_counters),
+          f"a kernel of the training run never launched: {run_launches}")
+    by_phase = {"warmup": [train22[1]], "seg": train22[2:4],
+                "full": train22[4:6]}   # the first record pays the start-up
+    loop22 = {}
+    for phase, rs_ in by_phase.items():
+        s_it = statistics.median(r["s_per_iter"] for r in rs_)
+        loop22[phase] = {
+            "s_per_iter": s_it, "bare_step_ms": train12[phase]["ms"],
+            "overhead_ms": 1e3 * s_it - train12[phase]["ms"],
+            "feeder_wait_ms": statistics.median(r["feeder_wait_ms"]
+                                                for r in rs_)}
+    print(f"[training run] tools/train_torch.py, ViT-B/16 dual student, crop "
+          f"448, batch 4, uint8 wire format, 12 steps + resume to 14 | "
+          f"{run_s:.1f} s for the 12 steps with 2 validations and checkpoints "
+          f"| a step, the loop beside phase 12's bare train_step: "
+          f"{json.dumps({k_: {a: round(b_, 3) for a, b_ in v_.items()} for k_, v_ in loop22.items()})} "
+          f"| H2D copy {done22['h2d_copy_ms']:.3f} ms a batch, done before "
+          f"the step asked for it in {done22['h2d_ready_share']:.2f} of the "
+          f"batches | validation {json.dumps([r['val_s'] for r in val22])} s "
+          f"| checkpoint {json.dumps([r['ckpt_s'] for r in val22])} s, "
+          f"{val22[0]['ckpt_mb']:.0f} MB; export "
+          f"{json.dumps([r['export_s'] for r in val22])} s | peak memory "
+          f"{done22['peak_gib']:.3f} GiB | launches of the 12-step run "
+          f"{json.dumps({k_: v_ for k_, v_ in run_launches.items() if v_})} | "
+          f"resumed at step 12 on batch 12 of the index stream", flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -1448,6 +1875,7 @@ def main() -> int:
     k3_key, k4_key = "uint8", "B=16,224x224,C=40,float32"
     k5_key = "B=2,N=200704,Ns=3136,V=22"
     l1f_key = "B=16,N=2117,H=12,D=64"
+    p1_key, p2_key = "BH=768,N=1765", "B=64,N=1765,H=12,D=64"
     taps = 8 * len(cfg.par.dilations)
     pix = 16 * 224 * 224
     bounds = {
@@ -1475,6 +1903,20 @@ def main() -> int:
         # 5 products a head; q, k, v, out, g and lse in, dq, dk, dv out
         "flash_attention_bwd": bound_ms(10 * 24 * 2305 ** 2 * 64, "bf16",
                                         24 * 2305 * (8 * 64 * 2 + 4)),
+        # P1: K1's two products plus the ones column (2 N^2 FLOPs a head)
+        "exp_attention_ones": bound_ms(768 * 1765 ** 2 * (4 * 64 + 2), "bf16",
+                                       4 * 768 * 1765 * 64 * 2),
+        # P2: K1's work; the scale is N D multiplies a head
+        "exp_attention_bnhd": bound_ms(4 * 768 * 1765 ** 2 * 64, "bf16",
+                                       4 * 768 * 1765 * 64 * 2),
+        # P3 per (pixel, pivot): 11 fp32 FMAs outside the tensor cores (the
+        # 2 V FLOPs inside them take 0.45 ms at their peak, the exps 2.4 ms
+        # at the special-function unit's rate: both below the fp32 time)
+        "crf_apply_bf16": bound_ms(2 * 11 * 16 * 200704 * 3136, "fp32",
+                                   4 * 16 * (200704 * 11 + 11 * 3136 + 3136
+                                             + 3136 * 22 + 200704 * 22)),
+        # P4, the fp32 exp variant: one MUFU an element-pass
+        "exp_rate": bound_ms(n21, "sfu", 2 * 4 * 512 * 1024),
     }
     # K5 at the evaluation's shape, beside its entry's serving shape
     k5_eval_bound = bound_ms(2 * (11 + 21) * 8 * 189504 * 2961, "fp32",
@@ -1535,8 +1977,28 @@ def main() -> int:
               launches17["flash_attention_bwd"], l1b["err"],
               l1b["ms"][l1b_key], l1b["plain_ms"][l1b_key],
               l1b["library_ms"][l1b_key]),
+        entry("exp_attention_ones", "exp_attention_ones.cu",
+              "tools/exp_attn_experiment.py:33", p1_launches, p1["err"],
+              p1["ms"][p1_key], p1["plain_ms"][p1_key],
+              p1["library_ms"][p1_key], k1_ms=p1["k1_ms"][p1_key],
+              ms_by_shape=p1["ms"]),
+        entry("exp_attention_bnhd", "exp_attention_bnhd.cu",
+              "tools/exp_attn_layout_experiment.py:34", p2_launches, p2["err"],
+              p2["ms"][p2_key], p2["plain_ms"][p2_key],
+              p2["library_ms"][p2_key], scale_pass_and_k1_ms=p2["k1_ms"][p2_key],
+              ms_by_shape=p2["ms"]),
+        entry("crf_apply_bf16", "crf_apply_bf16.cu",
+              "tools/crf_apply_experiment.py:53", p3_launches, p3["err"],
+              rec20["bf16_ms"], p3["plain_ms"], None, k5_ms=rec20["fp32_ms"]),
+        entry("exp_rate", "exp_rate.cu", "tools/exp_rate_experiment.py:28",
+              p4_launches, p4["err"], p4["variants"]["float32 exp"]["ms"],
+              p4["variants"]["float32 exp"]["plain_ms"], None,
+              variant="float32 exp", variants=p4["variants"]),
     ]
-    check(all(e["launches"] > 0 for e in kernels),
+    for e in kernels[:5]:   # K1-K4 in the training run
+        if e["name"] in run_launches and e["name"] != "crf_apply":
+            e["launches_train_run"] = run_launches[e["name"]]
+    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
           "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,39 +1,483 @@
-"""Synthetic training batches (counterpart of
-``dupl_tpu/data/pipeline.py:synthetic_batch``; numpy only).
+"""Host input pipeline (counterpart of ``dupl_tpu/data/pipeline.py``):
+threaded decode/augment workers feeding fixed-shape batches, and a feeder that
+stages them on the device ahead of the step.
 
-The dataset readers and the device feeder are not ported yet; the trainer's
-tests, benchmark and smoke run train on these batches.
+Replaces the reference's torch ``DataLoader(num_workers=10, prefetch_factor=4)``
++ ``DistributedSampler`` (train_final_voc.py:127-141).  The train crop is
+always ``crop_size``, so batches have one shape.  ``PrefetchLoader`` is plain
+numpy and threads and gives, for the same seed, the same batches as the JAX
+package's loader, sharding included: per-global-batch contiguous slices (see
+``_epoch_order``), so the assembled global batch stream does not depend on
+the process count.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+
+def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        if isinstance(vals[0], str):
+            out[key] = vals  # names stay a list
+        else:
+            out[key] = np.stack(vals)
+    return out
+
+
+class _WorkerError:
+    """Poison pill carrying a worker exception to the consuming thread."""
+
+    def __init__(self, exc: BaseException, where: str):
+        self.exc = exc
+        self.where = where
+
+
+class PrefetchLoader:
+    """Infinite shuffled batch stream with worker threads.
+
+    Per-epoch reshuffle with a fresh seed mirrors the reference's random
+    ``set_epoch`` reseed on loader exhaustion (train_final_voc.py:179-184).
+    Deterministic given ``seed``: sample augmentation randomness is derived
+    from (seed, epoch, index), and batches are released strictly in index-
+    stream order regardless of worker completion order, so the k-th batch is
+    a pure function of ``(seed, k)``.
+
+    ``start_step`` fast-forwards the index stream by ``start_step`` batches
+    without decoding anything — because batch k is a pure function of
+    (seed, k), a resumed run (``--resume`` restoring step n, loader built
+    with ``start_step=n``) sees exactly the batches an uninterrupted run
+    would have.  The reference's torch DataLoader has no such path (a killed
+    run re-reads epoch 0 order).
+
+    Worker exceptions (corrupt JPEG, missing file, ...) propagate: the next
+    ``__next__`` on the consumer re-raises them, like torch's DataLoader.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, seed: int = 0,
+                 num_workers: int = 8, prefetch: int = 4, shard: int = 0,
+                 num_shards: int = 1, shuffle: bool = True, drop_last: bool = True,
+                 start_step: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.shard = shard
+        self.num_shards = num_shards
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.start_step = start_step
+        self._stop = threading.Event()
+        self._batches: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._threads: List[threading.Thread] = []
+        self._started = False
+        self._error: Optional[_WorkerError] = None
+        self._lock = threading.Lock()
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            order = np.random.RandomState(self.seed + epoch).permutation(len(order))
+        if self.num_shards > 1:
+            # Per-GLOBAL-batch contiguous slices, not an epoch-strided split:
+            # shard p's k-th batch is positions [p*B, (p+1)*B) of global batch
+            # k, so the assembled global batch (process shards concatenate in
+            # rank order) is IDENTICAL to
+            # the batch a single-process run with batch_size = B*num_shards
+            # draws — the global batch stream is invariant to process count
+            # (torch's DistributedSampler strides the epoch instead, which
+            # permutes samples across ranks).
+            gb = self.batch_size * self.num_shards
+            order = order[: (len(order) // gb) * gb]
+            order = order.reshape(-1, self.num_shards, self.batch_size)[
+                :, self.shard, :].reshape(-1)
+        elif self.drop_last:
+            order = order[: (len(order) // self.batch_size) * self.batch_size]
+        return order
+
+    def _index_stream(self) -> Iterator[tuple]:
+        epoch = 0
+        skip = self.start_step * self.batch_size
+        while not self._stop.is_set():
+            order = self._epoch_order(epoch)
+            if len(order) == 0:
+                # dataset smaller than one (global) batch: without this the
+                # loop would spin epochs forever yielding nothing and the
+                # consumer would hang silently on an empty queue
+                raise ValueError(
+                    f"dataset of {len(self.dataset)} samples yields no "
+                    f"complete batch (batch_size={self.batch_size}, "
+                    f"num_shards={self.num_shards}, drop_last="
+                    f"{self.drop_last})")
+            if skip >= len(order):
+                skip -= len(order)
+            else:
+                for i in order[skip:]:
+                    yield int(i), epoch
+                skip = 0
+            epoch += 1
+
+    def _producer(self):
+        sample_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch * self.batch_size)
+        # completed buckets, released to the consumer strictly in sequence
+        done: Dict[int, Dict] = {}
+        done_lock = threading.Lock()
+        next_seq = [0]
+
+        def fail(exc: BaseException, where: str):
+            err = _WorkerError(exc, where)
+            self._error = err  # checked on every consumer dequeue
+            self._stop.set()
+            try:  # also wake a consumer blocked on an empty queue
+                self._batches.put_nowait(err)
+            except queue.Full:
+                pass
+
+        def worker():
+            while not self._stop.is_set():
+                item = sample_q.get()
+                if item is None:
+                    return
+                seq, slot, idx, epoch, bucket, lock, counter = item
+                try:
+                    sample = self.dataset.__getitem__(
+                        idx, seed=hash((self.seed, epoch, idx)) & 0x7FFFFFFF
+                    )
+                except BaseException as e:  # noqa: BLE001 — must reach consumer
+                    fail(e, f"dataset[{idx}] (epoch {epoch})")
+                    return
+                with lock:
+                    bucket[slot] = sample
+                    counter[0] += 1
+                    complete = counter[0] == self.batch_size
+                if not complete:
+                    continue
+                batch = collate(bucket)
+                with done_lock:
+                    done[seq] = batch
+                    while next_seq[0] in done:
+                        self._batches.put(done.pop(next_seq[0]))
+                        next_seq[0] += 1
+
+        for _ in range(self.num_workers):
+            t = threading.Thread(target=worker, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+        stream = self._index_stream()
+        try:
+            seq = 0
+            while not self._stop.is_set():
+                bucket: List[Optional[Dict]] = [None] * self.batch_size
+                lock = threading.Lock()
+                counter = [0]
+                for slot in range(self.batch_size):
+                    idx, epoch = next(stream)
+                    sample_q.put((seq, slot, idx, epoch, bucket, lock, counter))
+                seq += 1
+        except BaseException as e:  # noqa: BLE001
+            if not self._stop.is_set():
+                fail(e, "index stream")
+        finally:
+            for _ in self._threads:
+                sample_q.put(None)
+
+    def __iter__(self):
+        with self._lock:
+            if self._started:
+                raise RuntimeError(
+                    "PrefetchLoader is single-use: a second __iter__ would "
+                    "interleave two producers over one batch queue; build a "
+                    "second loader (with start_step) instead")
+            self._started = True
+        threading.Thread(target=self._producer, daemon=True).start()
+        while True:
+            item = self._batches.get()
+            err = self._error if not isinstance(item, _WorkerError) else item
+            if err is not None:
+                raise RuntimeError(
+                    f"PrefetchLoader worker failed at {err.where}") from err.exc
+            if self._stop.is_set():
+                return
+            yield item
+
+    def stop(self):
+        self._stop.set()
+        try:  # wake a consumer blocked on an empty queue
+            self._batches.put_nowait({})
+        except queue.Full:
+            pass
+
+
+class DeviceFeeder:
+    """Overlap the host->device copy with compute: a daemon thread pulls host
+    batches from ``loader`` and stages them on ``device`` ``depth`` batches
+    ahead, so the copy of batch N rides under the computation of step N-1.
+
+    On a CUDA device the thread copies each batch into pinned host buffers
+    (a ring of ``depth + 1`` sets, so a buffer is refilled only after the
+    copy that read it has finished) and from there to fresh device tensors
+    with ``non_blocking=True`` on a side stream of its own (the current
+    stream is a per-thread notion: the thread never touches the consumer's).
+    The consumer makes ITS current stream wait on the copy's event and marks
+    the tensors as used on it (``record_stream``: they were allocated on the
+    side stream, whose allocator would otherwise hand their memory out again
+    while the step still reads it).  Nothing here waits for queued device
+    work: the thread polls events instead of synchronising, and ``host_fn``
+    (e.g. the trainer's class-budget check) reads the HOST copy of the batch;
+    its entries are merged into the device batch.  On the CPU the feeder
+    only converts arrays to tensors.
+
+    The reference has no equivalent (its DataLoader prefetches host tensors;
+    ``.cuda()`` still runs synchronously in its train loop,
+    train_final_voc.py:186-192).
+
+    Yields ``(host_batch, device_batch)`` so log sites keep free host access.
+    Errors from the loader or the transfer propagate to the consumer; ``stop``
+    (or exhausting the consumer) also stops a ``PrefetchLoader`` source.
+    ``stats()`` reports what the consumer waited and what the copies took.
+    """
+
+    def __init__(self, loader, device, *,
+                 keys: Optional[Sequence[str]] = None, depth: int = 2,
+                 host_fn: Optional[Callable[[Dict], Dict]] = None):
+        self.loader = loader
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # streams and events are made per card: name the current one
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.keys = keys
+        self.depth = max(1, depth)
+        self.host_fn = host_fn
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.wait_seconds: List[float] = []      # consumer blocked on the queue
+        self._ready: List[bool] = []        # copy done when the consumer came
+        self._copy_events: List[tuple] = []  # (start, end) on the side stream
+
+    def _stage_cuda(self, sub: Dict, ring: List[Dict], slot: int, stream):
+        """Pinned staging + async copy of one batch; returns (device batch,
+        the copy's event)."""
+        pinned = ring[slot]
+        busy = pinned.get("_event")
+        while busy is not None and not busy.query():
+            time.sleep(0.0005)   # poll: a synchronize would be a host sync
+        for k, v in sub.items():       # host work first: fill the pinned set
+            src = torch.as_tensor(v)
+            buf = pinned.get(k)
+            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+                buf = pinned[k] = torch.empty(src.shape, dtype=src.dtype,
+                                              pin_memory=True)
+            buf.copy_(src)
+        dev = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)       # the events bracket the copies alone
+            for k in sub:
+                dev[k] = torch.empty(pinned[k].shape, dtype=pinned[k].dtype,
+                                     device=self.device)
+                dev[k].copy_(pinned[k], non_blocking=True)
+            end.record(stream)
+        pinned["_event"] = end
+        self._copy_events.append((start, end))
+        return dev, end
+
+    def _producer(self):
+        try:
+            on_card = self.device.type == "cuda"
+            if on_card:
+                torch.cuda.set_device(self.device)
+                stream = torch.cuda.Stream(self.device)
+                ring: List[Dict] = [{} for _ in range(self.depth + 1)]
+            n = 0
+            for batch in self.loader:
+                sub = ({k: batch[k] for k in self.keys}
+                       if self.keys is not None else
+                       {k: v for k, v in batch.items()
+                        if not isinstance(v, list)})
+                if on_card:
+                    dev, event = self._stage_cuda(sub, ring, n % len(ring),
+                                                  stream)
+                else:
+                    dev, event = {k: torch.as_tensor(v)
+                                  for k, v in sub.items()}, None
+                if self.host_fn is not None:
+                    dev.update(self.host_fn(batch))
+                n += 1
+                while not self._stop.is_set():
+                    try:
+                        self._q.put((batch, dev, event), timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+            self._q.put(None)  # loader exhausted
+        except BaseException as e:  # noqa: BLE001 — must reach the consumer
+            err = _WorkerError(e, "device feeder")
+            while not self._stop.is_set():
+                # make room through the queue API (a raw deque appendleft
+                # would skip the not_empty notify and could leave the
+                # consumer blocked in get() forever)
+                try:
+                    self._q.put_nowait(err)
+                    return
+                except queue.Full:
+                    try:
+                        self._q.get_nowait()
+                    except queue.Empty:
+                        pass
+
+    def __iter__(self):
+        if self._thread is not None:
+            # same contract as PrefetchLoader: a second iteration would block
+            # forever on the drained queue — fail loudly instead
+            raise RuntimeError(
+                "DeviceFeeder is single-use: build a new feeder (and loader) "
+                "instead of iterating twice")
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+        while True:
+            t0 = time.perf_counter()
+            item = self._q.get()
+            if item is None or self._stop.is_set():
+                return
+            if isinstance(item, _WorkerError):
+                raise RuntimeError(
+                    f"DeviceFeeder failed at {item.where}") from item.exc
+            self.wait_seconds.append(time.perf_counter() - t0)
+            batch, dev, event = item
+            if event is not None:
+                self._ready.append(event.query())
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(event)
+                for v in dev.values():
+                    if isinstance(v, torch.Tensor):
+                        v.record_stream(current)
+            yield batch, dev
+
+    def stats(self, skip: int = 0) -> Dict[str, object]:
+        """Over the batches consumed so far but the first ``skip``:
+        ``wait_ms`` (mean time a ``next`` blocked on the queue),
+        ``copy_ms`` (mean device time of a batch's host->device copy, None
+        on the CPU) and ``ready_share`` (share of batches whose copy had
+        already finished when the consumer asked: copies that ran under
+        earlier work).  Waits for the copies queued so far."""
+        waits = self.wait_seconds[skip:]
+        out: Dict[str, object] = {
+            "batches": len(waits),
+            "wait_ms": 1e3 * sum(waits) / max(1, len(waits)),
+            "copy_ms": None, "ready_share": None}
+        events = self._copy_events[skip:len(self.wait_seconds)]
+        if events:
+            events[-1][1].synchronize()
+            ms = [a.elapsed_time(b) for a, b in events]
+            out["copy_ms"] = sum(ms) / len(ms)
+            ready = self._ready[skip:]
+            out["ready_share"] = sum(ready) / max(1, len(ready))
+        return out
+
+    def stop(self):
+        self._stop.set()
+        if hasattr(self.loader, "stop"):
+            self.loader.stop()
+        try:  # unblock a consumer waiting on an empty queue
+            self._q.put_nowait(None)
+        except queue.Full:
+            pass
+
+
+def pink_texture(rs: np.random.RandomState, h: int, w: int, c: int = 3,
+                 alpha: float = 1.2) -> np.ndarray:
+    """1/f^alpha ("pink") noise field in [0, 1], (h, w, c) — the spectral
+    statistics of natural photographs (blob scenes are piecewise-constant,
+    i.e. all-DC)."""
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    f = np.sqrt(fy * fy + fx * fx)
+    f[0, 0] = 1.0  # DC handled by the region base color
+    spec = (rs.randn(c, h, fx.shape[1]) + 1j * rs.randn(c, h, fx.shape[1]))
+    spec /= f ** alpha
+    x = np.fft.irfft2(spec, s=(h, w))
+    lo = x.min(axis=(1, 2), keepdims=True)
+    hi = x.max(axis=(1, 2), keepdims=True)
+    return ((x - lo) / np.maximum(hi - lo, 1e-9)).transpose(1, 2, 0)
+
+
+def jpeg_roundtrip(img_u8: np.ndarray, quality: int = 70) -> np.ndarray:
+    """Real JPEG encode/decode (PIL): blocking + ringing exactly as the
+    reference's VOC/COCO JPEGs carry them (utils/dcrf.py runs on decoded
+    JPEGs) — no hand-modelled approximation."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img_u8).save(buf, format="JPEG", quality=quality)
+    buf.seek(0)
+    return np.asarray(Image.open(buf).convert("RGB"))
+
+
+def photo_scene(rs: np.random.RandomState, h: int, w: int, num_fg: int = 20,
+                n_regions: int = 8, texture: float = 0.35,
+                jpeg_quality: int = 70):
+    """Natural-statistics synthetic scene: Voronoi class regions whose fill is
+    base color + 1/f texture + low-frequency shading, passed through a real
+    JPEG roundtrip.  Returns (uint8 image, int32 mask in [0, num_fg])."""
+    seeds_yx = rs.rand(n_regions, 2) * [h, w]
+    seeds_cls = rs.randint(0, num_fg + 1, n_regions)
+    seeds_cls[0] = rs.randint(1, num_fg + 1)  # at least one fg class present
+    seeds_col = rs.randint(20, 236, (n_regions, 3))
+    yy, xx = np.mgrid[0:h, 0:w]
+    d = ((yy[..., None] - seeds_yx[:, 0]) ** 2
+         + (xx[..., None] - seeds_yx[:, 1]) ** 2)
+    region = d.argmin(-1)
+    mask = seeds_cls[region].astype(np.int32)
+    img = seeds_col[region].astype(np.float32)
+    img += (pink_texture(rs, h, w) - 0.5) * 255.0 * texture
+    img += (np.sin(yy / 11.0) + np.cos(xx / 17.0))[..., None] * 8.0
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return jpeg_roundtrip(img, quality=jpeg_quality), mask
 
 
 def synthetic_batch(batch: int, crop: int = 448, num_fg: int = 20,
                     seed: int = 0, style: str = "blob") -> Dict[str, np.ndarray]:
-    """Deterministic fake train batch: piecewise-constant colour blobs (so
-    PAR and CRF affinities are non-trivial) plus multi-hot labels.  Returns
-    ``image`` (B, crop, crop, 3) float32 ImageNet-normalised, ``cls_label``
-    (B, num_fg) float32 with about three present classes an image whatever
-    the class-list width, and ``img_box`` (B, 4) int32 [h0, h1, w0, w1].
-    The same seed gives the same arrays as the JAX package's function."""
-    if style != "blob":
-        raise NotImplementedError(
-            f"synthetic_batch style {style!r}: only 'blob' is ported (the "
-            f"'photo' scenes belong to the data pipeline)")
+    """Deterministic fake train batch for tests/benchmarks: piecewise-constant
+    color blobs (so PAR/CRF affinities are non-trivial) + multi-hot labels.
+    ``style="photo"`` swaps the blob scene for natural-image statistics
+    (1/f textures + JPEG noise via :func:`photo_scene`) — the
+    quality-coupled benchmark arm.  The same seed gives the
+    same arrays as the JAX package's function."""
     rs = np.random.RandomState(seed)
-    blocks = rs.rand(batch, 8, 8, 3).astype(np.float32)
-    image01 = np.kron(blocks, np.ones((1, crop // 8, crop // 8, 1), np.float32))
-    image01 += rs.rand(batch, crop, crop, 3).astype(np.float32) * 0.05
+    if style == "photo":
+        image01 = np.stack([
+            photo_scene(rs, crop, crop, num_fg)[0] for _ in range(batch)
+        ]).astype(np.float32) / 255.0
+    else:
+        blocks = rs.rand(batch, 8, 8, 3).astype(np.float32)
+        image01 = np.kron(blocks, np.ones((1, crop // 8, crop // 8, 1), np.float32))
+        image01 += rs.rand(batch, crop, crop, 3).astype(np.float32) * 0.05
     image01 = np.clip(image01, 0, 1)
     mean = np.asarray((0.485, 0.456, 0.406), np.float32)
     std = np.asarray((0.229, 0.224, 0.225), np.float32)
     image = (image01 - mean) / std
+    # Count-matched label density: ~3 expected present classes regardless of
+    # the class-list width (bit-identical to the historical p=0.15 draw for
+    # num_fg=20).  A fixed per-class p would give 81-class batches ~12 present
+    # classes/image — far denser than real COCO (~3) — and permanently trip
+    # the PAR class_budget fallback the real workload almost never takes.
     cls_label = (rs.rand(batch, num_fg) > 1.0 - 3.0 / num_fg).astype(np.float32)
     cls_label[np.arange(batch), rs.randint(0, num_fg, batch)] = 1
-    img_box = np.tile(np.asarray([[16, crop - 16, 8, crop - 8]], np.int32),
-                      (batch, 1))
+    img_box = np.tile(np.asarray([[16, crop - 16, 8, crop - 8]], np.int32), (batch, 1))
     return {"image": image, "cls_label": cls_label, "img_box": img_box}

@@ -5,7 +5,8 @@ initialisation.
 by flax parameter path, every leaf branch-stacked on a leading axis of 2
 (``params/encoder/block0/attn/qkv/kernel`` -> (2, D, 3D)).
 :func:`state_dict_from_jax` maps that onto ``DualStudent.state_dict()``
-names (``branch1.encoder.blocks.0.attn.qkv.weight`` -> (3D, D)): Dense
+names (``branch1.encoder.blocks.0.attn.qkv.weight`` -> (3D, D)), and
+:func:`state_dict_to_jax` maps it back: Dense
 kernels are transposed, conv kernels go HWIO -> OIHW, the Dense classifiers
 become (C-1, D, 1, 1) 1x1 convs, LayerNorm ``scale`` becomes ``weight``.
 
@@ -70,6 +71,55 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
             sd[f"branch{i + 1}.{name}"] = torch.from_numpy(
                 np.ascontiguousarray(leaf))
     return sd
+
+
+def _jax_entry(name: str, leaf: np.ndarray):
+    """One branch's ``Student`` parameter name and array -> (flax path after
+    ``params/``, array): the inverse of :func:`_student_entry`."""
+    parts = name.split(".")
+    last = parts[-1]
+    if parts[0] == "encoder":
+        if parts[1] in ("cls_token", "pos_embed"):
+            return f"encoder/{parts[1]}", leaf
+        if parts[1] == "patch_embed":
+            if last == "weight":
+                return "encoder/patch_embed/kernel", leaf.transpose(2, 3, 1, 0)
+            return "encoder/patch_embed/bias", leaf
+        if parts[1] == "norm":
+            return f"encoder/norm/{'scale' if last == 'weight' else 'bias'}", leaf
+        if parts[1] == "blocks":
+            sub = "/".join(parts[3:-1])
+            prefix = f"encoder/block{int(parts[2])}/{sub}"
+            if sub in ("norm1", "norm2"):
+                return f"{prefix}/{'scale' if last == 'weight' else 'bias'}", leaf
+            if sub in _DENSE:
+                return (f"{prefix}/kernel", leaf.T) if last == "weight" else (
+                    f"{prefix}/bias", leaf)
+    if parts[0] == "decoder" and last == "weight":
+        return f"decoder/{parts[1]}/kernel", leaf.transpose(2, 3, 1, 0)
+    if parts[0] in ("classifier", "aux_classifier") and last == "weight":
+        return f"{parts[0]}/kernel", leaf[:, :, 0, 0].T
+    raise KeyError(f"unmapped DualStudent parameter name: {name}")
+
+
+def state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``DualStudent`` state dict -> flat branch-stacked JAX weights, keyed
+    and laid out as ``dupl_tpu.engine.checkpoint.export_weights`` writes
+    them: the inverse of :func:`state_dict_from_jax`."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in sd.items():
+        if not name.startswith("branch1."):
+            if not name.startswith("branch2."):
+                raise KeyError(f"not a DualStudent parameter name: {name}")
+            continue
+        rest = name[len("branch1."):]
+        leaves = []
+        for i in (1, 2):
+            arr = sd[f"branch{i}.{rest}"].detach().float().cpu().numpy()
+            key, leaf = _jax_entry(rest, arr)
+            leaves.append(leaf)
+        flat[f"params/{key}"] = np.ascontiguousarray(np.stack(leaves))
+    return flat
 
 
 def optimizer_state_from_jax(optimizer, step: int,

@@ -297,7 +297,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_flash_operands(kernel: str, operands) -> None:
-    """Shared checks of the flash kernels' (B, N, H, D) bf16 operands."""
+    """Shared checks of (B, N, H, D) bf16 kernel operands (the flash kernels
+    and the experiment kernels of ``ops/experiments.py``)."""
     q = operands[0][0]
     if not (q.is_cuda and all(x.device == q.device for x, _ in operands)):
         raise ValueError(f"{kernel} kernel: operands must share one CUDA "

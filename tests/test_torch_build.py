@@ -40,8 +40,12 @@ def test_library_name_follows_the_sources():
     assert build._digest(src) == build._digest(src)
     assert build._digest(src) != build._digest(build.CSRC / "crf_apply.cu")
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
-        "crf_apply", "exp_attention", "exp_attention_bwd", "flash_attention",
-        "flash_attention_bwd", "par_affinity", "par_propagate"]
+        "crf_apply", "crf_apply_bf16", "exp_attention", "exp_attention_bnhd",
+        "exp_attention_bwd", "exp_attention_ones", "exp_rate",
+        "flash_attention", "flash_attention_bwd", "par_affinity",
+        "par_propagate"]
+    # a shared header is part of every library's name
+    assert (build.CSRC / "mma_bf16.cuh").exists()
 
 
 def test_port_never_imports_jax():
@@ -59,7 +63,11 @@ def test_port_never_imports_jax():
                      "dupl_tpu_torch.utils.metrics", "dupl_tpu_torch.utils.device",
                      "dupl_tpu_torch.ops.crf_native",
                      "dupl_tpu_torch.engine.validate",
-                     "dupl_tpu_torch.engine.eval_seg"):
+                     "dupl_tpu_torch.engine.eval_seg",
+                     "dupl_tpu_torch.ops.experiments",
+                     "dupl_tpu_torch.engine.checkpoint",
+                     "dupl_tpu_torch.utils.logging",
+                     "dupl_tpu_torch.utils.timing"):
         assert expected in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -78,6 +86,11 @@ def test_port_never_imports_jax():
                                     "tools/bench_train_torch.py",
                                     "tools/eval_seg_torch.py",
                                     "tools/infer_cam_torch.py",
+                                    "tools/train_torch.py",
+                                    "tools/exp_attn_experiment_torch.py",
+                                    "tools/exp_attn_layout_experiment_torch.py",
+                                    "tools/crf_apply_experiment_torch.py",
+                                    "tools/exp_rate_experiment_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
     """The port's scripts import nothing of jax, flax, optax or the JAX

@@ -691,3 +691,197 @@ def test_crf_apply_at_the_evaluator_shape(dev):
                                          block_rows=47 * w)
         scale = want.abs().amax(dim=(0, 1))
         assert ((got - want).abs().amax(dim=(0, 1)) <= 2e-3 * scale).all()
+
+
+# ---- the experiment kernels P1-P4 (ops/experiments.py) ----------------------
+from dupl_tpu_torch.ops import experiments  # noqa: E402
+
+
+def _row_ulps(got, want):
+    """(max, mean) error in bf16 ulps at the scale of each output row."""
+    scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    err = (got.float() - want).abs() / torch.exp2(
+        torch.floor(torch.log2(scale)) - 7)
+    return err.max().item(), err.mean().item()
+
+
+def _attn_operands(dev, shape, seed, q_mult=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    return ((q * q_mult).to(torch.bfloat16), k.to(torch.bfloat16),
+            v.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bh,n,d,q_mult", [
+    (4, 197, 64, 0.125), (2, 300, 32, 0.18), (3, 64, 16, 0.25),
+    (2, 257, 80, 0.11), (2, 1, 64, 0.125), (2, 130, 64, 5.0)])
+def test_exp_attention_ones_matches_twin(dev, bh, n, d, q_mult):
+    """P1 against its twin at ragged lengths, every head dim and past the
+    clamp: within 2 bf16 ulps of the row (the order of the fp32 sums can
+    flip the rounding of an e entry, which an element of a row carries at
+    the row's scale), 1e-3 ulp on average."""
+    q, k, v = _attn_operands(dev, (bh, n, d), seed=n, q_mult=q_mult)
+    n0 = experiments.exp_attention_ones_cuda.launches
+    got = experiments.exp_attention_ones(q, k, v)
+    assert experiments.exp_attention_ones_cuda.launches == n0 + 1
+    assert got.shape == (bh, n, d) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    want = experiments.exp_attention_ones_ref(q, k, v).to(torch.bfloat16).float()
+    mx, mean = _row_ulps(got, want)
+    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+
+
+def test_exp_attention_ones_on_views_and_wrong_twin(dev):
+    """Strided q, k, v (column slices of one projection) through the
+    (B, N, H, D) wrapper; and the twin with the fp32 row sum (the
+    exp-attention twin) falls outside the mean bound."""
+    b, n, h, d = 2, 785, 12, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+               for i in range(3))
+    q = q * torch.tensor(0.125, dtype=torch.bfloat16, device=dev)
+    got = experiments.exp_attention_ones_cuda(q, k, v)
+    bhnd = [attention._to_bhnd(x) for x in (q, k, v)]
+    want = attention._from_bhnd(experiments.exp_attention_ones_ref(*bhnd).to(
+        torch.bfloat16), b).float()
+    mx, mean = _row_ulps(got, want)
+    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+    wrong = attention._from_bhnd(attention.exp_attention_ref(*bhnd).to(
+        torch.bfloat16), b).float()
+    assert _row_ulps(got, wrong)[1] > 1e-3
+
+
+@pytest.mark.parametrize("b,n,h,d,scale", [
+    (1, 197, 3, 64, 0.125), (2, 300, 2, 32, 32 ** -0.5),
+    (1, 64, 2, 16, 0.25), (1, 257, 2, 80, 80 ** -0.5), (2, 442, 12, 64, 0.11)])
+def test_exp_attention_bnhd_matches_twin(dev, b, n, h, d, scale):
+    """P2 against its twin, also at scales bf16 does not represent; equal to
+    the scale pass followed by K1 but for the order of fp32 sums; and the
+    twin with the scale left in fp32 falls outside the mean bound."""
+    q, k, v = _attn_operands(dev, (b, n, h, d), seed=n + 7)
+    n0 = experiments.exp_attention_bnhd_cuda.launches
+    got = experiments.exp_attention_bnhd(q, k, v, scale)
+    assert experiments.exp_attention_bnhd_cuda.launches == n0 + 1
+    want = experiments.exp_attention_bnhd_ref(q, k, v, scale).to(
+        torch.bfloat16).float()
+    mx, mean = _row_ulps(got, want)
+    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+    k1 = attention.exp_attention_cuda(q * experiments.bf16_scale(scale), k, v)
+    assert torch.equal(k1, got)
+    if experiments.bf16_scale(scale) != scale:
+        qs = (q.float() * scale).to(torch.bfloat16)
+        wrong = attention._from_bhnd(attention.exp_attention_ref(
+            *(attention._to_bhnd(x) for x in (qs, k, v))).to(torch.bfloat16), b)
+        assert _row_ulps(got, wrong.float())[1] > 1e-3
+
+
+def _crf_operands(dev, b, n, ns, v, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    basis = torch.randn(b, n, 11, generator=g, device=dev)
+    coef = torch.randn(b, 11, ns, generator=g, device=dev) * 0.1
+    logc = -torch.randn(b, ns, generator=g, device=dev).abs()
+    logc[:, ::5] = float("-inf")
+    vals = torch.randn(b, ns, v, generator=g, device=dev)
+    return basis, coef, logc, vals
+
+
+@pytest.mark.parametrize("b,n,ns,v", [(2, 1000, 200, 22), (1, 130, 17, 1),
+                                      (1, 4096, 256, 8), (2, 777, 333, 32),
+                                      (1, 50176, 784, 21)])
+def test_kernel_apply_bf16_matches_twin(dev, b, n, ns, v):
+    """P3 against its twin at ragged pixel and pivot counts and every width
+    class: at most 5e-4 of a column's largest output, 1e-4 of it on
+    average; every fifth pivot has logc = -inf."""
+    ops = _crf_operands(dev, b, n, ns, v, seed=n)
+    n0 = experiments.kernel_apply_bf16_cuda.launches
+    got = experiments.kernel_apply_bf16(*ops)
+    assert experiments.kernel_apply_bf16_cuda.launches == n0 + 1
+    want = experiments.kernel_apply_bf16_ref(*ops)
+    assert got.shape == (b, n, v) and torch.isfinite(got).all()
+    err, scale = (got - want).abs(), want.abs().amax(dim=(0, 1))
+    assert (err.amax(dim=(0, 1)) <= 5e-4 * scale).all()
+    assert (err.mean(dim=(0, 1)) <= 1e-4 * scale).all()
+
+
+def test_kernel_apply_bf16_zero_pivots_and_wrong_twin(dev):
+    basis, coef, logc, vals = _crf_operands(dev, 2, 50176, 784, 22, seed=1)
+    dead = torch.full_like(logc, float("-inf"))
+    assert experiments.kernel_apply_bf16(basis, coef, dead, vals).abs().max() == 0
+    got = experiments.kernel_apply_bf16(basis, coef, logc, vals)
+    wrong = crf_cuda.kernel_apply_ref(basis, coef, logc, vals)
+    scale = wrong.abs().amax(dim=(0, 1))
+    assert ((got - wrong).abs().mean(dim=(0, 1)) > 1e-4 * scale).all()
+    with pytest.raises(TypeError, match="float32"):
+        experiments.kernel_apply_bf16_cuda(basis.double(), coef, logc, vals)
+    with pytest.raises(ValueError, match="V must be"):
+        experiments.kernel_apply_bf16_cuda(basis, coef, logc,
+                                           vals.repeat(1, 1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        experiments.kernel_apply_bf16_cuda(basis, coef.transpose(1, 2)
+                                           .contiguous().transpose(1, 2),
+                                           logc, vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["mul", "exp", "exp2", "exp_min", "tanh",
+                                  "expf"])
+def test_exp_rate_matches_twin(dev, name, dtype):
+    """P4 against its twin on a tile whose size is no multiple of a thread's
+    elements, 256 passes.  fp32: 1e-5 * iters relative to the largest
+    result.  bf16: the packed instructions round as the twin's operations
+    do, so mul, exp, exp_min are equal but for an exp at a rounding
+    boundary (2 bf16 ulps of the largest result); ex2.approx.ftz.bf16x2 and
+    tanh.approx.bf16x2 are approximations good to about a bf16 ulp; over
+    several passes that error adds up with the accumulator's own roundings
+    (8 passes leave 9% of the tanh tile more than 2 ulps away), and near
+    stagnation the accumulator depends on its term discontinuously.  So
+    here they run one pass, which is f(x) itself: 99% of the elements
+    within 2 ulps, all within 8 (the 4096 passes of the tool are held in
+    chip_smoke.py)."""
+    if name == "expf" and dtype == torch.bfloat16:
+        with pytest.raises(TypeError, match="float32 only"):
+            experiments.exp_rate(torch.zeros(8, device=dev, dtype=dtype),
+                                 name, 2)
+        return
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(63, 257, generator=g, device=dev) - 1.0).to(dtype)
+    approx = dtype == torch.bfloat16 and name in ("exp2", "tanh")
+    iters = 1 if approx else 256
+    n0 = experiments.exp_rate_cuda.launches
+    got = experiments.exp_rate(x, name, iters)
+    assert experiments.exp_rate_cuda.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = experiments.exp_rate_ref(x, name, iters).float()
+    err = (got.float() - want).abs()
+    top = want.abs().max()
+    if dtype == torch.float32:
+        assert err.max() <= 1e-5 * 256 * top
+    elif approx:
+        close = err <= 2.0 ** -7 * want.abs().clamp_min(1e-3)
+        assert close.float().mean() >= 0.99, close.float().mean()
+        assert (err <= 2.0 ** -5 * want.abs().clamp_min(1e-3)).all()
+    else:
+        assert err.max() <= 2.0 ** -7 * top
+    zero = experiments.exp_rate(x, name, 0)
+    assert zero.abs().max() == 0
+
+
+def test_experiment_dispatchers_never_take_the_twin_on_the_card(dev, monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("a plain twin ran on a CUDA tensor")
+
+    for name in ("exp_attention_ones_ref", "exp_attention_bnhd_ref",
+                 "kernel_apply_bf16_ref", "exp_rate_ref"):
+        monkeypatch.setattr(experiments, name, boom)
+    q, k, v = _attn_operands(dev, (2, 130, 64), seed=0)
+    experiments.exp_attention_ones(q, k, v)
+    experiments.exp_attention_bnhd(*_attn_operands(dev, (1, 130, 2, 64), 0))
+    experiments.kernel_apply_bf16(*_crf_operands(dev, 1, 256, 32, 4, 0))
+    experiments.exp_rate(torch.zeros(64, device=dev), "exp", 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        experiments.exp_attention_ones(q.float(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        experiments.exp_attention_bnhd_cuda(*_attn_operands(dev, (1, 130, 2, 48), 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        experiments.exp_rate_cuda(torch.zeros(8, 8, device=dev).t(), "exp", 2)

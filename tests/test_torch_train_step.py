@@ -122,8 +122,10 @@ def test_synthetic_batch_equals_jax():
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
             assert got[k].dtype == want[k].dtype
-    with pytest.raises(NotImplementedError, match="photo"):
-        synthetic_batch(2, style="photo")
+    want, got = (f(2, crop=64, style="photo")
+                 for f in (jsynthetic_batch, synthetic_batch))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 @pytest.mark.parametrize("step,phase", [(0, "warmup"), (1, "warmup"),

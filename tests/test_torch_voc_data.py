@@ -81,8 +81,18 @@ def test_synthetic_tree_labels_agree_with_its_masks(tree):
 
 
 def test_training_pieces_wait_for_the_data_pipeline(tree):
+    """The training pieces waited for the data pipeline until it was ported;
+    now they work: the training dataset reads the evaluation tree's split
+    and crops as ``train_transform`` says (byte parity with the JAX package
+    is in tests/test_torch_data.py)."""
+    import random
+
     root, lists = tree
-    with pytest.raises(NotImplementedError, match="data pipeline"):
-        tvoc.VocClsDataset(root, lists, "val")
-    with pytest.raises(NotImplementedError, match="data pipeline"):
-        ttr.train_transform(np.zeros((8, 8, 3), np.uint8), 8)
+    ds = tvoc.VocClsDataset(root, lists, "val", crop_size=32)
+    sample = ds.__getitem__(0, seed=3)
+    assert sample["image"].shape == (32, 32, 3)
+    assert sample["image"].dtype == np.float32 and sample["img_box"].shape == (4,)
+    out, box = ttr.train_transform(np.zeros((8, 8, 3), np.uint8), 8, (0.5, 2.0),
+                                   random.Random(0), transfer_dtype="uint8")
+    assert out.shape == (8, 8, 3) and out.dtype == np.uint8
+    assert 0 <= box[0] < box[1] <= 8 and 0 <= box[2] < box[3] <= 8
