@@ -4,12 +4,17 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/dupl_tpu_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v \
+         -o build/dupl_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/dupl_tpu_torch/`` at the checkout root, keyed by a hash of the
 sources and flags, and loaded with ``ctypes`` (seconds to build, where a
 PyTorch C++ extension takes minutes).  A failed build raises; nothing falls
-back to the plain PyTorch versions.
+back to the plain PyTorch versions.  So does a build in which ptxas reports
+that it serialised a kernel's ``wgmma.mma_async`` products (its "Potential
+Performance Loss" notes, C7510-C7515): the flash kernels are built around
+asynchronous ``wgmma`` in flight while the softmax runs, and a serialised
+build would compute the right numbers slowly without saying so.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dupl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# ptxas's note when it cannot keep wgmma products asynchronous
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -62,14 +69,18 @@ def build(name: str, verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+                           f"{' '.join(cmd)}\n{log}")
+    if WGMMA_SERIALIZED in log:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"ptxas serialised the wgmma products of {src}:\n"
+                           + "\n".join(line for line in log.splitlines()
+                                        if WGMMA_SERIALIZED in line))
     if verbose:
-        print(proc.stdout + proc.stderr, end="", flush=True)
+        print(log, end="", flush=True)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

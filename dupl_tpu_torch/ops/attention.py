@@ -247,14 +247,15 @@ def exp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, tile: int = 64):
+                        scale: float, tile: int = 128):
     """Plain twin of the flash-attention forward kernel: unscaled q, k, v,
     each (..., N, D) -> (out (..., N, D) bf16, lse (..., N) fp32).  Roundings
     as the kernel: operands rounded to bf16; s = scale * (q . k^T) in fp32;
     online softmax over ``tile``-key tiles with a running row maximum m, the
     running sum l of the fp32 p = exp(s - m) and the accumulator of
     bf16(p) . v both rescaled by exp(m_old - m_new); out = acc / l rounded to
-    bf16 once; lse = m + log(l)."""
+    bf16 once; lse = m + log(l).  The kernel's key tile is 128: the running
+    maximum, against which p is rounded, moves every 128 keys."""
     qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
     n = qf.shape[-2]
     m = torch.full_like(qf[..., :1], float("-inf"))
@@ -388,9 +389,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16,
                               device=q.device) for _ in range(3))
-    # delta = rowsum(out * g), written by the kernel's first pass and read
-    # by its second
-    delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    # lse (in log2 units) and delta = rowsum(out * g) of every query row,
+    # padded to a multiple of 64 rows: written by the kernel's first pass and
+    # copied tile by tile by its second
+    npad = -(-n // 64) * 64
+    scratch = torch.empty((2, b * h, npad), dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_int64 * 15)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3],
                                     *g.stride()[:3])
@@ -399,7 +403,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         status = _flash_bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, n, h, d, float(scale),
+            dv.data_ptr(), scratch.data_ptr(), b, n, h, d, float(scale),
             strides, stream)
     build.check(status, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1

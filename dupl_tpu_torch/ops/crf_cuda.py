@@ -15,7 +15,6 @@ import functools
 import torch
 
 _DIM = 11
-_MAX_V = 32
 
 
 def kernel_apply_ref(basis: torch.Tensor, coef: torch.Tensor,
@@ -47,7 +46,8 @@ def _entry():
 
 def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                       logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K5 on the current stream; one launch covers the batch."""
+    """Launch kernel K5 on the current stream; one launch covers the batch
+    and every value column (any V, in groups of 32 inside the launch)."""
     from dupl_tpu_torch.kernels import build
 
     dev = basis.device
@@ -69,9 +69,8 @@ def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                          f"(B, {_DIM}, Ns), logc (B, Ns), vals (B, Ns, V); got "
                          f"{tuple(basis.shape)} {tuple(coef.shape)} "
                          f"{tuple(logc.shape)} {tuple(vals.shape)}")
-    if not 1 <= nv <= _MAX_V:
-        raise ValueError(f"crf kernel_apply: V must be in [1, {_MAX_V}], "
-                         f"got {nv}")
+    if nv < 1:
+        raise ValueError(f"crf kernel_apply: V must be at least 1, got {nv}")
     out = torch.empty((b, n, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

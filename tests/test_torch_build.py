@@ -34,6 +34,23 @@ def test_failed_compile_raises_with_the_command(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_serialised_wgmma_fails_the_build(monkeypatch, tmp_path):
+    """A build whose ptxas notes that it serialised wgmma products raises
+    with the note and keeps no library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\necho 'ptxas info    : (C7513) Potential Performance Loss: "
+        "wgmma.mma_async instructions are serialized due to non wgmma "
+        "instructions defining input registers' >&2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="serialised the wgmma") as ei:
+        build.build("flash_attention")
+    assert "C7513" in str(ei.value)
+    assert not list((tmp_path / "build").iterdir())
+
+
 def test_library_name_follows_the_sources():
     """The cache key covers every source, header and flag."""
     src = build.CSRC / "exp_attention.cu"

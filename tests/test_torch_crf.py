@@ -15,13 +15,15 @@ from dupl_tpu_torch.ops import crf_cuda
 torch.set_num_threads(2)
 
 
-def test_kernel_apply_twin_matches_pallas():
+@pytest.mark.parametrize("v", [22, 82])
+def test_kernel_apply_twin_matches_pallas(v):
     """K5's twin against the reference Pallas kernel (interpret mode), at
-    unaligned sizes.  Tolerance 2e-3 of the output's scale: both round the
-    same fp32 kernel entries to bf16, and fp32 summation order may flip the
-    rounding of an entry (2^-8 of it)."""
+    unaligned sizes, at VOC's V 22 and COCO's fast-mode V 82 (past one
+    32-column group of the CUDA kernel).  Tolerance 2e-3 of the output's
+    scale: both round the same fp32 kernel entries to bf16, and fp32
+    summation order may flip the rounding of an entry (2^-8 of it)."""
     rs = np.random.RandomState(0)
-    n, ns, v = 700, 300, 22
+    n, ns = 700, 300
     basis = (rs.standard_normal((n, 11)) * 2.0).astype(np.float32)
     coef = (rs.standard_normal((11, ns)) * 0.1).astype(np.float32)
     logc = -np.abs(rs.standard_normal(ns)).astype(np.float32)
@@ -57,16 +59,19 @@ def _scene(rs, b, h, w, c):
     return np.clip(img, 0, 1).astype(np.float32), probs.astype(np.float32)
 
 
-@pytest.mark.parametrize("c", [5, 21])
+@pytest.mark.parametrize("c", [5, 21, 81])
 @pytest.mark.parametrize("fast", [True, False])
 def test_mean_field_crf_matches_jax(c, fast):
-    """B = 2, 64x64; fast mode compares logits (magnitude up to ~10), full
-    mode marginals (in [0, 1]).  A bf16 kernel entry may round differently
-    where fp32 sums differ in order, moving a message by 2^-8 of that entry;
-    iterations and bi_w = 4 amplify it.  Bounds: logits within 1e-2 (~1e-3
-    of their scale), marginals within 2e-3; labels at least 99.9% equal."""
+    """B = 2, 64x64 (48x48 for COCO's 81 classes, which hand the kernel
+    V 82 in fast mode and 81 in full mode); fast mode compares logits
+    (magnitude up to ~10), full mode marginals (in [0, 1]).  A bf16 kernel
+    entry may round differently where fp32 sums differ in order, moving a
+    message by 2^-8 of that entry; iterations and bi_w = 4 amplify it.
+    Bounds: logits within 1e-2 (~1e-3 of their scale), marginals within
+    2e-3; labels at least 99.9% equal."""
     rs = np.random.RandomState(c)
-    img, probs = _scene(rs, 2, 64, 64, c)
+    size = 48 if c == 81 else 64
+    img, probs = _scene(rs, 2, size, size, c)
     kw = dict(iters=4, downsample=8, row_chunk=16, fast=fast,
               return_logits=fast)
     want = np.asarray(jcrf.mean_field_crf(jnp.asarray(img), jnp.asarray(probs),

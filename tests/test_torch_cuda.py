@@ -291,9 +291,10 @@ def test_exp_attention_bwd_rejects_bad_operands(dev):
         attention.exp_attention_bwd_cuda(x, x.cpu(), x, x)
 
 
-@pytest.mark.parametrize("nv", [1, 5, 21, 22, 32])
+@pytest.mark.parametrize("nv", [1, 5, 21, 22, 32, 33, 64, 81, 82, 130])
 def test_crf_apply_widths(dev, nv):
-    """K5 against the twin at ragged pixel and pivot counts, B = 3."""
+    """K5 against the twin at ragged pixel and pivot counts, B = 3, at every
+    width: one 32-column group and up to five (COCO hands it V 81 and 82)."""
     rs = np.random.RandomState(nv)
     b, n, ns = 3, 1000, 300
     basis = torch.tensor(rs.standard_normal((b, n, 11)) * 2.0,
@@ -310,11 +311,28 @@ def test_crf_apply_widths(dev, nv):
     assert ((got - want).abs().amax(dim=(0, 1)) <= 2e-3 * scale).all()
 
 
+def test_crf_apply_column_groups_are_independent(dev):
+    """K5 at V 82 runs three 32-column groups in one launch; each group's
+    columns are bit-equal to a call on that slice of the values alone."""
+    g = torch.Generator(device=dev).manual_seed(82)
+    basis = torch.randn(2, 777, 11, generator=g, device=dev) * 2.0
+    coef = torch.randn(2, 11, 250, generator=g, device=dev) * 0.1
+    logc = -torch.randn(2, 250, generator=g, device=dev).abs()
+    vals = torch.randn(2, 250, 82, generator=g, device=dev)
+    n0 = crf_cuda.kernel_apply_cuda.launches
+    got = crf_cuda.kernel_apply_cuda(basis, coef, logc, vals)
+    assert crf_cuda.kernel_apply_cuda.launches == n0 + 1
+    for c0 in range(0, 82, 32):
+        part = crf_cuda.kernel_apply_cuda(basis, coef, logc,
+                                          vals[..., c0:c0 + 32].contiguous())
+        assert torch.equal(got[..., c0:c0 + 32], part), c0
+
+
 def test_crf_apply_rejects_bad_operands(dev):
     z = torch.zeros(1, 64, 11, device=dev)
     coef, logc = torch.zeros(1, 11, 8, device=dev), torch.zeros(1, 8, device=dev)
     with pytest.raises(ValueError, match="V must be"):
-        crf_cuda.kernel_apply_cuda(z, coef, logc, torch.zeros(1, 8, 33,
+        crf_cuda.kernel_apply_cuda(z, coef, logc, torch.zeros(1, 8, 0,
                                                               device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         crf_cuda.kernel_apply_cuda(z, coef, logc,
@@ -447,19 +465,22 @@ def _flash_ops(dev, b, n, h, d, seed, q_mult=1.0):
 
 _FLASH_SHAPES = [(1, 64, 2, 64), (3, 100, 2, 64), (2, 197, 3, 16),
                  (1, 300, 4, 32), (2, 257, 2, 80), (1, 2117, 2, 64),
-                 (1, 2305, 12, 64)]
+                 (1, 2305, 12, 64)] + [
+    # the edges of the 128-key and 64-row tiles, every head dim
+    (1, n, 2, d) for d in (16, 32, 64, 80)
+    for n in (127, 128, 129, 2047, 2048, 2049)]
 
 
 @pytest.mark.parametrize("b,n,h,d", _FLASH_SHAPES)
 def test_flash_attention_matches_twin(dev, b, n, h, d):
-    """L1f against its twin at ragged lengths (partial last tiles), every
-    head dim, strided k and v.  Kernel and twin walk the same 64-key tiles
-    with the same running maximum and round the same fp32 quantities to
-    bf16; their exps and sum orders differ.  Bounds: 1 bf16 ulp of the row
-    at the maximum, 0.01 on average (measured on an H100: <= 1.0 and
-    <= 8.5e-4; a kernel that leaves p in fp32, or one that rounds p
-    against another maximum than the running one, is 0.08-0.1 ulp off on
-    average).  The log-sum-exp within 1e-5."""
+    """L1f against its twin at ragged lengths (partial last tiles), the
+    edges of its tiles, every head dim, strided k and v.  Kernel and twin
+    walk the same 128-key tiles with the same running maximum and round the
+    same fp32 quantities to bf16; their exps and sum orders differ.
+    Bounds: 1 bf16 ulp of the row at the maximum, 0.01 on average (a kernel
+    that leaves p in fp32, or one that rounds p against another maximum
+    than the running one, falls outside them: see the test below).  The
+    log-sum-exp within 1e-5."""
     q, k, v, _ = _flash_ops(dev, b, n, h, d, seed=n)
     assert not k.is_contiguous()
     n0 = attention.flash_attention_cuda.launches
@@ -474,6 +495,23 @@ def test_flash_attention_matches_twin(dev, b, n, h, d):
     worst, mean = _row_ulps(attention._to_bhn(out), want)
     assert worst <= 1.0 and mean <= 0.01, (worst, mean)
     assert (lse - want_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["p_fp32", "global_max"])
+@pytest.mark.parametrize("n", [300, 2117])
+def test_flash_attention_bounds_tell_a_wrong_kernel(dev, kind, n):
+    """The bounds L1f is held to (1 bf16 ulp of the row at the maximum,
+    0.01 on average) tell the new tiling apart: against a twin that leaves p
+    in fp32, or one that rounds p against the row's global maximum, the
+    kernel falls outside them (chip_smoke.py's ``flash_fwd_wrong``)."""
+    from chip_smoke import flash_fwd_wrong
+
+    q, k, v, _ = _flash_ops(dev, 2, n, 12, 64, seed=n)
+    out, _ = attention.flash_attention_cuda(q, k, v, 0.125)
+    want = flash_fwd_wrong(*(attention._to_bhn(x) for x in (q, k, v)), 0.125,
+                           kind)
+    worst, mean = _row_ulps(attention._to_bhn(out), want)
+    assert worst > 1.0 or mean > 0.01, (worst, mean)
 
 
 @pytest.mark.parametrize("n", [442, 1765])
@@ -507,10 +545,10 @@ def test_flash_attention_large_logits(dev):
 
 @pytest.mark.parametrize("b,n,h,d", _FLASH_SHAPES)
 def test_flash_attention_bwd_matches_twin(dev, b, n, h, d):
-    """L1b against its twin on the forward kernel's own out and lse.  Kernel
-    and twin round the same fp32 quantities to bf16 and sum in different
-    orders: within 2 bf16 ulps of the row at the maximum and 0.01 on average
-    (measured on an H100: <= 1.0 and <= 8.1e-4)."""
+    """L1b against its twin on the forward kernel's own out and lse, at the
+    same shapes as the forward.  Kernel and twin round the same fp32
+    quantities to bf16 and sum in different orders: within 2 bf16 ulps of
+    the row at the maximum and 0.01 on average."""
     q, k, v, go = _flash_ops(dev, b, n, h, d, seed=n)
     out, lse = attention.flash_attention_cuda(q, k, v, d ** -0.5)
     n0 = attention.flash_attention_bwd_cuda.launches

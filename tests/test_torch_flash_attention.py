@@ -74,11 +74,11 @@ def test_flash_twin_forward_matches_jax(b, n, h, d, mult):
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("tile", [64, 100, 4096])
+@pytest.mark.parametrize("tile", [64, 100, 128, 4096])
 def test_flash_twin_does_not_depend_on_the_tiling_beyond_rounding(tile):
-    """The online softmax over 64-key tiles against other tilings and one
-    whole-row tile: the same function up to where p is rounded (1 bf16 ulp
-    of the row)."""
+    """The online softmax over the kernel's 128-key tiles against other
+    tilings (64, the earlier kernel's) and one whole-row tile: the same
+    function up to where p is rounded (1 bf16 ulp of the row)."""
     q, k, v, _ = _operands(7, 1, 300, 2, 32)
     a, la = attention.flash_attention_ref(_bhnd(q), _bhnd(k), _bhnd(v), 0.2)
     b, lb = attention.flash_attention_ref(_bhnd(q), _bhnd(k), _bhnd(v), 0.2,
