@@ -12,7 +12,11 @@ JAX.  Phases, each printing one result line:
    one nvcc per source, all at once;
 3. K1 (exp-attention) against its plain twin on the card, bf16, at the
    token counts and batch sizes of the serving, pseudo-label and training
-   paths and one case with logits past the clamp;
+   paths and one case with logits past the clamp (1 bf16 ulp of the row at
+   the maximum, 1e-3 on average), against three wrong twins
+   (``exp_attn_wrong``), which must fall outside those bounds, and at the
+   edges of its tiles (N 127-129, 255-257, 2045-2047) for every head dim on
+   strided views; one call, back to back and the host's time to enqueue one;
 4. K5 (CRF kernel-apply) against its plain twin at the fast CRF's
    full-resolution slice (2 images of 448^2, 3,136 pivots, V = 22 and 1);
 5. the serving slice: a ViT-B/16 dual student (VOC, 21 classes, crop 448,
@@ -39,7 +43,10 @@ JAX.  Phases, each printing one result line:
 11. K2 (exp-attention backward) against its plain twin at the training
    step's shapes (B 4, H 12, D 64, N 785 and 442), one case per other head
    dim and one with scores past the clamp, k and v strided as the model
-   passes them; timed beside autograd's backward through
+   passes them, the same bits from call to call, three wrong twins
+   (``exp_attn_bwd_wrong``) outside the bounds, the edges of its tiles (N
+   127-129, 255-257, 895-897) for every head dim; timed (one call, back to
+   back, host) beside autograd's backward through
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
    replayed as a CUDA graph so that its device time is read;
 12. the training slice: ``Trainer.train_step`` of the production recipe
@@ -57,6 +64,12 @@ JAX.  Phases, each printing one result line:
    confidence threshold that keep every loss term live: each side's labels
    must agree; on the card's labels, losses and gradient directions must
    agree; and the strong view's backward must change the gradient;
+13b. the COCO training step: ``Trainer.train_step`` of
+   ``production_config("coco")`` (81 classes, aux CAMs from layer 9, PAR
+   class budget 16) in the ``seg_static`` and ``full`` phases at batch 4,
+   crop 448: finite losses, the launches of K1-K4 a step (K4 at C 64), no
+   twin on a CUDA tensor; K1, K2 and K4 against their twins on the full
+   step's own operands;
 14. L1f (flash-attention forward) against its plain twin at the evaluation
    path's shape (B 16, N 2117, H 12, D 64: eight 500 x 500 images and their
    flips at scale 1.5) and at (B 2, N 5185) (a 768 crop at scale 1.5), k and
@@ -116,8 +129,9 @@ JAX.  Phases, each printing one result line:
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
 its memory rate, whichever is larger; kernel times are medians of one call
-between two CUDA events, and the flash entries add ``ms_back_to_back``,
-rounds of back-to-back calls), and last ``{"ok": true, "device": {...}}``.
+between two CUDA events, and the attention entries add ``ms_back_to_back``,
+rounds of back-to-back calls, K1 and K2 also ``host_us``), and last
+``{"ok": true, "device": {...}}``.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 2.
 """
@@ -155,6 +169,54 @@ def flash_fwd_wrong(q, k, v, scale, kind):
     del s
     num = (p if kind == "p_fp32" else p.to(torch.bfloat16).float()) @ vf
     return (num / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def exp_attn_wrong(q, k, v, kind):
+    """K1's twin with one rounding or reduction changed, on (..., N, D)
+    operands with q pre-scaled: ``running_max`` is L1f's online softmax at
+    scale 1 over 128-key tiles (what K1 would compute if it took the flash
+    kernel's per-tile step), ``p_fp32`` contracts the unrounded fp32 e with
+    v, ``denom_bf16`` sums the bf16-rounded e for the denominator (P1's row
+    sum through the tensor cores).  Phase 3 and the CPU and card tests hold
+    K1's bounds against each."""
+    import torch
+
+    from dupl_tpu_torch.ops import attention
+
+    if kind == "running_max":
+        return attention.flash_attention_ref(q, k, v, 1.0)[0]
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    e = torch.exp(torch.clamp(qf @ kf.transpose(-1, -2), max=60.0))
+    eb = e.to(torch.bfloat16).float()
+    num = (e if kind == "p_fp32" else eb) @ vf
+    den = (eb if kind == "denom_bf16" else e).sum(-1, keepdim=True)
+    return (num / den).to(torch.bfloat16)
+
+
+def exp_attn_bwd_wrong(q, k, v, g, kind):
+    """K2's twin with one step left out, on (..., N, D) operands with q
+    pre-scaled: ``no_delta`` drops delta, ``ds_fp32`` leaves ds unrounded,
+    ``no_clamp_mask`` passes gradient where a score reached the clamp;
+    ``none`` changes nothing.  Phase 11 and the CPU and card tests hold K2's
+    bounds against each."""
+    import torch
+
+    qf, kf, vf, gf = (x.to(torch.bfloat16).float() for x in (q, k, v, g))
+    s = qf @ kf.transpose(-1, -2)
+    e = torch.exp(s.clamp(max=60.0))
+    p = e / e.sum(-1, keepdim=True)
+    t = gf @ vf.transpose(-1, -2)
+    delta = (p * t).sum(-1, keepdim=True)
+    if kind == "no_delta":
+        delta = torch.zeros_like(delta)
+    ds = p * (t - delta)
+    if kind != "no_clamp_mask":
+        ds = torch.where(s < 60.0, ds, torch.zeros_like(ds))
+    if kind != "ds_fp32":
+        ds = ds.to(torch.bfloat16).float()
+    dq, dk = ds @ kf, ds.transpose(-1, -2) @ qf
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
 
 
 def main() -> int:
@@ -246,14 +308,58 @@ def main() -> int:
         return ((ops_ms, "operations") if ops_ms >= bytes_ms
                 else (bytes_ms, "bytes"))
 
+    def host_us(fn, reps=21):
+        """Median host time (us) to enqueue one call while the device is
+        busy: a spin kernel holds the stream, so each call returns as soon as
+        its host work (checks, allocation, tensor maps, launch) is done."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)   # ~30 ms of device time
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return 1e6 * statistics.median(ts)
+
+    def row_ulps(got, want):
+        """(max, mean) of |got - want| in bf16 ulps of each row's scale (max
+        |want| over the head dim)."""
+        want = want.float()
+        u = (got.float() - want).abs() / bf16_ulp(
+            want.abs().amax(-1, keepdim=True))
+        return u.max().item(), u.mean().item()
+
+    def qkvg(b, n, h, d, mult):
+        """q (scaled by mult / sqrt(d), bf16), k, v as column slices of one
+        (B, N, 3C) projection, as the ViT hands them to the kernels, and a
+        cotangent."""
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(
+            torch.bfloat16)
+        q_, k_, v_ = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
+                      for i in range(3))
+        qs_ = (q_.float() * mult * d ** -0.5).to(torch.bfloat16)
+        go_ = torch.randn(b, n, h, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        return qs_, k_, v_, go_
+
     # -- 3. K1 against its twin ----------------------------------------------------
-    # Tolerance: one bf16 ulp at the scale of each output row (max |out| over
-    # the head dim).  Kernel and twin round the same fp32 quantities to bf16;
-    # their fp32 sums run in different orders, which can flip the rounding of
-    # a bf16(e) entry, and an element that nearly cancels carries that error
-    # at its row's scale.
+    # Error in bf16 ulps at the scale of each output row (max |out| over the
+    # head dim).  Kernel and twin round the same fp32 quantities to bf16 (e
+    # before the value product, the result once); their exps and fp32 sums
+    # run in different orders, which can flip the rounding of a bf16(e)
+    # entry, and an element that nearly cancels carries that error at its
+    # row's scale.  Bounds: 1 ulp at the maximum, 1e-3 on average.  Three
+    # wrong twins (chip_smoke.exp_attn_wrong: the flash kernel's running
+    # maximum, e left in fp32, the denominator summed from bf16(e)) must fall
+    # outside them.  Then the edges of the 128-key tiles and 128-row blocks
+    # (N 127-129, 255-257, 2045-2047) for every head dim on strided views.
     g = torch.Generator(device=dev).manual_seed(0)
-    k1 = {"err": 0.0, "ms": {}, "plain_ms": {}, "library_ms": {}}
+    k1 = {"err": 0.0, "ulps": {}, "wrong": {}, "edges": {}, "ms": {},
+          "ms_back_to_back": {}, "host_us": {}, "plain_ms": {},
+          "library_ms": {}}
     cases = [(2, 197, 1.0), (2, 785, 1.0), (2, 1226, 1.0), (2, 1765, 1.0),
              (2, 785, 40.0),               # logits far past the clamp at 60
              (16, 785, 1.0), (16, 1226, 1.0), (16, 1765, 1.0),  # batch-8 x flip
@@ -272,18 +378,33 @@ def main() -> int:
         got = attention.exp_attention_cuda(qs, k, v)
         torch.cuda.synchronize()
         want = attention.exp_attention_ref(bhnd(qs), bhnd(k), bhnd(v)).to(
-            torch.bfloat16).float()
-        want = want.reshape(b, 12, n, 64).permute(0, 2, 1, 3)
-        err = (got.float() - want).abs()
-        bound = bf16_ulp(want.abs().amax(-1, keepdim=True))
-        check(bool(torch.isfinite(got.float()).all()), f"K1 N={n}: non-finite")
-        check(bool((err <= bound).all()),
-              f"K1 B={b} N={n} x{mult}: error {err.max().item():.3g} exceeds "
-              f"one bf16 ulp of its row ({(err / bound).max().item():.2f} ulp)")
-        k1["err"] = max(k1["err"], err.max().item())
+            torch.bfloat16)
+        key = f"BH={b * 12},N={n}" + ("" if mult == 1.0 else f",q x{mult}")
+        check(bool(torch.isfinite(got.float()).all()), f"K1 {key}: non-finite")
+        worst, mean = row_ulps(bhnd(got), want)
+        k1["ulps"][key] = [worst, mean]
+        check(worst <= 1.0 and mean <= 1e-3,
+              f"K1 {key}: {worst:.3g} bf16 ulps of the row at the maximum, "
+              f"{mean:.3g} on average (bounds 1, 1e-3)")
+        k1["err"] = max(k1["err"],
+                        (bhnd(got).float() - want.float()).abs().max().item())
+        if b == 2 and n in (785, 1765) and mult == 1.0:
+            for kind in ("running_max", "p_fp32", "denom_bf16"):
+                w_max, w_mean = row_ulps(bhnd(got), exp_attn_wrong(
+                    bhnd(qs), bhnd(k), bhnd(v), kind))
+                k1["wrong"][f"{kind},N={n}"] = [w_max, w_mean]
+                check(w_max > 1.0 or w_mean > 1e-3,
+                      f"K1: the bounds do not tell the wrong twin {kind!r} at "
+                      f"N {n} ({w_max:.3g} at the maximum, {w_mean:.3g} on "
+                      f"average)")
         if mult == 1.0:
-            key = f"BH={b * 12},N={n}"
             k1["ms"][key] = time_ms(lambda: attention.exp_attention_cuda(qs, k, v))
+            if b == 16:
+                k1["ms_back_to_back"][key] = time_ms(
+                    lambda: attention.exp_attention_cuda(qs, k, v),
+                    back_to_back=True)
+                k1["host_us"][key] = host_us(
+                    lambda: attention.exp_attention_cuda(qs, k, v))
             k1["plain_ms"][key] = time_ms(lambda: attention.exp_attention_ref(
                 bhnd(qs), bhnd(k), bhnd(v)).to(torch.bfloat16))
             if b == 16:  # the yardstick: one library call, same operands
@@ -293,9 +414,27 @@ def main() -> int:
                     lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                            scale=1.0))
                 del ql, kl, vl
-        del q, k, v, qs, got, want, err, bound
-    print(f"[K1 exp_attention] max_abs_err {k1['err']:.4g} (bound: 1 bf16 ulp "
-          f"of the row) | kernel ms {json.dumps(k1['ms'])} | plain ms "
+        del q, k, v, qs, got, want
+    for d in (16, 32, 64, 80):
+        for n in (127, 128, 129, 255, 256, 257, 2045, 2046, 2047):
+            qs, k, v, _ = qkvg(1, n, 2, d, 1.0)
+            got = attention.exp_attention_cuda(qs, k, v)
+            torch.cuda.synchronize()
+            ops = tuple(attention._to_bhnd(x) for x in (qs, k, v))
+            worst, mean = row_ulps(attention._to_bhnd(got),
+                                   attention.exp_attention_ref(*ops).to(
+                                       torch.bfloat16))
+            k1["edges"][f"D={d},N={n}"] = [round(worst, 3), round(mean, 6)]
+            check(worst <= 1.0 and mean <= 1e-3,
+                  f"K1 at the tile edge D {d}, N {n}: {worst:.3g} bf16 ulps "
+                  f"of the row at the maximum, {mean:.3g} on average")
+    del k, v, qs, got, ops
+    print(f"[K1 exp_attention] max_abs_err {k1['err']:.4g} | bf16 ulps of the "
+          f"row [max, mean] {json.dumps(k1['ulps'])} (bounds 1 and 1e-3) | "
+          f"wrong twins {json.dumps(k1['wrong'])} (each outside) | tile edges "
+          f"{json.dumps(k1['edges'])} | kernel ms {json.dumps(k1['ms'])}, back "
+          f"to back {json.dumps(k1['ms_back_to_back'])}, host us a call "
+          f"{json.dumps(k1['host_us'])} | plain ms "
           f"{json.dumps(k1['plain_ms'])} | library (F.scaled_dot_product_"
           f"attention) ms {json.dumps(k1['library_ms'])}", flush=True)
 
@@ -728,50 +867,64 @@ def main() -> int:
     # Error in bf16 ulps of each output row's scale (max |row| over the head
     # dim).  Kernel and twin round the same fp32 quantities to bf16 (ds before
     # both of its products, p for dv, the results once) and sum in different
-    # orders.  Bounds: 2 ulps at the maximum and 0.01 ulp on average.  On an
-    # H100 the kernel measured 1.0 and 2.5e-4 at most; a version without
-    # delta lands 40-170 ulps away at the maximum, one that leaves ds in fp32
-    # ~0.09 ulp on average (its maximum, 1-2 ulps, does not show it).  With
-    # scores past the clamp the rows are nearly one-hot, t - delta cancels and
-    # the two summation orders differ by 10-17 ulps (bound 64); without the
-    # clamp mask the result is 340 ulps away, and 45 on average.
-    def qkvg(b, n, h, d, mult):
-        c = h * d
-        qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(
-            torch.bfloat16)
-        q_, k_, v_ = (qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
-                      for i in range(3))     # column slices, as the ViT's
-        qs_ = (q_.float() * mult * d ** -0.5).to(torch.bfloat16)
-        go_ = torch.randn(b, n, h, d, generator=g, device=dev).to(
-            torch.bfloat16)
-        return qs_, k_, v_, go_
+    # orders.  Bounds: 2 ulps at the maximum and 0.01 ulp on average.  With
+    # scores past the clamp the rows are nearly one-hot, t - delta cancels
+    # and the two summation orders differ by more (bound 64 at the maximum).
+    # Three wrong twins (chip_smoke.exp_attn_bwd_wrong: no delta, ds left in
+    # fp32, no clamp mask) must fall outside the bounds, and two calls on the
+    # same operands must give the same bits.  Then the edges of the 64-row
+    # tiles and 128-row blocks (N 127-129, 255-257, 895-897) for every head
+    # dim.
+    def bwd_ulps(got, want):
+        """(max, mean) over dq, dk, dv of the row-ulp error."""
+        worst = mean = 0.0
+        for x, w in zip(got, want):
+            a_, m_ = row_ulps(attention._to_bhnd(x), w)
+            worst, mean = max(worst, a_), max(mean, m_)
+        return worst, mean
 
-    k2 = {"err": 0.0, "ulps": {}, "ms": {}, "plain_ms": {}, "library_ms": {}}
+    k2 = {"err": 0.0, "ulps": {}, "wrong": {}, "edges": {}, "ms": {},
+          "ms_back_to_back": {}, "host_us": {}, "plain_ms": {},
+          "library_ms": {}}
     for b, n, h, d, mult in [(4, 785, 12, 64, 1.0), (4, 442, 12, 64, 1.0),
                              (2, 300, 4, 16, 1.0), (2, 257, 4, 32, 1.0),
                              (2, 200, 2, 80, 1.0), (2, 442, 12, 64, 24.0)]:
         qs, k, v, go = qkvg(b, n, h, d, mult)
         check(not k.is_contiguous(), "K2: k should be a strided view")
         got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+        again = attention.exp_attention_bwd_cuda(qs, k, v, go)
         torch.cuda.synchronize()
+        key = f"B={b},N={n},H={h},D={d}" + ("" if mult == 1.0 else f",q x{mult}")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K2 {key}: two calls on the same operands differ")
+        del again
         ops = tuple(attention._to_bhnd(x) for x in (qs, k, v, go))
         want = attention.exp_attention_bwd_ref(*ops)
-        key = f"B={b},N={n},H={h},D={d}" + ("" if mult == 1.0 else f",q x{mult}")
-        worst = mean = 0.0
         for name, x, w in zip(("dq", "dk", "dv"), got, want):
-            x, w = attention._to_bhnd(x).float(), w.float()
-            check(bool(torch.isfinite(x).all()), f"K2 {key}: non-finite {name}")
-            err = (x - w).abs()
-            ulps = err / bf16_ulp(w.abs().amax(-1, keepdim=True))
-            worst = max(worst, ulps.max().item())
-            mean = max(mean, ulps.mean().item())
-            k2["err"] = max(k2["err"], err.max().item())
+            check(bool(torch.isfinite(x.float()).all()),
+                  f"K2 {key}: non-finite {name}")
+            k2["err"] = max(k2["err"], (attention._to_bhnd(x).float()
+                                        - w.float()).abs().max().item())
+        worst, mean = bwd_ulps(got, want)
         k2["ulps"][key] = [worst, mean]
         check(worst <= (2.0 if mult == 1.0 else 64.0) and mean <= 0.01,
               f"K2 {key}: {worst:.3g} bf16 ulps of the row at the maximum, "
               f"{mean:.3g} on average")
+        kinds = (("no_delta", "ds_fp32") if (n, mult) == (785, 1.0) else
+                 ("no_clamp_mask",) if mult != 1.0 else ())
+        for kind in kinds:
+            w_max, w_mean = bwd_ulps(got, exp_attn_bwd_wrong(*ops, kind))
+            k2["wrong"][kind] = [w_max, w_mean]
+            check(w_max > (2.0 if mult == 1.0 else 64.0) or w_mean > 0.01,
+                  f"K2: the bounds do not tell the wrong twin {kind!r} "
+                  f"({w_max:.3g} at the maximum, {w_mean:.3g} on average)")
         if d == 64 and mult == 1.0:
             k2["ms"][key] = time_ms(
+                lambda: attention.exp_attention_bwd_cuda(qs, k, v, go))
+            k2["ms_back_to_back"][key] = time_ms(
+                lambda: attention.exp_attention_bwd_cuda(qs, k, v, go),
+                back_to_back=True)
+            k2["host_us"][key] = host_us(
                 lambda: attention.exp_attention_bwd_cuda(qs, k, v, go))
             k2["plain_ms"][key] = time_ms(
                 lambda: attention.exp_attention_bwd_ref(*ops))
@@ -786,12 +939,27 @@ def main() -> int:
                 out, (ql, kl, vl), gl, retain_graph=True), side)
             del ql, kl, vl, out, gl, side
         del qs, k, v, go, got, want, ops
+    for d in (16, 32, 64, 80):
+        for n in (127, 128, 129, 255, 256, 257, 895, 896, 897):
+            qs, k, v, go = qkvg(1, n, 2, d, 1.0)
+            got = attention.exp_attention_bwd_cuda(qs, k, v, go)
+            torch.cuda.synchronize()
+            worst, mean = bwd_ulps(got, attention.exp_attention_bwd_ref(
+                *(attention._to_bhnd(x) for x in (qs, k, v, go))))
+            k2["edges"][f"D={d},N={n}"] = [round(worst, 3), round(mean, 6)]
+            check(worst <= 2.0 and mean <= 0.01,
+                  f"K2 at the tile edge D {d}, N {n}: {worst:.3g} bf16 ulps "
+                  f"of the row at the maximum, {mean:.3g} on average")
+    del qs, k, v, go, got
     print(f"[K2 exp_attention_bwd] max_abs_err {k2['err']:.4g} | bf16 ulps of "
           f"the row [max, mean] {json.dumps(k2['ulps'])} (bounds 2, or 64 "
-          f"past the clamp, and 0.01) | kernel ms {json.dumps(k2['ms'])} | "
-          f"plain ms {json.dumps(k2['plain_ms'])} | library (backward of "
-          f"F.scaled_dot_product_attention, replayed as a CUDA graph) ms "
-          f"{json.dumps(k2['library_ms'])}", flush=True)
+          f"past the clamp, and 0.01) | wrong twins {json.dumps(k2['wrong'])} "
+          f"(each outside) | bit-equal from call to call | tile edges "
+          f"{json.dumps(k2['edges'])} | kernel ms {json.dumps(k2['ms'])}, back "
+          f"to back {json.dumps(k2['ms_back_to_back'])}, host us a call "
+          f"{json.dumps(k2['host_us'])} | plain ms {json.dumps(k2['plain_ms'])} "
+          f"| library (backward of F.scaled_dot_product_attention, replayed as "
+          f"a CUDA graph) ms {json.dumps(k2['library_ms'])}", flush=True)
 
     # -- 12. the training slice ------------------------------------------------------
     from dupl_tpu_torch.data.pipeline import synthetic_batch
@@ -1134,6 +1302,158 @@ def main() -> int:
           f"{strong_share:.4f} of the gradient's norm (bound 1e-3) | launches "
           f"of the card's step {json.dumps(sides['card'][3])}", flush=True)
 
+    # -- 13b. the COCO training step --------------------------------------------------
+    # Trainer.train_step of production_config("coco") (81 classes, aux CAMs
+    # from layer 9, PAR class budget 16, weights from seed 0) at batch 4,
+    # crop 448, in the seg_static phase (PAR on the aux CAMs at static
+    # thresholds) and the full phase: one untimed and two timed steps each;
+    # finite losses, the launches of K1-K4 a step as counted from the code
+    # (phase 12's: the same CAM passes and views; K4 at C = 4 x 16 = 64, every
+    # synthetic image having fewer than 16 classes), no twin on a CUDA tensor;
+    # then K1, K2 and K4 against their twins on operands that the full step
+    # handed them (K1's and K4's first launch, K2's launch with the largest
+    # cotangent), at phases 3, 11 and 12's bounds.
+    ccfg13 = production_config("coco")
+    check(ccfg13.model.backbone == "deit_base_patch16"
+          and ccfg13.num_classes == 81 and ccfg13.model.aux_layer == 9
+          and ccfg13.par.class_budget == 16 and ccfg13.data.crop_size == 448,
+          "production_config('coco') is not the ViT-B/16 COCO recipe")
+    ctrainer = Trainer(ccfg13, device=dev)
+    cstate = ctrainer.init_state()
+    cbatch = ctrainer.put(synthetic_batch(4, crop=448,
+                                          num_fg=ccfg13.model.num_fg))
+    check(bool(cbatch["fits_budget"]), "the synthetic COCO batch is past the "
+          "class budget")
+    n_prop = ccfg13.par.num_iter
+    cexpected = {
+        "seg_static": {"exp_attention": 96, "exp_attention_bwd": 24,
+                       "par_affinity": 1, "par_propagate": n_prop},
+        "full": {"exp_attention": 120, "exp_attention_bwd": 48,
+                 "par_affinity": 1, "par_propagate": n_prop},
+    }
+    coco_ops = {}
+
+    def keep_operands(name, fn, operands, score):
+        """``fn`` wrapped to keep in ``coco_ops[name]`` a copy of the
+        tensors that ``operands`` picks from the arguments of the call that
+        ``score`` ranks highest so far (ties: the first)."""
+        def wrapped(*a):
+            ops_ = operands(*a)
+            rank = score(ops_)
+            if name not in coco_ops or rank > coco_ops[name][0]:
+                coco_ops[name] = (rank, tuple(
+                    x.detach().clone() if isinstance(x, torch.Tensor) else x
+                    for x in ops_))
+            return fn(*a)
+        return wrapped
+
+    # K1 and K2 are reached through the autograd Function that pairs them
+    # (their wrappers count their own launches by name, so they stay as
+    # they are), PAR through the module function that dispatches K4.  K2
+    # keeps the call with the largest cotangent: at random weights no pixel
+    # passes the consistency loss's confidence threshold, so the strong
+    # view's backward, the first K2 call of a full step, gets g = 0.
+    exp_fn = attention._ExpAttention
+    capture13 = [
+        (exp_fn, "forward", staticmethod, lambda ctx, qs, k_, v_: (qs, k_, v_),
+         lambda ops_: 0.0),
+        (exp_fn, "backward", staticmethod,
+         lambda ctx, g_: (*ctx.saved_tensors,
+                          g_.to(torch.bfloat16).contiguous()),
+         lambda ops_: ops_[3].abs().amax().item()),
+        (par_cuda, "propagate", lambda f: f, lambda *a: a, lambda ops_: 0.0)]
+
+    coco13 = {}
+    twin_calls.clear()
+    patched = [(mod, name) + counting(mod, name) for mod, name in twins]
+    for mod, name, _, wrapped in patched:
+        setattr(mod, name, wrapped)
+    try:
+        for phase in ("seg_static", "full"):
+            cstate.step = cstate.optimizer.global_step = phase_start(ccfg13,
+                                                                     phase)
+            check(phase_of(ccfg13, cstate.step) == phase,
+                  f"COCO: step is not in {phase}")
+            kept = [(owner, n_, getattr(owner, n_), bind)
+                    for owner, n_, bind, _, _ in capture13
+                    ] if phase == "full" else []
+            for (owner, n_, fn, bind), (*_, pick, score) in zip(kept,
+                                                               capture13):
+                setattr(owner, n_, bind(keep_operands(n_, fn, pick, score)))
+            try:
+                ctrainer.train_step(cstate, cbatch)
+            finally:
+                for owner, n_, fn, bind in kept:
+                    setattr(owner, n_, bind(fn))
+            torch.cuda.synchronize()
+            times13 = []
+            for _ in range(2):
+                for f in train_counters.values():
+                    f.launches = 0
+                t = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    _, cmetrics = ctrainer.train_step(cstate, cbatch)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                times13.append(time.perf_counter() - t)
+                claunches = {k_: f.launches for k_, f in train_counters.items()}
+                check(claunches == cexpected[phase],
+                      f"COCO {phase}: launches a step {claunches}, expected "
+                      f"{cexpected[phase]}")
+            closses = {k_: v_.item() for k_, v_ in cmetrics.items()}
+            check(all(np.isfinite(v_) for v_ in closses.values()),
+                  f"COCO {phase}: non-finite loss {closses}")
+            coco13[phase] = {"ms": [1e3 * t for t in times13],
+                             "launches": claunches,
+                             "loss": closses["loss"],
+                             "seg_loss": closses["seg_loss"]}
+        check(coco13["seg_static"]["seg_loss"] > 0
+              and coco13["full"]["seg_loss"] > 0,
+              f"COCO: a seg phase has no seg loss {coco13}")
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    finally:
+        for mod, name, fn, _ in patched:
+            setattr(mod, name, fn)
+    # the kernels against their twins on those operands
+    cq, ck, cv = coco_ops["forward"][1]
+    got = attention.exp_attention_cuda(cq, ck, cv)
+    ops = tuple(attention._to_bhnd(x) for x in (cq, ck, cv))
+    c1 = row_ulps(attention._to_bhnd(got),
+                  attention.exp_attention_ref(*ops).to(torch.bfloat16))
+    check(c1[0] <= 1.0 and c1[1] <= 1e-3, f"K1 on the COCO step's operands "
+          f"{tuple(cq.shape)}: {c1[0]:.3g} bf16 ulps at the maximum, "
+          f"{c1[1]:.3g} on average (bounds 1, 1e-3)")
+    cq, ck, cv, cg = coco_ops["backward"][1]
+    check(cg.abs().amax().item() > 0, "COCO: every K2 call had g = 0")
+    got = attention.exp_attention_bwd_cuda(cq, ck, cv, cg)
+    c2 = bwd_ulps(got, attention.exp_attention_bwd_ref(
+        *(attention._to_bhnd(x) for x in (cq, ck, cv, cg))))
+    check(c2[0] <= 2.0 and c2[1] <= 0.01, f"K2 on the COCO step's operands "
+          f"{tuple(cq.shape)}: {c2[0]:.3g} bf16 ulps at the maximum, "
+          f"{c2[1]:.3g} on average (bounds 2, 0.01)")
+    cm, ca, *cargs = coco_ops["propagate"][1]
+    check(cm.shape == (4, 224, 224, 64) and cargs[-1] == "float32",
+          f"COCO PAR masks {tuple(cm.shape)} in {cargs[-1]}: want C 64, fp32")
+    got = par_cuda.propagate(cm, ca, *cargs)
+    want = par_cuda.propagate_ref(cm, ca, *cargs)
+    c4 = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all())
+          and c4 <= 1e-5 * want.abs().max().item(),
+          f"K4 on the COCO step's masks: error {c4:.3g}")
+    print(f"[COCO training step] production_config('coco'): ViT-B/16, 81 "
+          f"classes, aux layer 9, crop 448, batch 4 | ms a step (2 timed) "
+          f"{json.dumps({k_: [round(t, 1) for t in v_['ms']] for k_, v_ in coco13.items()})} "
+          f"| loss {json.dumps({k_: round(v_['loss'], 4) for k_, v_ in coco13.items()})} "
+          f"| launches a step {json.dumps({k_: v_['launches'] for k_, v_ in coco13.items()})} "
+          f"| on the full step's operands: K1 {tuple(coco_ops['forward'][1][0].shape)} "
+          f"{c1[0]:.3g} / {c1[1]:.3g} ulps (max / mean), K2 {c2[0]:.3g} / "
+          f"{c2[1]:.3g}, K4 at C {cm.shape[3]} max_abs_err {c4:.3g}",
+          flush=True)
+    del ctrainer, cstate, cbatch, coco_ops, cq, ck, cv, cg, cm, ca, got, want
+    torch.cuda.empty_cache()
+
     # -- 14. L1f against its twin -----------------------------------------------------
     # Error in bf16 ulps of each output row's scale.  Kernel and twin walk the
     # same 128-key tiles with the same running maximum and round the same
@@ -1152,12 +1472,6 @@ def main() -> int:
         go_ = torch.randn(b, n, h, d, generator=g, device=dev).to(
             torch.bfloat16)
         return q_, k_, v_, go_
-
-    def row_ulps(got, want):
-        want = want.float()
-        u = (got.float() - want).abs() / bf16_ulp(
-            want.abs().amax(-1, keepdim=True))
-        return u.max().item(), u.mean().item()
 
     bhn = attention._to_bhn
     l1f = {"err": 0.0, "ulps": {}, "ms": {}, "ms_back_to_back": {},
@@ -1696,12 +2010,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return records, exp_counters[name].launches
 
-    def row_ulps(got, want):
-        """(max, mean) error in bf16 ulps of the row."""
-        e = (got.float() - want).abs() / bf16_ulp(
-            want.abs().amax(-1, keepdim=True))
-        return e.max().item(), e.mean().item()
-
     def by_heads(fn, ops, chunk=96):
         """A twin over (BH, N, D) operands in chunks of heads: its fp32
         score matrix at 768 heads and 1765 tokens would take 9.6 GB."""
@@ -2148,6 +2456,11 @@ def main() -> int:
               "dupl_tpu/ops/attention.py:98", launches["exp_attention"],
               k1["err"], k1["ms"][k1_key], k1["plain_ms"][k1_key],
               k1["library_ms"][k1_key],
+              ms_back_to_back=k1["ms_back_to_back"][k1_key],
+              host_us=k1["host_us"][k1_key], ms_by_shape=k1["ms"],
+              ms_back_to_back_by_shape=k1["ms_back_to_back"],
+              host_us_by_shape=k1["host_us"],
+              library_ms_by_shape=k1["library_ms"],
               launches_pseudo_label=pl_launches["exp_attention"],
               launches_eval=eval_launches["exp_attention"],
               launches_train=per_phase("exp_attention")),
@@ -2156,6 +2469,11 @@ def main() -> int:
               train12["full"]["launches"]["exp_attention_bwd"], k2["err"],
               k2["ms"][k2_key], k2["plain_ms"][k2_key],
               k2["library_ms"][k2_key],
+              ms_back_to_back=k2["ms_back_to_back"][k2_key],
+              host_us=k2["host_us"][k2_key], ms_by_shape=k2["ms"],
+              ms_back_to_back_by_shape=k2["ms_back_to_back"],
+              host_us_by_shape=k2["host_us"],
+              library_ms_by_shape=k2["library_ms"],
               launches_train=per_phase("exp_attention_bwd")),
         entry("crf_apply", "crf_apply.cu", "dupl_tpu/ops/crf_pallas.py:30",
               launches["crf_apply"], k5["err"], k5["ms"][k5_key],

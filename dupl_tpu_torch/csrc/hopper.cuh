@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tensor copies, wgmma descriptors and products, register
-// rebalancing, the softmax's exp2 and bf16 packing, and the host-side
+// Hopper (sm_90a) building blocks shared by the attention kernels
+// (attention_fwd.cuh: K1 and L1f; attention_bwd.cuh: K2 and L1b): mbarriers,
+// TMA tensor copies, wgmma descriptors and products, register rebalancing,
+// the softmax's exp2 and bf16 packing, and the host-side launch set-up and
 // encoding of TMA tensor maps.  Raw PTX, as the PTX ISA defines each
 // instruction; no CUTLASS.
 //
@@ -194,10 +195,10 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// D (64 x 128, fp32) {=|+=} A (64 x 16, shared) . B (128 x 16, shared)^T,
-// both K-major.
+// D (64 x 128, fp32) += A (64 x 16, shared) . B (128 x 16, shared)^T, both
+// K-major.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
+                                            uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -226,7 +227,45 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) = A (64 x 16, shared) . B (128 x 16, shared)^T, both
+// K-major: the first k-step, which writes D without reading it.  With D an
+// in-out operand there, the max-free forward's previous tile flowed into the
+// chain and the compiler copied accumulators between its wgmmas, which
+// ptxas answered by serialising every wgmma of the kernel (C7514).
+__device__ __forceinline__ void wgmma_ss_n128_init(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0));
 }
 
 // D (64 x 16, fp32) += A (64 x 16, registers) . B (16 x 16, shared,
@@ -308,6 +347,21 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- host: launch set-up -----------------------------------------------------
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device:
+// `configured` is the caller's static mask, a bit per device.  Concurrent
+// first calls may both set it, which is harmless.
+template <typename Kernel>
+inline void smem_bytes_once(uint32_t& configured, Kernel kernel, int bytes) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (bit != 0u && (configured & bit)) return;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  configured |= bit;
 }
 
 // ---- host: TMA tensor maps ----------------------------------------------------

@@ -1,7 +1,8 @@
 """Where the time goes in the pseudo-label factory, in a training step or
 in the evaluation of one native-resolution batch, on one card.
 
-    python -m dupl_tpu_torch.engine.profile [--path pseudo_label|train|eval]
+    python -m dupl_tpu_torch.engine.profile
+        [--path pseudo_label|train|serve|eval]
         [--batch N] [--crop 448] [--phase full] [--image-size 375 500]
         [--out build/profile]
 
@@ -25,6 +26,13 @@ of one; one traced step (device busy time, idle share, kernels by device
 time); and the step's stages from CUDA events recorded where each stage's
 work has been queued (``Trainer.stage_hook``), so a stage's time includes
 any wait of the device for the host inside it.
+
+``--path serve`` (batch 8) builds the same model behind
+``InferenceSession.from_model`` (scales 1.0 / 1.5 / 1.25 x flip, max merge,
+ensemble, fast CRF: the serving program) and times one dispatch of
+``--batch`` blob images of varied sizes (``serve_images``): the host's
+resize to the crop and back and the device's program.  It prints the same
+wall, host CPU, traced and kernel figures for a dispatch.
 
 ``--path eval`` (batch 8) writes a synthetic VOC-structured tree of
 ``--batch`` JPEGs of ``--image-size`` (height, width; 375 x 500 is VOC's most
@@ -72,6 +80,21 @@ def pseudo_label_inputs(n: int, size: int, seed: int):
     box = np.tile(np.asarray([[0, size, 0, size]], np.int32), (n, 1))
     box[1::2] = [size // 28, size - size // 28, size // 56, size - size // 56]
     return (img * 255).round().astype(np.uint8), cls, box
+
+
+def serve_images(n: int, seed: int):
+    """``n`` uint8 blob images (h, w, 3) of VOC-like sizes, cycling through
+    375 x 500, 500 x 333, 448 x 448 and 333 x 500."""
+    sizes = [(375, 500), (500, 333), (448, 448), (333, 500)]
+    r = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        blocks = r.rand(6, 8, 3)
+        img = np.kron(blocks, np.ones((h // 6 + 1, w // 8 + 1, 1)))[:h, :w]
+        img = np.clip(img + 0.05 * r.rand(h, w, 3), 0, 1)
+        out.append((img * 255).round().astype(np.uint8))
+    return out
 
 
 def device_busy_us(events: Iterable[dict]) -> Tuple[float, float, float]:
@@ -375,13 +398,39 @@ def profile_pseudo_label(args, trace_path: str) -> None:
     report(summary, kernels, trace_path)
 
 
+def profile_serve(args, trace_path: str) -> None:
+    import torch
+
+    from dupl_tpu_torch.config import voc_config
+    from dupl_tpu_torch.engine.serve import InferenceSession
+    from dupl_tpu_torch.models.convert import init_weights
+    from dupl_tpu_torch.models.network import DualStudent
+
+    dev = torch.device("cuda:0")
+    cfg = voc_config()
+    model = DualStudent(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(0))
+    session = InferenceSession.from_model(
+        cfg, model, device=dev, batch_size=args.batch,
+        scales=(1.0, 1.5, 1.25), merge="max", branch="ensemble", crf=True)
+    images = serve_images(args.batch, seed=2)
+    for _ in range(2):
+        session.predict(images)
+    torch.cuda.synchronize()
+    summary, kernels = measure(lambda: session.predict(images), trace_path)
+    summary = {"device": torch.cuda.get_device_name(0), "path": "serve",
+               "batch": args.batch, "crop": cfg.data.crop_size, **summary,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report(summary, kernels, trace_path)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", default="pseudo_label",
-                    choices=("pseudo_label", "train", "eval"))
+                    choices=("pseudo_label", "train", "serve", "eval"))
     ap.add_argument("--batch", type=int, default=None,
                     help="default: 16 for pseudo_label, 4 for train, 8 for "
-                         "eval")
+                         "serve and eval")
     ap.add_argument("--crop", type=int, default=448)
     ap.add_argument("--phase", default="full",
                     choices=("warmup", "seg", "full"),
@@ -392,7 +441,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args(argv)
     if args.batch is None:
-        args.batch = {"pseudo_label": 16, "train": 4, "eval": 8}[args.path]
+        args.batch = {"pseudo_label": 16, "train": 4, "serve": 8,
+                      "eval": 8}[args.path]
 
     import torch
 
@@ -404,7 +454,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     trace_path = os.path.join(args.out, f"{args.path}_trace.json")
     {"pseudo_label": profile_pseudo_label, "train": profile_train,
-     "eval": profile_eval}[args.path](args, trace_path)
+     "serve": profile_serve, "eval": profile_eval}[args.path](args, trace_path)
     return 0
 
 

@@ -92,6 +92,13 @@ def _check_operand(x: torch.Tensor, name: str,
         raise ValueError(f"{kernel} kernel: {name} must be 16-byte aligned")
 
 
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an int for a C entry point,
+    by the raw accessor: a fraction of ``current_stream().cuda_stream``'s
+    host time, which counts on the host-bound training step."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point of ``csrc/exp_attention.cu``, built on first use."""
@@ -126,10 +133,10 @@ def exp_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         _check_operand(x, name)
     out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), b, n, h, d, *q.stride()[:3],
-                          *k.stride()[:3], *v.stride()[:3], stream)
+                          *k.stride()[:3], *v.stride()[:3],
+                          _raw_stream(q.device))
     build.check(status, "exp_attention")
     exp_attention_cuda.launches += 1
     return out
@@ -172,20 +179,26 @@ def exp_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g")):
         _check_operand(x, name)
-    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16,
-                              device=q.device) for _ in range(3))
-    # the two row statistics, 1 / sum(e) and delta, written by the kernel's
-    # first pass and read by its second
-    stats = torch.empty((2, b * h, n), dtype=torch.float32, device=q.device)
+    # one allocation for the three results, one for the scratch: the two
+    # row statistics, 1 / sum(e) and delta, of every query row, padded to a
+    # multiple of 64 rows (0 past N), written by the first kernel and
+    # copied tile by tile by the second
+    grads = torch.empty((3, b, n, h, d), dtype=torch.bfloat16,
+                        device=q.device)
+    npad = -(-n // 64) * 64
+    stats = torch.empty((2, b * h, npad), dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *g.stride()[:3])
+    step, part = b * n * h * d * 2, b * h * npad * 4   # bytes
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        base, sbase = grads.data_ptr(), stats.data_ptr()
         status = _bwd_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), stats[0].data_ptr(),
-                              stats[1].data_ptr(), b, n, h, d, strides, stream)
+                              g.data_ptr(), base, base + step,
+                              base + 2 * step, sbase, sbase + part, b, n, h,
+                              d, strides, _raw_stream(q.device))
     build.check(status, "exp_attention_bwd")
+    dq, dk, dv = grads.unbind(0)
     exp_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
@@ -344,10 +357,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         status = _flash_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), lse.data_ptr(), b, n, h, d,
-                                float(scale), strides, stream)
+                                float(scale), strides, _raw_stream(q.device))
     build.check(status, "flash_attention")
     flash_attention_cuda.launches += 1
     return out, lse
@@ -399,12 +411,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                     *v.stride()[:3], *out.stride()[:3],
                                     *g.stride()[:3])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         status = _flash_bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch.data_ptr(), b, n, h, d, float(scale),
-            strides, stream)
+            strides, _raw_stream(q.device))
     build.check(status, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv

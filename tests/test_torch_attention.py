@@ -91,3 +91,49 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tattn.exp_attention_cuda(q, k, v)
     assert tattn.exp_attention_cuda.launches == 0
+
+
+def _row_ulps(got, want):
+    """(max, mean) of |got - want| in bf16 ulps of each row's scale."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want) / _bf16_ulp(np.abs(want).max(axis=-1,
+                                                          keepdims=True))
+    return float(err.max()), float(err.mean())
+
+
+def _exp_attention_in_tiles(q, k, v, tile=64):
+    """The twin's function with its key sums taken tile by tile (the
+    numerator's product and the denominator, 64 keys at a time), as a kernel
+    that streams K and V sums them: another order of the same fp32 sums."""
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    num = den = 0.0
+    for k0 in range(0, qf.shape[-2], tile):
+        e = torch.exp(torch.clamp(qf @ kf[..., k0:k0 + tile, :].transpose(
+            -1, -2), max=60.0))
+        num = num + e.to(torch.bfloat16).float() @ vf[..., k0:k0 + tile, :]
+        den = den + e.sum(-1, keepdim=True)
+    return (num / den).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["tiles_64", "running_max", "p_fp32",
+                                  "denom_bf16"])
+@pytest.mark.parametrize("n", [197, 785])
+def test_k1_bounds_tell_wrong_twins(kind, n):
+    """The bounds K1 is held to on the card (1 bf16 ulp of the row at the
+    maximum, 1e-3 ulp on average) against the twin: the same function
+    summed in another order (64-key tiles) lies inside them, and each wrong
+    twin of chip_smoke.py's ``exp_attn_wrong`` (the flash kernel's running
+    maximum, e left in fp32 for the value product, the denominator summed
+    from bf16(e)) lies outside."""
+    from chip_smoke import exp_attn_wrong
+
+    rs = np.random.RandomState(n)
+    q, k, v = (torch.from_numpy(rs.standard_normal((4, n, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    q = (q.float() * 0.125).to(torch.bfloat16)
+    want = tattn.exp_attention_ref(q, k, v).to(torch.bfloat16)
+    got = (_exp_attention_in_tiles(q, k, v) if kind == "tiles_64"
+           else exp_attn_wrong(q, k, v, kind))
+    worst, mean = _row_ulps(got.float(), want.float())
+    inside = worst <= 1.0 and mean <= 1e-3
+    assert inside == (kind == "tiles_64"), (kind, worst, mean)

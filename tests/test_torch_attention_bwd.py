@@ -149,3 +149,67 @@ def test_dot_attention_on_cpu_stays_exact_softmax():
                                                            scale=0.125))
     out.sum().backward()
     assert torch.isfinite(x.grad).all()
+
+
+def _ulps(got, want):
+    """(max, mean) of |got - want| in bf16 ulps of each row's scale."""
+    want = want.float()
+    scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    err = (got.float() - want).abs() / torch.exp2(torch.floor(torch.log2(
+        scale)) - 7)
+    return err.max().item(), err.mean().item()
+
+
+def _bwd_in_tiles(q, k, v, g, tile=64):
+    """The twin's function with its sums taken tile by tile, as the kernel
+    takes them: the row statistics sum_j e and sum_j e*t over 64-key tiles
+    (delta = sum e*t / sum e), dq over key tiles, dk and dv over query
+    tiles."""
+    qf, kf, vf, gf = (x.to(torch.bfloat16).float() for x in (q, k, v, g))
+    n = qf.shape[-2]
+    s = qf @ kf.transpose(-1, -2)
+    t = gf @ vf.transpose(-1, -2)
+    e = torch.exp(s.clamp(max=60.0))
+    l = u = 0.0
+    for k0 in range(0, n, tile):
+        l = l + e[..., k0:k0 + tile].sum(-1, keepdim=True)
+        u = u + (e * t)[..., k0:k0 + tile].sum(-1, keepdim=True)
+    inv = 1.0 / l
+    p = e * inv
+    ds = torch.where(s < 60.0, p * (t - u * inv), torch.zeros_like(p))
+    ds = ds.to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    dq = dk = dv = 0.0
+    for a in range(0, n, tile):
+        dq = dq + ds[..., a:a + tile] @ kf[..., a:a + tile, :]
+        dk = dk + ds[..., a:a + tile, :].transpose(-1, -2) @ qf[..., a:a + tile, :]
+        dv = dv + pb[..., a:a + tile, :].transpose(-1, -2) @ gf[..., a:a + tile, :]
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("kind,n,q_mult", [
+    ("tiles_64", 197, 1.0), ("tiles_64", 785, 1.0), ("tiles_64", 197, 24.0),
+    ("no_delta", 197, 1.0), ("no_delta", 785, 1.0), ("ds_fp32", 197, 1.0),
+    ("ds_fp32", 785, 1.0), ("no_clamp_mask", 197, 24.0)])
+def test_k2_bounds_tell_wrong_twins(kind, n, q_mult):
+    """The bounds K2 is held to on the card (2 bf16 ulps of the row at the
+    maximum, 64 with scores past the clamp, 0.01 on average) against the
+    twin: the same function summed in 64-row tiles with the kernel's delta
+    (sum e*t / sum e) lies inside them, and each wrong twin of
+    chip_smoke.py's ``exp_attn_bwd_wrong`` (no delta, ds left in fp32, no
+    clamp mask) lies outside."""
+    from chip_smoke import exp_attn_bwd_wrong
+
+    q, k, v, g = _operands(n, 64, bh=4, seed=n, q_mult=q_mult)
+    if q_mult > 1:
+        s = q.float() @ k.float().transpose(-1, -2)
+        assert (s >= 60).float().mean().item() > 0.001
+    want = attention.exp_attention_bwd_ref(q, k, v, g)
+    got = (_bwd_in_tiles(q, k, v, g) if kind == "tiles_64"
+           else exp_attn_bwd_wrong(q, k, v, g, kind))
+    worst = mean = 0.0
+    for x, w in zip(got, want):
+        a, b = _ulps(x, w)
+        worst, mean = max(worst, a), max(mean, b)
+    inside = worst <= (2.0 if q_mult == 1.0 else 64.0) and mean <= 0.01
+    assert inside == (kind == "tiles_64"), (kind, worst, mean)
