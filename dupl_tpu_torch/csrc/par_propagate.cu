@@ -19,27 +19,42 @@
 //         bf16, every product and partial sum inside a group of 8 taps is
 //         rounded to bf16, and the group sums are added in fp32.
 //
-// Design.  A block takes a 16 x 32 pixel tile of one image (one thread per
-// pixel) and loops over all channels, two at a time.  Each thread holds its
-// pixel's K affinities in registers for the whole launch, so the affinity is
-// read once per round.  For each group of channels the block stages the tile
-// plus a halo of max(dilation) on every side (clamped coordinates) in shared
-// memory: warps over rows and lanes over columns so the loads coalesce, each
-// warp loading eight rows into registers before it stores any.  Each thread
-// then reads its K taps of both channels from shared memory at offsets
-// the host precomputes (consecutive threads hit consecutive words: no bank
-// conflicts), as two interleaved FMA chains, and stores two coalesced
-// output rows.  A first version kept one load in flight per thread and
-// summed one channel at a time: 1.75 ms a round at the slice's size.
-// Staging four channels a fill measured no faster.
+// Design.  A block takes a 32 x 24 pixel tile of one image: a warp two
+// neighbouring rows, a lane one column, so each thread sums two pixels and
+// holds their 2K affinities in registers for the whole launch (the
+// affinity is read once per round).  The registers bound the tile: at 48
+// taps a 32-row tile spills (ptxas -v), and the whole register file would
+// not hold 2,048 pixels' affinities.  The block loops over the channels two
+// at a time.  Each pair is staged with its halo of max(dilation) on every
+// side, a plane a channel: 72 x 80 positions for 768 pixels at the
+// dilations (1, 2, 4, 8, 12, 24), 7.5 staged loads a pixel-channel from L2
+// where the 16 x 32 tile of the first version took 10.  The fill is
+// asynchronous: cp.async copies chunks of 4 columns, 16 bytes at a time
+// where a chunk lies inside the image and W and the halo are multiples of
+// 4, else 4 bytes at a time from clamped source addresses (so replicate
+// padding stays exact at every edge, for any H and W), into the second of
+// two shared-memory stages while the block sums the first (the first
+// pair's copies fly while the affinities load); one barrier a pair hands
+// the stages over.  Where one block a
+// tile would leave the SMs' last wave mostly idle (a training step's batch
+// of 4), the channel pairs split into groups, a block a group.  Each
+// thread then reads its K taps of both channels and pixels, at offsets the
+// host precomputes (a warp reads 32 consecutive floats: no bank
+// conflicts), as four independent FMA chains, and stores four coalesced
+// output rows.  In bf16 mode each thread first pairs the two channels of
+// the positions it copied as bf16 in place, and the sums run on bf16x2
+// multiplies and adds, both channels of a pixel in one register.  On the
+// card the time grew as the tile shrank (more halo a pixel) and fell when
+// 16-byte copies replaced 4-byte ones: the staging weighs as much as the
+// tap reads.
 //
-// Bound.  Per round and pixel-channel: K shared-memory reads and K FMAs,
-// 4 bytes out, and (16+2p)(32+2p)/512 staged loads from L2 (10 at p = 24);
-// per pixel 4K bytes of affinity.  At the slice's 16 x 40 x 224^2 that is
-// about 1.5 G FMAs, 128 MB written, 154 MB of affinity and 1.28 GB of
-// staged halo read per round.  Measured at that size, the fill takes about
-// 60% of the time and the sums 40%, one after the other: the halo's 10x
-// amplification through L2, not device memory, bounds this design.
+// Bound.  Per round and pixel-channel: K shared-memory reads of 4 bytes and
+// K FMAs, 4 bytes out, 7.5 staged loads; per pixel 4K bytes of affinity.
+// At the pseudo-label slice's 16 x 40 x 224^2 that is 1.54e9 FMAs (0.05 ms
+// on the fp32 pipes), 282 MB of device memory (0.08 ms), 1.0 GB staged
+// from L2, and 6.2 GB of tap reads from shared memory: ~0.2 ms a round at
+// 128 bytes a clock an SM, the floor of this design.  The fill now runs
+// beside the sums instead of before them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,168 +62,297 @@
 
 namespace {
 
-constexpr int kTileH = 16;
-constexpr int kTileW = 32;
-constexpr int kThreads = kTileH * kTileW;
-constexpr int kChannels = 2;   // channels staged per shared-memory fill
-constexpr int kGroup = 8;      // bf16 mode: taps per bf16 partial sum
+constexpr int kTileW = 32;             // tile columns: a warp's lanes
+constexpr int kStages = 2;              // shared-memory stages of a channel pair
+constexpr int kGroup = 8;               // bf16 mode: taps per bf16 partial sum
 constexpr int kMaxDilations = 6;
 constexpr int kMaxTaps = 8 * kMaxDilations;
-constexpr int kMaxDilation = 40;  // bounds the staging registers below
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsInFlight = 8;   // staged rows a warp loads before storing
-// 32-column strides of a staged row, at the largest halo
-constexpr int kColGroups = (kTileW + 2 * kMaxDilation + 31) / 32;
+constexpr int kMaxDilation = 40;        // two stages fit 227 KB up to here
+// 4-column chunks of a staged row: one lane each, at the largest halo
+constexpr int kMaxChunks = (kTileW + 2 * kMaxDilation + 3) / 4;
+static_assert(kMaxChunks <= 32, "a staged row's chunks exceed a warp");
 constexpr int kOffsets[8][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1},
                                 {0, 1},   {1, -1}, {1, 0},  {1, 1}};
 
 struct Taps {
-  int off[kMaxTaps];   // dy * (tile width + 2 pad) + dx, in the staged tile
+  int off[kMaxTaps];   // (dy * staged row stride + dx) * 4 bytes, in a plane
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
 }
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ float lds32f(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
 }
 
-// T: the type of the staged mask and of the affinity (float or bf16).
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// bf16x2 arithmetic with one rounding to nearest a lane (no contraction
+// into an fma): the exact product or sum rounded once, which is what the
+// twin's fp32 product or sum rounded to bf16 gives on bf16 operands.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// Tile rows, two a warp: as many as the block's registers allow without
+// spills at K = 48 (ptxas -v on sm_90a: 32 rows spill).
+constexpr int kTileH = 24;
+constexpr int kWarps = kTileH / 2;
+constexpr int kThreads = 32 * kWarps;
+
+// A staged row's stride in floats: the tile's width and halo, rounded up
+// to whole 16-byte chunks.
+__host__ __device__ constexpr int row_stride(int pad) {
+  return (kTileW + 2 * pad + 3) / 4 * 4;
+}
+
+// A stage: the two channels' planes of (rows + halo) x row_stride floats.
+__host__ __device__ constexpr size_t stage_bytes(int pad) {
+  return 2 * sizeof(float) * (kTileH + 2 * pad) * row_stride(pad);
+}
+
+// T: the type of the affinity (float or bf16; bf16 also rounds the staged
+// mask).  Grid: (column tiles, row tiles, images x groups of channel
+// pairs); a block sums its group's pairs.
 template <int K, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
                      float* __restrict__ dst, int channels, int h, int w,
-                     int pad, Taps taps) {
+                     int pad, int group_pairs, Taps taps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);
+  float* stages = reinterpret_cast<float*>(smem_raw);
   const int tw = kTileW + 2 * pad;
   const int th = kTileH + 2 * pad;
-  const int plane = th * tw;
+  const int ts = row_stride(pad);
+  const int plane = th * ts;       // floats of one channel's plane
+  const int nq = (tw + 3) / 4;     // 4-column chunks of a staged row
 
-  const int b = blockIdx.z;
+  const int groups = ((channels + 1) / 2 + group_pairs - 1) / group_pairs;
+  const int b = blockIdx.z / groups;
+  const int p_begin = (blockIdx.z - b * groups) * group_pairs;
+  const int p_end = min((channels + 1) / 2, p_begin + group_pairs);
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
-  const int ty = threadIdx.x / kTileW;
-  const int tx = threadIdx.x - ty * kTileW;
-  const int y = y0 + ty;
-  const int x = x0 + tx;
-  const bool inside = y < h && x < w;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int x = x0 + lane;
+  const int y = y0 + 2 * warp;          // this thread's pixels: (y, x), (y+1, x)
+  const bool in0 = x < w && y < h;
+  const bool in1 = x < w && y + 1 < h;
   const int64_t hw = static_cast<int64_t>(h) * w;
   const int64_t pix = static_cast<int64_t>(y) * w + x;
 
-  float a[K];
+  const float* planes = src + static_cast<int64_t>(b) * channels * hw;
+  // A chunk of 4 source columns inside the image is one 16-byte copy when
+  // rows and chunks start on 16 bytes (W and the halo multiples of 4);
+  // otherwise, and where a chunk crosses an edge, 4 copies of 4 bytes from
+  // clamped columns.
+  const bool rows16 = w % 4 == 0 && pad % 4 == 0;
+  const int gx0 = x0 - pad + 4 * lane;  // this lane's chunk: its first column
+  const bool chunk16 = rows16 && gx0 >= 0 && gx0 + 3 < w && 4 * lane + 3 < tw;
+
+  // Stage channels 2p and 2p+1 (the last channel twice when C is odd) with
+  // their clamped halo: warps over rows, lanes over 4-column chunks, one
+  // lane copying the same chunk of both channels (so that in bf16 mode it
+  // can pair them once they have landed).  One commit group a call, empty
+  // past the last pair, so the groups count pairs.
+  auto fill = [&](int p) {
+    if (p < p_end && lane < nq) {
+      const float* p0 = planes + 2 * p * hw;
+      const float* p1 = planes + min(2 * p + 1, channels - 1) * hw;
+      float* st = stages + (p % kStages) * 2 * plane + 4 * lane;
+      for (int r = warp; r < th; r += kWarps) {
+        const int64_t gy =
+            min(max(y0 - pad + r, 0), h - 1) * static_cast<int64_t>(w);
+        float* c0 = st + r * ts;
+        if (chunk16) {
+          cp_async16(c0, p0 + gy + gx0);
+          cp_async16(c0 + plane, p1 + gy + gx0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * lane + e < tw) {
+              const int gx = min(max(gx0 + e, 0), w - 1);
+              cp_async4(c0 + e, p0 + gy + gx);
+              cp_async4(c0 + plane + e, p1 + gy + gx);
+            }
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // The first pair's copies fly while the affinities load.
+  fill(p_begin);
+  // The two pixels' affinities: fp32 in two arrays, bf16 as one pair a tap
+  // (pixel 0 in the low half).
+  float a0[K], a1[K];
+  uint32_t ap[K];
   const T* ab = aff + static_cast<int64_t>(b) * K * hw + pix;
 #pragma unroll
-  for (int k = 0; k < K; ++k) a[k] = inside ? to_float(ab[k * hw]) : 0.f;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int centre = (ty + pad) * tw + tx + pad;
-
-  for (int c0 = 0; c0 < channels; c0 += kChannels) {
-    const int nc = min(kChannels, channels - c0);
-    const int rows = nc * th;
-    __syncthreads();  // the previous pair is consumed
-    // Each warp loads kRowsInFlight rows x kColGroups lanes' worth into
-    // registers before it stores any, so a thread keeps up to 32 loads in
-    // flight instead of one (the fill is latency-bound otherwise).
-    for (int r0 = warp; r0 < rows; r0 += kWarps * kRowsInFlight) {
-      float v[kRowsInFlight][kColGroups];
-#pragma unroll
-      for (int i = 0; i < kRowsInFlight; ++i) {
-        const int r = r0 + i * kWarps;
-        if (r >= rows) continue;
-        const int cc = r / th;
-        const int gy = min(max(y0 - pad + r - cc * th, 0), h - 1);
-        const float* row =
-            src + ((static_cast<int64_t>(b) * channels + c0 + cc) * h + gy) * w;
-#pragma unroll
-        for (int q = 0; q < kColGroups; ++q) {
-          const int col = lane + 32 * q;
-          if (col < tw) v[i][q] = row[min(max(x0 - pad + col, 0), w - 1)];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsInFlight; ++i) {
-        const int r = r0 + i * kWarps;
-        if (r >= rows) continue;
-        const int cc = r / th;
-        T* srow = tile + cc * plane + (r - cc * th) * tw;
-#pragma unroll
-        for (int q = 0; q < kColGroups; ++q) {
-          const int col = lane + 32 * q;
-          if (col < tw) srow[col] = from_float<T>(v[i][q]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // The kChannels sums are independent chains, interleaved tap by tap so
-    // the FMA and shared-load latencies overlap.  Channels past nc read
-    // stale tile rows and are not stored.
-    const T* s = tile + centre;
-    float out[kChannels];
+  for (int k = 0; k < K; ++k) {
     if constexpr (sizeof(T) == 4) {
-#pragma unroll
-      for (int cc = 0; cc < kChannels; ++cc) out[cc] = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-#pragma unroll
-        for (int cc = 0; cc < kChannels; ++cc)
-          out[cc] = fmaf(to_float(s[cc * plane + taps.off[k]]), a[k], out[cc]);
+      a0[k] = in0 ? ab[k * hw] : 0.f;
+      a1[k] = in1 ? ab[k * hw + w] : 0.f;
     } else {
-#pragma unroll
-      for (int g = 0; g < K; g += kGroup) {
-        float acc[kChannels];
-#pragma unroll
-        for (int k = g; k < g + kGroup; ++k)
-#pragma unroll
-          for (int cc = 0; cc < kChannels; ++cc) {
-            // bf16 x bf16 is exact in fp32: one rounding, as a bf16 multiply
-            const float term =
-                bf16_round(to_float(s[cc * plane + taps.off[k]]) * a[k]);
-            acc[cc] = k == g ? term : bf16_round(acc[cc] + term);
-          }
-#pragma unroll
-        for (int cc = 0; cc < kChannels; ++cc)
-          out[cc] = g == 0 ? acc[cc] : out[cc] + acc[cc];
-      }
-    }
-    if (inside) {
-      float* d = dst + (static_cast<int64_t>(b) * channels + c0) * hw + pix;
-#pragma unroll
-      for (int cc = 0; cc < kChannels; ++cc)
-        if (cc < nc) d[cc * hw] = out[cc];
+      const T zero = __float2bfloat16_rn(0.f);
+      const __nv_bfloat162 v = __halves2bfloat162(in0 ? ab[k * hw] : zero,
+                                                  in1 ? ab[k * hw + w] : zero);
+      ap[k] = *reinterpret_cast<const uint32_t*>(&v);
     }
   }
+
+  for (int p = p_begin; p < p_end; ++p) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // pair p landed
+    float* st = stages + (p % kStages) * 2 * plane;
+    if constexpr (sizeof(T) == 2) {
+      // bf16 mode: the positions this thread copied hold the bf16 pair of
+      // their two channels in the first plane, in place
+      if (lane < nq) {
+        for (int r = warp; r < th; r += kWarps) {
+          float* c0 = st + r * ts + 4 * lane;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * lane + e < tw)
+              *reinterpret_cast<uint32_t*>(c0 + e) =
+                  pack_bf16x2(c0[e], c0[plane + e]);
+        }
+      }
+    }
+    // Pair p is visible to every thread, and every thread is done with
+    // pair p - 1, whose stage the next fill overwrites.
+    __syncthreads();
+    fill(p + 1);
+
+    // this thread's pixels in the first plane; the second plane is
+    // `plane` floats on
+    const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(
+        st + (2 * warp + pad) * ts + lane + pad));
+    const uint32_t s1 = s0 + ts * static_cast<int>(sizeof(float));
+    const uint32_t pb = plane * static_cast<int>(sizeof(float));
+    float o[4];   // (pixel 0, channel 0), (0, 1), (1, 0), (1, 1)
+    if constexpr (sizeof(T) == 4) {
+      o[0] = o[1] = o[2] = o[3] = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint32_t t0 = s0 + taps.off[k], t1 = s1 + taps.off[k];
+        o[0] = fmaf(lds32f(t0), a0[k], o[0]);
+        o[1] = fmaf(lds32f(t0 + pb), a0[k], o[1]);
+        o[2] = fmaf(lds32f(t1), a1[k], o[2]);
+        o[3] = fmaf(lds32f(t1 + pb), a1[k], o[3]);
+      }
+    } else {
+      // Both channels of a pixel in one bf16x2 register: products and the
+      // partial sums of a group of 8 taps in bf16, group sums in fp32.
+#pragma unroll
+      for (int g = 0; g < K; g += kGroup) {
+        uint32_t acc0 = 0, acc1 = 0;
+#pragma unroll
+        for (int k = g; k < g + kGroup; ++k) {
+          const uint32_t a_lo = __byte_perm(ap[k], 0, 0x1010);  // (a0, a0)
+          const uint32_t a_hi = __byte_perm(ap[k], 0, 0x3232);  // (a1, a1)
+          const uint32_t t0 = mul_bf16x2(lds32(s0 + taps.off[k]), a_lo);
+          const uint32_t t1 = mul_bf16x2(lds32(s1 + taps.off[k]), a_hi);
+          acc0 = k == g ? t0 : add_bf16x2(acc0, t0);
+          acc1 = k == g ? t1 : add_bf16x2(acc1, t1);
+        }
+        const float2 f0 = unpack_bf16x2(acc0), f1 = unpack_bf16x2(acc1);
+        o[0] = g == 0 ? f0.x : o[0] + f0.x;
+        o[1] = g == 0 ? f0.y : o[1] + f0.y;
+        o[2] = g == 0 ? f1.x : o[2] + f1.x;
+        o[3] = g == 0 ? f1.y : o[3] + f1.y;
+      }
+    }
+    float* d = dst + (static_cast<int64_t>(b) * channels + 2 * p) * hw + pix;
+    const bool second = 2 * p + 1 < channels;
+    if (in0) {
+      d[0] = o[0];
+      if (second) d[hw] = o[1];
+    }
+    if (in1) {
+      d[w] = o[2];
+      if (second) d[hw + w] = o[3];
+    }
+  }
+}
+
+// Channel pairs a block: all of them, unless splitting them into groups
+// (more blocks, each loading its tile's affinities again) fills the SMs'
+// last wave better, as at a training step's batch of 4: 280 blocks of 20
+// pairs are 2.1 waves on 132 SMs, 560 of 10 are 4.2 half-waves.  Cost in
+// pair-times: waves x (pairs a block + 1.5 for a block's set-up).
+int pairs_per_block(int blocks, int pairs) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  int best = pairs;
+  double best_cost = 1e30;
+  for (int groups = 1; groups <= 4 && groups <= pairs; ++groups) {
+    const int per = (pairs + groups - 1) / groups;
+    const int used = (pairs + per - 1) / per;
+    const int64_t waves = (static_cast<int64_t>(blocks) * used + sms - 1) / sms;
+    const double cost = waves * (per + 1.5);
+    if (cost < best_cost) best_cost = cost, best = per;
+  }
+  return best;
 }
 
 template <int K, typename T>
 int launch(const float* src, const void* aff, float* dst, int batch,
            int channels, int h, int w, int pad, const Taps& taps,
            cudaStream_t stream) {
-  const size_t smem = sizeof(T) * kChannels * (kTileH + 2 * pad) *
-                      (kTileW + 2 * pad);
+  const size_t smem = kStages * stage_bytes(pad);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        par_propagate_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        par_propagate_kernel<K, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, batch);
+  const int tiles = ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
+  const int pairs = (channels + 1) / 2;
+  const int per = pairs_per_block(tiles * batch, pairs);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH,
+                  batch * ((pairs + per - 1) / per));
   par_propagate_kernel<K, T><<<grid, kThreads, smem, stream>>>(
-      src, static_cast<const T*>(aff), dst, channels, h, w, pad, taps);
+      src, static_cast<const T*>(aff), dst, channels, h, w, pad, per, taps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,11 +388,13 @@ extern "C" int dupl_par_propagate(const void* src, const void* aff, void* dst,
       return static_cast<int>(cudaErrorInvalidValue);
     pad = dil[i] > pad ? dil[i] : pad;
   }
-  const int tw = kTileW + 2 * pad;
+  const int ts = row_stride(pad);
   Taps taps;
   for (int i = 0; i < nd; ++i)
     for (int o = 0; o < 8; ++o)
-      taps.off[8 * i + o] = kOffsets[o][0] * dil[i] * tw + kOffsets[o][1] * dil[i];
+      taps.off[8 * i + o] = (kOffsets[o][0] * dil[i] * ts +
+                             kOffsets[o][1] * dil[i]) *
+                            static_cast<int>(sizeof(float));
   const float* s = static_cast<const float*>(src);
   float* d = static_cast<float*>(dst);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

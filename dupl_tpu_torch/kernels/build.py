@@ -7,8 +7,9 @@ use with
          -Xcompiler -fPIC -Xptxas=-v \
          -o build/dupl_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
-into ``build/dupl_tpu_torch/`` at the checkout root, keyed by a hash of the
-sources and flags, and loaded with ``ctypes`` (seconds to build, where a
+into ``build/dupl_tpu_torch/`` at the checkout root (nvcc's output beside it
+as ``<name>-<hash>.log``), keyed by a hash of the sources and flags, and
+loaded with ``ctypes`` (seconds to build, where a
 PyTorch C++ extension takes minutes).  A failed build raises; nothing falls
 back to the plain PyTorch versions.  So does a build in which ptxas reports
 that it serialised a kernel's ``wgmma.mma_async`` products (its "Potential
@@ -22,13 +23,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dupl_tpu_torch"
@@ -81,8 +83,30 @@ def build(name: str, verbose: bool = False) -> Path:
                                         if WGMMA_SERIALIZED in line))
     if verbose:
         print(log, end="", flush=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
+
+
+def ptxas_usage(name: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function of ``csrc/<name>.cu``, from ptxas's ``-v`` lines in the
+    log its build kept beside the library; builds it first if need be."""
+    log = build(name).with_suffix(".log").read_text()
+    rows, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

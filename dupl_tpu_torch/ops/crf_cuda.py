@@ -47,7 +47,8 @@ def _entry():
 def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                       logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Launch kernel K5 on the current stream; one launch covers the batch
-    and every value column (any V, in groups of 32 inside the launch)."""
+    and every value column (any V; up to 96 from one score and exp per
+    pixel and pivot)."""
     from dupl_tpu_torch.kernels import build
 
     dev = basis.device
@@ -71,11 +72,16 @@ def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                          f"{tuple(logc.shape)} {tuple(vals.shape)}")
     if nv < 1:
         raise ValueError(f"crf kernel_apply: V must be at least 1, got {nv}")
+    # the values rounded to bf16 once, zero-padded to a multiple of 8
+    # columns: the kernel copies them 16 bytes at a time
+    vb = vals.to(torch.bfloat16)
+    if nv % 8:
+        vb = torch.nn.functional.pad(vb, (0, 8 - nv % 8))
     out = torch.empty((b, n, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = _entry()(basis.data_ptr(), coef.data_ptr(), logc.data_ptr(),
-                          vals.data_ptr(), out.data_ptr(), b, n, ns, nv,
+                          vb.data_ptr(), out.data_ptr(), b, n, ns, nv,
                           stream)
     build.check(status, "crf_apply")
     kernel_apply_cuda.launches += 1

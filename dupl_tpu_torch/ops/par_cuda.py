@@ -25,7 +25,7 @@ from dupl_tpu_torch.ops.image import shift_clamped
 from dupl_tpu_torch.ops.par import position_affinity, tap_offsets
 
 _MAX_DILATIONS = 6     # taps held in registers: 8 per dilation
-_MAX_DILATION = 40     # K4 stages haloed tiles through registers
+_MAX_DILATION = 40     # K4's two haloed stages fit shared memory up to here
 _GROUP = 8             # bf16 mode: taps summed in bf16 before the fp32 sum
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

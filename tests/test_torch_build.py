@@ -51,6 +51,32 @@ def test_serialised_wgmma_fails_the_build(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").iterdir())
 
 
+def test_ptxas_usage_reads_the_kept_log(monkeypatch, tmp_path):
+    """A build keeps nvcc's output beside the library, and ptxas_usage
+    reads each entry function's registers and spills from its -v lines."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("""#!/bin/sh
+while [ $# -gt 0 ]; do [ "$1" = -o ] && out="$2"; shift; done
+cat >&2 <<'LOG'
+ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'
+ptxas info    : Function properties for _Zk1
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'
+ptxas info    : Function properties for _Zk2
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+LOG
+: > "$out"
+""")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    assert build.ptxas_usage("par_propagate") == [("_Zk1", 168, 0, 0),
+                                                  ("_Zk2", 128, 8, 4)]
+    assert len(list((tmp_path / "build").glob("par_propagate-*.log"))) == 1
+
+
 def test_library_name_follows_the_sources():
     """The cache key covers every source, header and flag."""
     src = build.CSRC / "exp_attention.cu"

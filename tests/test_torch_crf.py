@@ -1,6 +1,8 @@
 """Port parity: dupl_tpu_torch.ops.crf / crf_cuda against dupl_tpu.ops.crf /
 crf_pallas on the same numpy inputs (CPU, float32)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +20,8 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("v", [22, 82])
 def test_kernel_apply_twin_matches_pallas(v):
     """K5's twin against the reference Pallas kernel (interpret mode), at
-    unaligned sizes, at VOC's V 22 and COCO's fast-mode V 82 (past one
-    32-column group of the CUDA kernel).  Tolerance 2e-3 of the output's
+    unaligned sizes, at VOC's V 22 and COCO's fast-mode V 82 (81 classes
+    and the cell count).  Tolerance 2e-3 of the output's
     scale: both round the same fp32 kernel entries to bf16, and fp32
     summation order may flip the rounding of an entry (2^-8 of it)."""
     rs = np.random.RandomState(0)
@@ -44,6 +46,62 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         crf_cuda.kernel_apply_cuda(z, torch.zeros(1, 11, 8), torch.zeros(1, 8),
                                    torch.zeros(1, 8, 3))
     assert crf_cuda.kernel_apply_cuda.launches == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_phase4_inputs(v):
+    """Phase 4's K5 operands scaled to 224^2: the pivot lattice of a smooth
+    image and its vertical flip (N 50,176, Ns 784), values in [0, 2) with a
+    cell-count column of 64, and the twin's output on them."""
+    rs = np.random.RandomState(v)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 224), np.linspace(0, 1, 224),
+                         indexing="ij")
+    img = np.stack([np.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)
+    img = np.stack([img, img[::-1]])
+    img = np.clip(img + 0.03 * rs.standard_normal(img.shape), 0, 1)
+    basis, coef, logc, _, _ = tcrf.pivot_lattice(
+        torch.tensor(img, dtype=torch.float32), 8, 121.0, 5.0)
+    vals = torch.tensor(rs.rand(2, coef.shape[2], v) * 2.0,
+                        dtype=torch.float32)
+    vals[..., -1] = 64.0
+    return basis, coef, logc, vals, crf_cuda.kernel_apply_ref(
+        basis, coef, logc, vals)
+
+
+def _kernel_apply_reversed(basis, coef, logc, vals, block_rows=25088):
+    """K5's function with the 11-wide score summed from its last term to its
+    first (another order of the same fp32 sums, as a kernel may take)."""
+    vb = vals.to(torch.bfloat16).float()
+    out = []
+    for lo in range(0, basis.shape[1], block_rows):
+        f = basis[:, lo:lo + block_rows]
+        s = f[..., 10:11] * coef[:, 10:11, :]
+        for d in range(9, -1, -1):
+            s = s + f[..., d:d + 1] * coef[:, d:d + 1, :]
+        k = torch.exp(torch.minimum(s, logc[:, None, :]))
+        out.append(k.to(torch.bfloat16).float() @ vb)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("kind", ["reversed", "k_fp32", "vals_fp32",
+                                  "exp_bf16"])
+@pytest.mark.parametrize("v", [22, 82])
+def test_k5_bounds_tell_wrong_twins(kind, v):
+    """The bounds K5 is held to on the card (per column: the largest error
+    2e-3 of its scale, the mean error 2e-5) at phase 4's inputs scaled to
+    224^2: the function with the score summed in reverse order lies inside
+    them, and each wrong twin of chip_smoke.py's ``crf_apply_wrong`` (kernel
+    entries in fp32, values in fp32, the exp of the bf16-rounded score) lies
+    outside."""
+    from chip_smoke import K5_MAX, K5_MEAN, crf_apply_err, crf_apply_wrong
+
+    basis, coef, logc, vals, want = _k5_phase4_inputs(v)
+    assert basis.shape == (2, 50176, 11) and coef.shape == (2, 11, 784)
+    got = (_kernel_apply_reversed(basis, coef, logc, vals) if kind == "reversed"
+           else crf_apply_wrong(basis, coef, logc, vals, kind))
+    worst, mean = crf_apply_err(got, want)
+    inside = worst <= K5_MAX and mean <= K5_MEAN
+    assert inside == (kind == "reversed"), (kind, worst, mean)
 
 
 def _scene(rs, b, h, w, c):

@@ -313,10 +313,22 @@ def test_exp_attention_bwd_rejects_bad_operands(dev):
         attention.exp_attention_bwd_cuda(x, x.cpu(), x, x)
 
 
-@pytest.mark.parametrize("nv", [1, 5, 21, 22, 32, 33, 64, 81, 82, 130])
+def _k5_inside(got, want):
+    """K5's bounds (chip_smoke.py): per column, the largest error 2e-3 of
+    the column's scale and the mean error 2e-5 of it."""
+    from chip_smoke import K5_MAX, K5_MEAN, crf_apply_err
+
+    worst, mean = crf_apply_err(got, want)
+    return worst <= K5_MAX and mean <= K5_MEAN, (worst, mean)
+
+
+@pytest.mark.parametrize("nv", [1, 5, 8, 9, 21, 22, 24, 25, 32, 33, 64, 81,
+                                82, 88, 89, 130])
 def test_crf_apply_widths(dev, nv):
     """K5 against the twin at ragged pixel and pivot counts, B = 3, at every
-    width: one 32-column group and up to five (COCO hands it V 81 and 82)."""
+    width: the edges of its 8-column n-tiles (V 8/9, 24/25, 88/89), VOC's
+    21 and 22, COCO's 81 and 82, and past them; within K5's maximum and
+    mean bounds."""
     rs = np.random.RandomState(nv)
     b, n, ns = 3, 1000, 300
     basis = torch.tensor(rs.standard_normal((b, n, 11)) * 2.0,
@@ -329,13 +341,43 @@ def test_crf_apply_widths(dev, nv):
                         device=dev)
     got = crf_cuda.kernel_apply(basis, coef, logc, vals)
     want = crf_cuda.kernel_apply_ref(basis, coef, logc, vals)
-    scale = want.abs().amax(dim=(0, 1))
-    assert ((got - want).abs().amax(dim=(0, 1)) <= 2e-3 * scale).all()
+    inside, errs = _k5_inside(got, want)
+    assert inside, errs
+
+
+@pytest.mark.parametrize("kind", ["k_fp32", "vals_fp32", "exp_bf16"])
+@pytest.mark.parametrize("nv", [22, 82])
+def test_crf_apply_bounds_tell_a_wrong_kernel(dev, kind, nv):
+    """K5's bounds tell a changed function apart at phase 4's inputs (the
+    pivot lattice of two smooth 448^2 images): against each wrong twin of
+    chip_smoke.py's ``crf_apply_wrong`` (entries in fp32, values in fp32,
+    the exp of the bf16-rounded score) the kernel falls outside them, and
+    against the right twin inside."""
+    from chip_smoke import crf_apply_wrong
+
+    g = torch.Generator(device=dev).manual_seed(nv)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, 448, device=dev),
+                            torch.linspace(0, 1, 448, device=dev),
+                            indexing="ij")
+    img = torch.stack([torch.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)
+    img = torch.stack([img, img.flip(0)])
+    img = (img + 0.03 * torch.randn(img.shape, generator=g, device=dev)
+           ).clamp(0, 1)
+    basis, coef, logc, _, _ = crf.pivot_lattice(img, 8, 121.0, 5.0)
+    vals = torch.rand(2, coef.shape[2], nv, generator=g, device=dev) * 2.0
+    vals[..., -1] = 64.0
+    got = crf_cuda.kernel_apply_cuda(basis, coef, logc, vals)
+    assert _k5_inside(got, crf_cuda.kernel_apply_ref(basis, coef, logc,
+                                                     vals))[0]
+    inside, errs = _k5_inside(got, crf_apply_wrong(basis, coef, logc, vals,
+                                                   kind))
+    assert not inside, errs
 
 
 def test_crf_apply_column_groups_are_independent(dev):
-    """K5 at V 82 runs three 32-column groups in one launch; each group's
-    columns are bit-equal to a call on that slice of the values alone."""
+    """K5 at V 82: every 32-column slice of a call is bit-equal to a call
+    on that slice of the values alone (a column's sum depends on its own
+    values only, whatever the width of the call)."""
     g = torch.Generator(device=dev).manual_seed(82)
     basis = torch.randn(2, 777, 11, generator=g, device=dev) * 2.0
     coef = torch.randn(2, 11, 250, generator=g, device=dev) * 0.1
@@ -415,12 +457,16 @@ def test_par_affinity_shapes(dev, b, h, w, dil):
 
 @pytest.mark.parametrize("c", [1, 5, 40, 84])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (1, 100, 7)])
+@pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (1, 100, 7),
+                                   (1, 23, 31), (2, 25, 33), (1, 15, 65),
+                                   (1, 49, 63), (1, 224, 224)])
 def test_par_propagate_shapes(dev, c, compute_dtype, b, h, w):
     """K4 against its twin, 10 rounds: fp32 within 1e-5 of the output's
     scale; bf16 within two bf16 ulps of each element (kernel and twin
     round alike; dropping any of the bf16 roundings costs 3 ulps or more,
-    see chip_smoke.py)."""
+    see chip_smoke.py).  Shapes one pixel either side of K4's tiles (32
+    columns; 24 rows in fp32, 16 in bf16) and of two or three of them, and
+    a full 224^2 image, beside ragged ones smaller than the halo."""
     g = torch.Generator(device=dev).manual_seed(c)
     logits = torch.randn(b, h, w, c, generator=g, device=dev) * 3
     masks = torch.softmax(logits, -1)
@@ -729,8 +775,8 @@ def test_crf_apply_at_the_evaluator_shape(dev):
     """K5 at the native-resolution evaluator's shape: a 500 x 375 image
     edge-padded to 504 x 376 (N 189,504 pixels, 2,961 pivots), V 21 and
     V 1, through ``kernel_apply`` with the evaluator's ``block_rows``
-    (``_auto_tile(376, 56)`` = 47 rows of 504).  Bound as elsewhere: 2e-3 of
-    each column's scale."""
+    (``_auto_tile(376, 56)`` = 47 rows of 504).  Bounds as elsewhere: per
+    column, 2e-3 of its scale at the maximum and 2e-5 on average."""
     g = torch.Generator(device=dev).manual_seed(0)
     h, w = 376, 504
     assert crf._auto_tile(h, 56) == 47 and crf._auto_tile(h, 8) == 8
@@ -749,8 +795,8 @@ def test_crf_apply_at_the_evaluator_shape(dev):
         assert crf_cuda.kernel_apply_cuda.launches == n0 + 1
         want = crf_cuda.kernel_apply_ref(basis, coef, logc, vals,
                                          block_rows=47 * w)
-        scale = want.abs().amax(dim=(0, 1))
-        assert ((got - want).abs().amax(dim=(0, 1)) <= 2e-3 * scale).all()
+        inside, errs = _k5_inside(got, want)
+        assert inside, (nv, errs)
 
 
 # ---- the experiment kernels P1-P4 (ops/experiments.py) ----------------------
