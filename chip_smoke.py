@@ -103,11 +103,15 @@ JAX.  Phases, each printing one result line:
    such ``grad_step``.
 
 18. P1 (exp attention with the row sum taken by the second product) and
-19. P2 (exp attention with the q scale in the kernel), each through its
-   experiment tool's ``run`` at the tool's full shapes (BH 768 / B 64, H 12,
-   D 64, N 197, 785, 1765) beside K1, then against its twin in bf16 ulps of
-   the row and against a wrong twin (the fp32 row sum; the scale left in
-   fp32) that must fall outside, beside ``F.scaled_dot_product_attention``;
+19. P2 (exp attention with the q scale in the kernel), both on K1's design
+   (``csrc/attention_fwd.cuh``), each through its experiment tool's ``run``
+   at the tool's full shapes (BH 768 / B 64, H 12, D 64, N 197, 785, 1765)
+   beside K1, then against its twin in bf16 ulps of the row and against two
+   wrong twins each (``exp_attn_ones_wrong``: the fp32 row sum, keys past N
+   counted; ``exp_attn_bnhd_wrong`` at scale 0.11: the scale left in fp32,
+   the scale on the scores) that must fall outside; P2 bit-equal to K1 on
+   the scaled q at scales 0.125 and 0.11; one call, back to back and the
+   share of the bound, beside ``F.scaled_dot_product_attention``;
 20. P3 (CRF kernel-apply with the exp taken in bf16) through its tool at
    (16, 200,704, 11) x (16, 11, 3,136) x (16, 3,136, 22) beside K5 and the
    plain tile loop, then against its twin and the fp32-exp twin (outside),
@@ -191,6 +195,47 @@ def exp_attn_wrong(q, k, v, kind):
     num = (e if kind == "p_fp32" else eb) @ vf
     den = (eb if kind == "denom_bf16" else e).sum(-1, keepdim=True)
     return (num / den).to(torch.bfloat16)
+
+
+def exp_attn_ones_wrong(q, k, v, kind):
+    """P1's twin with one step changed, on (..., N, D) operands with q
+    pre-scaled: ``fp32_row_sum`` divides by the sum of the fp32 e (K1's
+    denominator), ``pad_counted`` adds 1 for each key past N up to the next
+    multiple of the 128-key tile (a constant ones tile meeting e = exp(0) of
+    the zero key rows that TMA fills in, had the step not masked them).
+    Phase 18 and the CPU and card tests hold P1's mean bound against each."""
+    import torch
+
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    e = torch.exp(torch.clamp(qf @ kf.transpose(-1, -2), max=60.0))
+    eb = e.to(torch.bfloat16).float()
+    den = (e if kind == "fp32_row_sum" else eb).sum(-1, keepdim=True)
+    if kind == "pad_counted":
+        den = den + (-q.shape[-2] % 128)
+    return ((eb @ vf) / den).to(torch.bfloat16)
+
+
+def exp_attn_bnhd_wrong(q, k, v, scale, kind):
+    """P2's twin with the scale applied wrongly, on unscaled (B, N, H, D)
+    operands: ``fp32_scale`` rounds q * scale to bf16 once with the scale
+    left in fp32, ``scale_on_scores`` multiplies the fp32 scores by the fp32
+    scale (the exact softmax's way) in place of scaling q in bf16.  At a
+    scale bf16 holds (1/8) both are P2's function; at 0.11 phase 19 and the
+    CPU and card tests hold P2's mean bound against each."""
+    import torch
+
+    from dupl_tpu_torch.ops import attention
+
+    qf, kf, vf = (attention._to_bhnd(x).to(torch.bfloat16).float()
+                  for x in (q, k, v))
+    if kind == "fp32_scale":
+        qf = (qf * scale).to(torch.bfloat16).float()
+    s = qf @ kf.transpose(-1, -2)
+    if kind == "scale_on_scores":
+        s = s * scale
+    e = torch.exp(torch.clamp(s, max=60.0))
+    out = (e.to(torch.bfloat16).float() @ vf) / e.sum(-1, keepdim=True)
+    return attention._from_bhnd(out.to(torch.bfloat16), q.shape[0])
 
 
 def exp_attn_bwd_wrong(q, k, v, g, kind):
@@ -297,10 +342,13 @@ def main() -> int:
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s | ptxas serialised no "
           f"wgmma (a build that it does fails)", flush=True)
-    # K5's and K4's registers and spills per instantiation (ptxas -v): a
-    # spill would put a pass's accumulators or a pixel's affinities in local
-    # memory, so it fails the build phase.
-    for name in ("crf_apply", "par_propagate"):
+    # K5's, K4's and the attention forward's (K1, L1f, P1, P2) registers and
+    # spills per instantiation (ptxas -v): a spill would put a pass's
+    # accumulators, a pixel's affinities or a score tile in local memory, so
+    # it fails the build phase.
+    for name in ("crf_apply", "par_propagate", "exp_attention",
+                 "flash_attention", "exp_attention_ones",
+                 "exp_attention_bnhd"):
         usage = build.ptxas_usage(name)
         check(bool(usage), f"{name}: no ptxas -v lines in its build log")
         for fn, regs, st, ld in usage:
@@ -2108,73 +2156,95 @@ def main() -> int:
         return torch.cat([fn(*(x[i:i + chunk] for x in ops)).to(torch.bfloat16)
                           for i in range(0, ops[0].shape[0], chunk)])
 
+    def p12_share(heads, n, ms, ones):
+        """The least time of P1 (``ones``: K1's products and the ones
+        column) or P2 (K1's products) at D 64 over a measured time."""
+        flops = heads * n ** 2 * (4 * 64 + (2 if ones else 0))
+        return bound_ms(flops, "bf16", 4 * heads * n * 64 * 2)[0] / ms
+
     # -- 18. P1 against its twin ---------------------------------------------------
     # Bounds, written before the run: within 2 bf16 ulps of the row at the
     # maximum (kernel and twin sum in fp32 in different orders; that can flip
     # the bf16 rounding of an e entry, which a small element of the row
-    # carries at the row's scale) and 1e-3 ulp on average.  The wrong twin
-    # (fp32 row sum: the exp-attention twin) must exceed the mean bound.
+    # carries at the row's scale) and 1e-3 ulp on average.  The wrong twins
+    # of exp_attn_ones_wrong (the fp32 row sum: the exp-attention twin; keys
+    # past N counted by the ones column: N 197, 785 and 1765 are all ragged
+    # against 128) must exceed the mean bound.
     p1_records, p1_launches = tool_run("exp_attention_ones", ones_tool.run)
-    p1 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {}, "k1_ms": {},
-          "plain_ms": {}, "library_ms": {}, "rel_k1": {}}
+    p1 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {},
+          "ms_back_to_back": {}, "bound_share": {}, "k1_ms": {},
+          "k1_ms_back_to_back": {}, "plain_ms": {}, "library_ms": {},
+          "rel_k1": {}}
     for rec in p1_records:
         n, key = rec["n"], f"BH={rec['bh']},N={rec['n']}"
         ops18 = ones_tool.make_inputs(rec["bh"], n, dev)
         got = experiments.exp_attention_ones(*ops18)
         torch.cuda.synchronize()
         want = by_heads(experiments.exp_attention_ones_ref, ops18).float()
-        wrong = by_heads(attention.exp_attention_ref, ops18).float()
         mx, mean = row_ulps(got, want)
-        wmean = row_ulps(got, wrong)[1]
         check(bool(torch.isfinite(got.float()).all()), f"P1 N={n}: non-finite")
         check(mx <= 2.0 and mean <= 1e-3,
               f"P1 {key}: {mx:.2f} ulp max, {mean:.2e} mean vs its twin "
               f"(bounds 2, 1e-3)")
-        check(wmean > 1e-3, f"P1 {key}: the fp32-row-sum twin is inside the "
-              f"mean bound ({wmean:.2e} ulp)")
+        for kind in ("fp32_row_sum", "pad_counted"):
+            wmean = row_ulps(got, by_heads(
+                lambda *o: exp_attn_ones_wrong(*o, kind), ops18).float())[1]
+            check(wmean > 1e-3, f"P1 {key}: the wrong twin {kind} is inside "
+                  f"the mean bound ({wmean:.2e} ulp)")
+            p1["wrong_mean"][f"{kind},{key}"] = wmean
         p1["err"] = max(p1["err"], (got.float() - want).abs().max().item())
-        p1["ulps"][key], p1["wrong_mean"][key] = (mx, mean), wmean
+        p1["ulps"][key] = (mx, mean)
         p1["ms"][key], p1["k1_ms"][key] = rec["ones_ms"], rec["current_ms"]
+        p1["ms_back_to_back"][key] = time_ms(
+            lambda: experiments.exp_attention_ones(*ops18), back_to_back=True)
+        p1["k1_ms_back_to_back"][key] = time_ms(
+            lambda: ones_tool.current(*ops18), back_to_back=True)
+        p1["bound_share"][key] = p12_share(rec["bh"], n, rec["ones_ms"], True)
         p1["rel_k1"][key] = rec["max_rel_diff"]
         p1["plain_ms"][key] = time_ms(lambda: by_heads(
             experiments.exp_attention_ones_ref, ops18), iters=2, warmup=1)
         ql, kl, vl = (x[None] for x in ops18)
         p1["library_ms"][key] = time_ms(
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=1.0))
-        del ops18, got, want, wrong, ql, kl, vl
+        del ops18, got, want, ql, kl, vl
     print(f"[P1 exp_attention_ones] max_abs_err {p1['err']:.4g} | bf16 ulps of "
           f"the row (max, mean) {json.dumps(p1['ulps'])} (bounds 2, 1e-3) | "
-          f"wrong twin (fp32 row sum) mean ulps {json.dumps(p1['wrong_mean'])} "
-          f"(outside 1e-3) | kernel ms {json.dumps(p1['ms'])} | K1 ms "
-          f"{json.dumps(p1['k1_ms'])} | max-rel-diff vs K1 "
-          f"{json.dumps(p1['rel_k1'])} | plain ms {json.dumps(p1['plain_ms'])} "
-          f"| library ms {json.dumps(p1['library_ms'])} | launches of the "
-          f"tool's run {p1_launches}", flush=True)
+          f"wrong twins mean ulps {json.dumps(p1['wrong_mean'])} (each "
+          f"outside 1e-3) | kernel ms {json.dumps(p1['ms'])}, back to back "
+          f"{json.dumps(p1['ms_back_to_back'])}, share of the bound "
+          f"{json.dumps(p1['bound_share'])} | K1 ms {json.dumps(p1['k1_ms'])}, "
+          f"back to back {json.dumps(p1['k1_ms_back_to_back'])} | "
+          f"max-rel-diff vs K1 {json.dumps(p1['rel_k1'])} | plain ms "
+          f"{json.dumps(p1['plain_ms'])} | library ms "
+          f"{json.dumps(p1['library_ms'])} | launches of the tool's run "
+          f"{p1_launches}", flush=True)
 
     # -- 19. P2 against its twin ---------------------------------------------------
-    # Same bounds as P1.  At the tool's scale of 1/8 a twin that leaves the
-    # scale in fp32 is the same function (bf16 holds 1/8), so the wrong twin
-    # is checked at scale 0.11, which bf16 rounds to 0.10986.
+    # Same bounds as P1, and the bits of K1 on bf16(q * bf16(scale)): P2 runs
+    # K1's step on its scaled q tile.  At the tool's scale of 1/8 a twin that
+    # leaves the scale in fp32 is the same function (bf16 holds 1/8), so the
+    # wrong twins of exp_attn_bnhd_wrong are checked at scale 0.11, which
+    # bf16 rounds to 0.10986.
     p2_records, p2_launches = tool_run("exp_attention_bnhd", bnhd_tool.run)
-    p2 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {}, "k1_ms": {},
-          "plain_ms": {}, "library_ms": {}, "rel_k1": {}}
+    p2 = {"err": 0.0, "ulps": {}, "wrong_mean": {}, "ms": {},
+          "ms_back_to_back": {}, "bound_share": {}, "k1_ms": {},
+          "k1_ms_back_to_back": {}, "k1_alone_ms": {}, "plain_ms": {},
+          "library_ms": {}, "rel_k1": {}}
 
     def by_batch(fn, ops, scale, chunk=8):
         return torch.cat([fn(*(x[i:i + chunk] for x in ops), scale).to(
             torch.bfloat16) for i in range(0, ops[0].shape[0], chunk)])
-
-    def fp32_scale_twin(q, k, v, scale):
-        qs = (q.float() * scale).to(torch.bfloat16)
-        out = attention.exp_attention_ref(*(attention._to_bhnd(x)
-                                            for x in (qs, k, v)))
-        return attention._from_bhnd(out, q.shape[0])
 
     for rec in p2_records:
         n, key = rec["n"], f"B={rec['b']},N={rec['n']},H=12,D=64"
         ops19 = bnhd_tool.make_inputs(rec["b"], n, dev)
         for scale in (0.125, 0.11):
             got = experiments.exp_attention_bnhd(*ops19, scale)
+            k1_got = attention.exp_attention_cuda(
+                ops19[0] * experiments.bf16_scale(scale), *ops19[1:])
             torch.cuda.synchronize()
+            check(torch.equal(got, k1_got), f"P2 {key} scale {scale}: not the "
+                  f"bits of K1 on the scaled q")
             want = by_batch(experiments.exp_attention_bnhd_ref, ops19,
                             scale).float()
             mx, mean = row_ulps(got, want)
@@ -2187,14 +2257,24 @@ def main() -> int:
             if scale == 0.125:
                 p2["ulps"][key] = (mx, mean)
             else:
-                wrong = by_batch(fp32_scale_twin, ops19, scale).float()
-                wmean = row_ulps(got, wrong)[1]
-                check(wmean > 1e-3, f"P2 {key}: the fp32-scale twin is inside "
-                      f"the mean bound ({wmean:.2e} ulp)")
-                p2["wrong_mean"][key] = wmean
-                del wrong
-            del got, want
+                for kind in ("fp32_scale", "scale_on_scores"):
+                    wmean = row_ulps(got, by_batch(
+                        lambda *o: exp_attn_bnhd_wrong(*o, kind), ops19,
+                        scale).float())[1]
+                    check(wmean > 1e-3, f"P2 {key}: the wrong twin {kind} is "
+                          f"inside the mean bound ({wmean:.2e} ulp)")
+                    p2["wrong_mean"][f"{kind},{key}"] = wmean
+            del got, k1_got, want
         p2["ms"][key], p2["k1_ms"][key] = rec["bnhd_ms"], rec["current_ms"]
+        p2["ms_back_to_back"][key] = time_ms(
+            lambda: experiments.exp_attention_bnhd(*ops19), back_to_back=True)
+        p2["k1_ms_back_to_back"][key] = time_ms(
+            lambda: bnhd_tool.current(*ops19), back_to_back=True)
+        qs19 = ops19[0] * experiments.bf16_scale(0.125)
+        p2["k1_alone_ms"][key] = time_ms(   # without the scale pass
+            lambda: attention.exp_attention_cuda(qs19, *ops19[1:]))
+        p2["bound_share"][key] = p12_share(12 * rec["b"], n, rec["bnhd_ms"],
+                                           False)
         p2["rel_k1"][key] = rec["max_rel_diff"]
         p2["plain_ms"][key] = time_ms(lambda: by_batch(
             experiments.exp_attention_bnhd_ref, ops19, 0.125), iters=2,
@@ -2202,13 +2282,17 @@ def main() -> int:
         ql, kl, vl = (x.permute(0, 2, 1, 3) for x in ops19)
         p2["library_ms"][key] = time_ms(
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125))
-        del ops19, ql, kl, vl
+        del ops19, qs19, ql, kl, vl
     print(f"[P2 exp_attention_bnhd] max_abs_err {p2['err']:.4g} | bf16 ulps of "
           f"the row (max, mean) {json.dumps(p2['ulps'])} (bounds 2, 1e-3) | "
-          f"wrong twin (scale 0.11 left in fp32) mean ulps "
-          f"{json.dumps(p2['wrong_mean'])} (outside 1e-3) | kernel ms "
-          f"{json.dumps(p2['ms'])} | scale pass + K1 ms "
-          f"{json.dumps(p2['k1_ms'])} | max-rel-diff vs that "
+          f"bit-equal to K1 on the scaled q at scales 0.125 and 0.11 | wrong "
+          f"twins at scale 0.11 mean ulps {json.dumps(p2['wrong_mean'])} "
+          f"(each outside 1e-3) | kernel ms {json.dumps(p2['ms'])}, back to "
+          f"back {json.dumps(p2['ms_back_to_back'])}, share of the bound "
+          f"{json.dumps(p2['bound_share'])} | scale pass + K1 ms "
+          f"{json.dumps(p2['k1_ms'])}, back to back "
+          f"{json.dumps(p2['k1_ms_back_to_back'])} | K1 alone on the scaled q "
+          f"ms {json.dumps(p2['k1_alone_ms'])} | max-rel-diff vs scale pass + K1 "
           f"{json.dumps(p2['rel_k1'])} | plain ms {json.dumps(p2['plain_ms'])} "
           f"| library ms {json.dumps(p2['library_ms'])} | launches of the "
           f"tool's run {p2_launches}", flush=True)
@@ -2626,12 +2710,18 @@ def main() -> int:
               "tools/exp_attn_experiment.py:33", p1_launches, p1["err"],
               p1["ms"][p1_key], p1["plain_ms"][p1_key],
               p1["library_ms"][p1_key], k1_ms=p1["k1_ms"][p1_key],
-              ms_by_shape=p1["ms"]),
+              ms_back_to_back=p1["ms_back_to_back"][p1_key],
+              ms_by_shape=p1["ms"],
+              ms_back_to_back_by_shape=p1["ms_back_to_back"],
+              k1_ms_by_shape=p1["k1_ms"]),
         entry("exp_attention_bnhd", "exp_attention_bnhd.cu",
               "tools/exp_attn_layout_experiment.py:34", p2_launches, p2["err"],
               p2["ms"][p2_key], p2["plain_ms"][p2_key],
               p2["library_ms"][p2_key], scale_pass_and_k1_ms=p2["k1_ms"][p2_key],
-              ms_by_shape=p2["ms"]),
+              ms_back_to_back=p2["ms_back_to_back"][p2_key],
+              ms_by_shape=p2["ms"],
+              ms_back_to_back_by_shape=p2["ms_back_to_back"],
+              scale_pass_and_k1_ms_by_shape=p2["k1_ms"]),
         entry("crf_apply_bf16", "crf_apply_bf16.cu",
               "tools/crf_apply_experiment.py:53", p3_launches, p3["err"],
               rec20["bf16_ms"], p3["plain_ms"], None, k5_ms=rec20["fp32_ms"]),

@@ -1,8 +1,10 @@
 // The attention forward kernel for Hopper (sm_90a) shared by L1f
-// (flash_attention.cu: exact softmax with a running row maximum) and K1
-// (exp_attention.cu: max-free, scores clamped at 60).  Each source's own
-// note says which TPU kernel it replaces, its numerics and its bound; this
-// header holds the design they share.
+// (flash_attention.cu: exact softmax with a running row maximum), K1
+// (exp_attention.cu: max-free, scores clamped at 60) and the two experiment
+// kernels built on K1's step: P1 (exp_attention_ones.cu: the denominator
+// taken from the value product) and P2 (exp_attention_bnhd.cu: q scaled in
+// the kernel).  Each source's own note says which TPU kernel it replaces,
+// its numerics and its bound; this header holds the design they share.
 //
 // One block owns 128 query rows of one (batch, head) and walks the whole
 // row of keys in 128-key tiles.  The block is warp-specialised:
@@ -32,17 +34,30 @@
 // serialised wgmmas.  The pipeline holds a score tile (fp32, 64 registers a
 // thread) and the bf16 p tile in flight (32) beside the accumulator.
 //
-// The two softmaxes differ only in the per-tile step and the epilogue:
-//   * exact (kMaxFree false): the tile's row maximum moves the running one,
-//     the accumulator and the running sum are rescaled by exp(m_old - m_new),
+// The softmaxes (the compile-time Step) differ only in the per-tile step and
+// the epilogue:
+//   * kExact: the tile's row maximum moves the running one, the accumulator
+//     and the running sum are rescaled by exp(m_old - m_new),
 //     p = exp2(s * scale * log2(e) - m); the epilogue also writes the row's
 //     log-sum-exp;
-//   * max-free (kMaxFree true): e = exp2(min(s * log2(e), 60 * log2(e))),
-//     q arriving pre-scaled, and nothing is rescaled: the scores of tile
-//     i + 1 and the value product of tile i have no correction step between
-//     them.
-// Either way the row sums add the fp32 p (or e) before it is packed to
-// bf16, and out = O / l is rounded to bf16 once.
+//   * kMaxFree: e = exp2(min(s * log2(e), 60 * log2(e))), q arriving
+//     pre-scaled, and nothing is rescaled: the scores of tile i + 1 and the
+//     value product of tile i have no correction step between them;
+//   * kMaxFreeOnes: the same e, but the denominator is a column of the value
+//     product, which reads [V | 1]: its last wgmma of each 16-key k-step is
+//     8 columns wider than V's chunk (n72 at D 64), and those columns come
+//     from a second atom along N, a constant tile of ones that each consumer
+//     warpgroup writes into shared memory once (mnmajor_desc's atom2).  So
+//     l = sum of bf16(e) accumulates in fp32 in the accumulator beside O,
+//     every thread holding its rows' sum, and the fp32 adds of the other
+//     steps go.  Keys past N need nothing more: their e is already 0.
+// kExact and kMaxFree add the fp32 p (or e) to the row sums before it is
+// packed to bf16; out = O / l is rounded to bf16 once.  With kScaleQ (P2)
+// each consumer warpgroup first multiplies its q tile in shared memory by
+// the bf16 scale, each product rounded to bf16, so the kernel is K1 on
+// bf16(q * scale) bit for bit.  A tile written by the threads and read by
+// wgmma (the async proxy) needs fence.proxy.async and a barrier over the
+// warpgroup between the two.
 //
 // Operands.  q, k, v are (B, N, H, D) with arbitrary strides for B, N and H
 // (multiples of 8 elements, 16-byte aligned base): column slices of the qkv
@@ -79,27 +94,47 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClampLog2 = 60.0f * kLog2e;  // the max-free clamp, log2 units
 
+// The per-tile step of the softmax (see the note above).
+enum class Step { kExact, kMaxFree, kMaxFreeOnes };
+
 struct Maps {
   CUtensorMap q[2], k[2], v[2];  // per column chunk
 };
 
-template <int D>
+template <int D, bool kOnes = false>
 struct Layout {
   using C = Chunks<D>;
   static constexpr int kQ = C::tile_bytes(64);    // one warpgroup's q rows
   static constexpr int kKV = C::tile_bytes(kBK);  // one K or V tile
   static constexpr int kK = 2 * kQ;
   static constexpr int kV = kK + kStages * kKV;
-  static constexpr int kBytes = kV + kStages * kKV + 1024;  // + alignment
+  // kMaxFreeOnes: a warpgroup's ones tile, 16 rows as wide as V's last
+  // chunk, all ones, at kOnesTile + kOnesBytes * warpgroup
+  static constexpr int kOnesBytes = C::bytes(C::kW1 ? 1 : 0, 16);
+  static constexpr int kOnesTile = kV + kStages * kKV;
+  static constexpr int kBytes =
+      kOnesTile + (kOnes ? 2 * kOnesBytes : 0) + 1024;  // + alignment
 };
 
-template <int D, bool kMaxFree>
+// Packed bf16 pair times a bf16-representable scale, each product rounded to
+// bf16 (the product of two bf16 values is exact in fp32, so this is the
+// correctly rounded bf16 product).
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  return pack_bf16(__low2float(v) * scale, __high2float(v) * scale);
+}
+
+// scale: kExact's score scale times log2(e); kScaleQ's bf16 q scale;
+// otherwise unused.
+template <int D, Step kStep, bool kScaleQ>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_kernel(const __grid_constant__ Maps maps,
                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                int n, int heads, float scale_log2) {
+                int n, int heads, float scale) {
+  constexpr bool kMaxFree = kStep != Step::kExact;
+  constexpr bool kOnes = kStep == Step::kMaxFreeOnes;
   using C = Chunks<D>;
-  using L = Layout<D>;
+  using L = Layout<D, kOnes>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -159,11 +194,15 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
     const uint32_t qa = base + wg * L::kQ;
 
     constexpr int kW0 = C::kW0, kW1 = C::kW1;
-    float o0[kW0 / 2], o1[kW1 ? kW1 / 2 : 1];
+    // the value product's widths per chunk: kMaxFreeOnes adds the ones
+    // columns to the last
+    constexpr int kN0 = kW0 + (kOnes && !kW1 ? 8 : 0);
+    constexpr int kN1 = kW1 + (kOnes && kW1 ? 8 : 0);
+    float o0[kN0 / 2], o1[kN1 ? kN1 / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < kW0 / 2; ++i) o0[i] = 0.f;
+    for (int i = 0; i < kN0 / 2; ++i) o0[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < (kW1 ? kW1 / 2 : 1); ++i) o1[i] = 0.f;
+    for (int i = 0; i < (kN1 ? kN1 / 2 : 1); ++i) o1[i] = 0.f;
     fence_regs(o0);  // zeroed before the first wgmma is issued
     fence_regs(o1);
     // Running row maxima of the scores in log2 units (whole rows, equal in
@@ -171,6 +210,9 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
     // thread's share of the row sums of p, for rows g and g + 8 of the
     // warp's 16.
     float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+    // kMaxFreeOnes: this warpgroup's ones tile, the second atom of the
+    // value product's last chunk at every k-step
+    const uint32_t ones = kOnes ? base + L::kOnesTile + L::kOnesBytes * wg : 0;
 
     // S = Q.K^T of one 128-key tile: 64 rows x 128 keys, fp32, in D / 16
     // k-steps, issued and committed as one group.
@@ -195,16 +237,18 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        wgmma_rs<kW0>(o0, pf[kk], mnmajor_desc(vt, kW0, kk));
+        wgmma_rs<kN0>(o0, pf[kk], mnmajor_desc(vt, kW0, kk, kW1 ? 0 : ones));
         if constexpr (kW1 != 0)
-          wgmma_rs<16>(o1, pf[kk], mnmajor_desc(vt + C::bytes(0, kBK), 16, kk));
+          wgmma_rs<kN1>(o1, pf[kk],
+                        mnmajor_desc(vt + C::bytes(0, kBK), 16, kk, ones));
       }
       wgmma_commit();
     };
     // The softmax step of a score tile whose keys start at k0: keys past N
     // count as -inf (only the last tile has any; every tile holds at least
     // one key, so the exact softmax's maxima stay finite).  It overwrites
-    // the scores with p in fp32 and adds them to the running sums.  The
+    // the scores with p in fp32 and adds them to the running sums (but in
+    // kMaxFreeOnes, whose sums come out of the value product).  The
     // exact softmax first moves the running maxima and rescales the sums,
     // and returns the factors exp(m_old - m_new) by which O must still be
     // rescaled; the max-free one returns ones.
@@ -223,7 +267,9 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
           for (int e = 0; e < 4; ++e) {
             const float p =
                 in(j, e) ? ex2(fminf(sc[4 * j + e] * kLog2e, kClampLog2)) : 0.f;
-            if (e & 2) l1 += p; else l0 += p;
+            if constexpr (!kOnes) {
+              if (e & 2) l1 += p; else l0 += p;
+            }
             sc[4 * j + e] = p;
           }
         }
@@ -245,8 +291,8 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
         }
         // maxima in log2 units (the scale is positive, so it commutes with
         // the maximum); exp2(-inf) = 0 at the first tile
-        const float mn0 = fmaxf(m0, mx0 * scale_log2);
-        const float mn1 = fmaxf(m1, mx1 * scale_log2);
+        const float mn0 = fmaxf(m0, mx0 * scale);
+        const float mn1 = fmaxf(m1, mx1 * scale);
         const float2 corr = make_float2(ex2(m0 - mn0), ex2(m1 - mn1));
         m0 = mn0;
         m1 = mn1;
@@ -254,10 +300,10 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
         l1 *= corr.y;
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j) {
-          const float e0 = ex2(fmaf(score(j, 0), scale_log2, -m0));
-          const float e1 = ex2(fmaf(score(j, 1), scale_log2, -m0));
-          const float e2 = ex2(fmaf(score(j, 2), scale_log2, -m1));
-          const float e3 = ex2(fmaf(score(j, 3), scale_log2, -m1));
+          const float e0 = ex2(fmaf(score(j, 0), scale, -m0));
+          const float e1 = ex2(fmaf(score(j, 1), scale, -m0));
+          const float e2 = ex2(fmaf(score(j, 2), scale, -m1));
+          const float e3 = ex2(fmaf(score(j, 3), scale, -m1));
           l0 += e0 + e1;
           l1 += e2 + e3;
           sc[4 * j] = e0;
@@ -304,7 +350,30 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
     // the softmax of tile i + 1 runs.
     float sc[kBK / 2];
     uint32_t pf[kBK / 16][4];
+    if constexpr (kOnes) {
+      // all ones, so no swizzle moves a value: each of the 8 columns past V
+      // accumulates the row sum
+      const uint32_t w = 0x3F803F80u;  // two bf16 ones
+      for (int i = tid; i < L::kOnesBytes / 16; i += 128)
+        st_shared_v4(ones + 16 * i, make_uint4(w, w, w, w));
+    }
     mbar_wait(q_full, 0);
+    if constexpr (kScaleQ) {
+      // q <- bf16(q * bf16(scale)) in place, 16 bytes a thread at a time;
+      // elementwise, so the swizzle does not matter, and TMA's zero rows past
+      // N stay zero
+      for (int i = tid; i < L::kQ / 16; i += 128) {
+        const uint4 x = ld_shared_v4(qa + 16 * i);
+        st_shared_v4(qa + 16 * i, make_uint4(scale_bf16x2(x.x, scale),
+                                             scale_bf16x2(x.y, scale),
+                                             scale_bf16x2(x.z, scale),
+                                             scale_bf16x2(x.w, scale)));
+      }
+    }
+    if constexpr (kOnes || kScaleQ) {
+      fence_proxy_async();  // the threads' stores, before wgmma reads them
+      bar_sync(1 + wg, 128);
+    }
     mbar_wait(k_full, 0);
     issue_scores(sc, base + L::kK);
     wgmma_wait<0>();
@@ -335,12 +404,23 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
     fence_regs(o1);
     mbar_arrive(empty + 8 * sl);
 
-    // Full row sums: the four threads of a row group hold disjoint columns
-    // (in the exact softmax all relative to the same maximum).
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if constexpr (kOnes) {
+      // the first ones column past V: this thread's rows g and g + 8
+      if constexpr (kW1 != 0) {
+        l0 = o1[kW1 / 2];
+        l1 = o1[kW1 / 2 + 2];
+      } else {
+        l0 = o0[kW0 / 2];
+        l1 = o0[kW0 / 2 + 2];
+      }
+    } else {
+      // Full row sums: the four threads of a row group hold disjoint columns
+      // (in the exact softmax all relative to the same maximum).
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    }
 
     const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
     if constexpr (!kMaxFree) {
@@ -379,13 +459,14 @@ attn_fwd_kernel(const __grid_constant__ Maps maps,
 
 // Encode the maps and launch on `stream`.  q, k, v: (B, N, H, D) bf16 with
 // element strides st[3 i .. 3 i + 2] = (s_b, s_n, s_h) for i = q, k, v;
-// lse and scale_log2 are the exact softmax's (the max-free one ignores
-// them).  Returns cudaGetLastError(), or cudaErrorInvalidValue if the
+// lse is the exact softmax's (the max-free ones ignore it), scale as the
+// kernel's.  Returns cudaGetLastError(), or cudaErrorInvalidValue if the
 // driver refuses a tensor map.
-template <int D, bool kMaxFree>
+template <int D, Step kStep, bool kScaleQ = false>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int batch, int n, int heads, float scale_log2, const int64_t* st,
+           int batch, int n, int heads, float scale, const int64_t* st,
            cudaStream_t stream) {
+  using L = Layout<D, kStep == Step::kMaxFreeOnes>;
   using C = Chunks<D>;
   Maps maps = {};
   const void* ptr[3] = {q, k, v};
@@ -395,13 +476,12 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
       if (!encode_operand(&dst[i][c], ptr[i], batch, n, heads, D, st[3 * i],
                           st[3 * i + 1], st[3 * i + 2], C::width(c), 64))
         return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = Layout<D>::kBytes > kOneBlockPerSm ? Layout<D>::kBytes
-                                                       : kOneBlockPerSm;
+  const int bytes = L::kBytes > kOneBlockPerSm ? L::kBytes : kOneBlockPerSm;
   static uint32_t configured = 0;  // a bit per device
-  smem_bytes_once(configured, attn_fwd_kernel<D, kMaxFree>, bytes);
+  smem_bytes_once(configured, attn_fwd_kernel<D, kStep, kScaleQ>, bytes);
   const dim3 grid((n + kBQ - 1) / kBQ, batch * heads);
-  attn_fwd_kernel<D, kMaxFree><<<grid, kThreads, bytes, stream>>>(
-      maps, static_cast<__nv_bfloat16*>(out), lse, n, heads, scale_log2);
+  attn_fwd_kernel<D, kStep, kScaleQ><<<grid, kThreads, bytes, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(out), lse, n, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

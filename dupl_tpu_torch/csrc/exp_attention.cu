@@ -16,7 +16,7 @@
 // cores' peak, so the exps of one tile have to run under the products of
 // another.
 //
-// Design (attention_fwd.cuh, shared with L1f's flash attention).  The TPU
+// Design (attention_fwd.cuh, shared with L1f's flash attention, P1 and P2).  The TPU
 // kernel keeps one head's K and V resident in VMEM; at N 1765 that is 229 KB
 // each, more than an SM's 227 KB of shared memory, so here one block owns
 // 128 query rows of one head and streams K and V in 128-key tiles: a
@@ -51,8 +51,8 @@ namespace {
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int n, int heads, const int64_t* st, cudaStream_t stream) {
-  return attn_fwd::launch<D, true>(q, k, v, out, nullptr, batch, n, heads,
-                                   attn_fwd::kLog2e, st, stream);
+  return attn_fwd::launch<D, attn_fwd::Step::kMaxFree>(
+      q, k, v, out, nullptr, batch, n, heads, attn_fwd::kLog2e, st, stream);
 }
 
 }  // namespace

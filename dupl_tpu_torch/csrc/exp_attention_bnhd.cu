@@ -1,5 +1,5 @@
 // Max-free exp attention on (B, N, H, D) operands with the q scale folded
-// into the kernel (sm_90a).
+// into the kernel (kernel P2) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tools/exp_attn_layout_experiment.py:
 // _kernel_bnhd (launched by exp_attention_bnhd), the layout variant of the
@@ -7,26 +7,38 @@
 // multiplied by the scale as a bf16 product (the scale rounded to bf16, the
 // product rounded to bf16); s = q.k^T in fp32; e = exp(min(s, 60)); the
 // denominator sums the fp32 e over the real keys; the numerator contracts
-// bf16(e) with bf16 v in fp32; out = numerator / denominator in bf16.
-//
-// Design.  The TPU variant exists to read q and v blocks straight out of the
-// (B, N, H, D) array and to write the output there, saving the transposes
-// and pads of the (BH, N, D) form.  exp_attention.cu already addresses its
-// operands by (batch, token, head) strides and pads nothing, so on this card
-// the layout half of the variant is the baseline; what this kernel adds is
-// the scale: the separate elementwise pass that scales and rounds q (one read
-// and one write of q in device memory, and a launch) becomes two fp32
-// multiplies and a pack per q fragment register, done once per block.  The
-// TPU kernel corrects the row sum for its zero-padded keys (each adds
+// bf16(e) with bf16 v in fp32; out = numerator / denominator in bf16.  The
+// TPU kernel corrects its row sum for its zero-padded keys (each adds
 // exp(0) = 1); here keys past N are masked to e = 0, which is the same sum.
-// Tiling as exp_attention.cu: one block per (64-query tile, batch*head),
-// four warps of 16 rows, 64-key tiles of K and V^T in shared memory,
-// mma.sync.m16n8k16.
+//
+// The TPU variant exists to read q and v blocks straight out of the
+// (B, N, H, D) array and to write the output there, saving the transposes
+// and pads of the (BH, N, D) form.  K1 already addresses its operands by
+// (batch, token, head) strides and pads nothing, so on this card the layout
+// half of the variant is the baseline; what this kernel adds is the scale:
+// the separate elementwise pass that scales and rounds q (one read and one
+// write of q in device memory, and a launch) becomes a pass over the
+// block's q tile in shared memory.
+//
+// Design: K1's (attention_fwd.cuh, Step::kMaxFree with kScaleQ).  One block
+// owns 128 query rows of one (batch, head); a producer warp loads its q
+// rows and feeds a three-stage TMA ring of 128-key K and V tiles; two
+// consumer warpgroups run both products on wgmma (scores from shared
+// memory, bf16(e) from registers, V through the transpose bit), the exps of
+// tile i + 1 under the value product of tile i.  Once q has landed, each
+// consumer warpgroup multiplies its own 64 x D q tile in place by the bf16
+// scale, rounding each product to bf16 (elementwise, so TMA's swizzle does
+// not matter), then fences the stores for the async proxy and meets its
+// 128 threads at a named barrier before its first wgmma: 8 KB a warpgroup
+// at D 64, once a block.  From there on it is K1's step, tiling and order
+// of sums, so P2 on q gives the bits of K1 on bf16(q * bf16(scale)).
 //
 // Bound.  Per head 4*N^2*D tensor-core FLOPs and N^2 exps against
-// 4 * N * D * 2 bytes: compute-bound.
+// 4 * N * D * 2 bytes: bound by operations (K1's; the scale is N * D
+// multiplies a head).  At B 64, H 12, N 1765, D 64: 6.12e11 FLOP, 0.619 ms
+// at 989 TFLOP/s.
 //
-// Layout.  q, k, v: (B, N, H, D) with arbitrary strides for B, N and H
+// Operands.  q, k, v: (B, N, H, D) with arbitrary strides for B, N and H
 // (multiples of 8 elements, 16-byte aligned base); out (B, N, H, D)
 // contiguous.  D in {16, 32, 64, 80}.
 
@@ -34,155 +46,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 128;
-constexpr float kClamp = 60.0f;
-
-// Packed bf16 pair times a bf16-representable scale, each product rounded to
-// bf16 (the product of two bf16 values is exact in fp32, so this is the
-// correctly rounded bf16 product).
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
-  return pack_bf16(__low2float(v) * scale, __high2float(v) * scale);
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-exp_attn_bnhd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int n, int heads,
-                     float scale,
-                     int64_t qsb, int64_t qsn, int64_t qsh,
-                     int64_t ksb, int64_t ksn, int64_t ksh,
-                     int64_t vsb, int64_t vsn, int64_t vsh) {
-  constexpr int kSteps = D / 16;
-  constexpr int kTiles = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK][D + 8];   // K tile [key][d]
-  __shared__ __align__(16) __nv_bfloat16 vt[D][kBK + 8];   // V tile [d][key]
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-
-  // A fragments of this warp's 16 query rows, scaled as they are loaded.
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qf[kk][0] = r0 < n ? scale_bf16x2(ld32(qb + r0 * qsn + c), scale) : 0u;
-    qf[kk][1] = r1 < n ? scale_bf16x2(ld32(qb + r1 * qsn + c), scale) : 0u;
-    qf[kk][2] = r0 < n ? scale_bf16x2(ld32(qb + r0 * qsn + c + 8), scale) : 0u;
-    qf[kk][3] = r1 < n ? scale_bf16x2(ld32(qb + r1 * qsn + c + 8), scale) : 0u;
-  }
-
-  float o[kTiles][4];
-#pragma unroll
-  for (int i = 0; i < kTiles; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBK * D / 8; i += kThreads) {
-      const int row = i / (D / 8), col = (i % (D / 8)) * 8, key = k0 + row;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < n) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * ksn + col);
-        vv = *reinterpret_cast<const uint4*>(vb + key * vsn + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[row][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[col + j][row] = ve[j];
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + t * 2];
-        const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16_16816(s[nt], qf[kk], bf);
-      }
-    }
-
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int key = k0 + nt * 8 + t * 2;
-      const bool in0 = key < n, in1 = key + 1 < n;
-      const float e0 = in0 ? __expf(fminf(s[nt][0], kClamp)) : 0.f;
-      const float e1 = in1 ? __expf(fminf(s[nt][1], kClamp)) : 0.f;
-      const float e2 = in0 ? __expf(fminf(s[nt][2], kClamp)) : 0.f;
-      const float e3 = in1 ? __expf(fminf(s[nt][3], kClamp)) : 0.f;
-      l0 += e0 + e1;
-      l1 += e2 + e3;
-      const int kk = nt >> 1, hi = (nt & 1) * 2;
-      pf[kk][hi] = pack_bf16(e0, e1);
-      pf[kk][hi + 1] = pack_bf16(e2, e3);
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt) {
-        const __nv_bfloat16* vr = &vt[nt * 8 + g][kk * 16 + t * 2];
-        const uint32_t bf[2] = {ld32(vr), ld32(vr + 8)};
-        mma_bf16_16816(o[nt], pf[kk], bf);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-
-  const int64_t row_stride = static_cast<int64_t>(heads) * D;
-  __nv_bfloat16* ob = out + static_cast<int64_t>(b) * n * row_stride + h * D;
-#pragma unroll
-  for (int nt = 0; nt < kTiles; ++nt) {
-    const int c = nt * 8 + t * 2;
-    if (r0 < n)
-      *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + c) =
-          pack_bf16(o[nt][0] / l0, o[nt][1] / l0);
-    if (r1 < n)
-      *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + c) =
-          pack_bf16(o[nt][2] / l1, o[nt][3] / l1);
-  }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* out, int batch,
-            int n, int heads, float scale, const int64_t* st,
-            cudaStream_t stream) {
-  const dim3 grid((n + kBQ - 1) / kBQ, batch * heads);
-  exp_attn_bnhd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), n,
-      heads, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8]);
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int n, int heads, float scale, const int64_t* st,
+           cudaStream_t stream) {
+  return attn_fwd::launch<D, attn_fwd::Step::kMaxFree, true>(
+      q, k, v, out, nullptr, batch, n, heads, scale, st, stream);
 }
 
 }  // namespace
 
 // q (unscaled), k, v: (B, N, H, D) bf16 with element strides (s_b, s_n,
-// s_h), head dim contiguous; scale: a value bf16 represents exactly; out:
-// (B, N, H, D) bf16 contiguous; D in {16, 32, 64, 80}.  Returns
-// cudaGetLastError().
+// s_h) each in `strides` order q, k, v, head dim contiguous; scale: a value
+// bf16 represents exactly; out: (B, N, H, D) bf16 contiguous; D in
+// {16, 32, 64, 80}.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// if the tensor-map encoder refuses an operand.
 extern "C" int dupl_exp_attention_bnhd(const void* q, const void* k,
                                        const void* v, void* out, int batch,
                                        int n, int heads, int head_dim,
@@ -190,11 +72,10 @@ extern "C" int dupl_exp_attention_bnhd(const void* q, const void* k,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: launch<16>(q, k, v, out, batch, n, heads, scale, strides, s); break;
-    case 32: launch<32>(q, k, v, out, batch, n, heads, scale, strides, s); break;
-    case 64: launch<64>(q, k, v, out, batch, n, heads, scale, strides, s); break;
-    case 80: launch<80>(q, k, v, out, batch, n, heads, scale, strides, s); break;
+    case 16: return launch<16>(q, k, v, out, batch, n, heads, scale, strides, s);
+    case 32: return launch<32>(q, k, v, out, batch, n, heads, scale, strides, s);
+    case 64: return launch<64>(q, k, v, out, batch, n, heads, scale, strides, s);
+    case 80: return launch<80>(q, k, v, out, batch, n, heads, scale, strides, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,29 +1,45 @@
 // Max-free exp attention whose row sum comes out of the second product
-// (sm_90a): out = (bf16(e) . [V | 1])[:, :D] / (bf16(e) . [V | 1])[:, D].
+// (kernel P1) for Hopper (sm_90a):
+// out = (bf16(e) . [V | 1])[:, :D] / (bf16(e) . [V | 1])[:, D].
 //
 // Replaces the Pallas TPU kernel tools/exp_attn_experiment.py:
 // _exp_attn_kernel_ones (launched by exp_attention_ones), the "ones column"
 // variant of the exp-attention forward.  Same numerics: q arrives pre-scaled
 // in bf16; s = q.k^T in fp32; e = bf16(exp(min(s, 60))); numerator AND
-// denominator contract that bf16 e in fp32, so both carry the same rounding;
-// out = numerator / denominator, rounded to bf16.
+// denominator contract that bf16 e in fp32 on the tensor cores, so both
+// carry the same rounding; out = numerator / denominator, rounded to bf16.
+// The TPU kernel appends the ones column to V in device memory and pads q,
+// k and v to a multiple of 128 rows; padded keys drop out because their V
+// rows, ones column included, are zero.
 //
-// Design.  The tiling of exp_attention.cu: one block per (64-query tile,
-// batch*head), four warps of 16 query rows with q fragments in registers, a
-// loop over 64-key tiles of K and V^T in shared memory, mma.sync.m16n8k16.
-// The TPU kernel appends a ones column to V in device memory and pads q, k
-// and v to a multiple of 128 rows; here nothing is copied: the V^T tile in
-// shared memory gets one more 8-wide group of rows whose first row is 1 for
-// keys below N and 0 beyond, so a ninth n-tile of the second product
-// accumulates sum(bf16(e)) in fp32 beside the numerator.  The per-element
-// row-sum additions of exp_attention.cu go, and so does the key mask: a key
-// past N has zero K and zero V rows (the ones row included), so its
-// e = exp(0) = 1 meets only zeros, as in the TPU kernel.  No correction term.
+// Design: K1's (attention_fwd.cuh, Step::kMaxFreeOnes).  One block owns 128
+// query rows of one (batch, head); a producer warp feeds a three-stage TMA
+// ring of 128-key K and V tiles; two consumer warpgroups run S = Q.K^T on
+// wgmma from shared memory and O += bf16(e).[V | 1] on wgmma from
+// registers, V through the transpose bit, the exps of tile i + 1 under the
+// value product of tile i.  The ones column is not copied into V: each
+// consumer warpgroup writes a constant tile of ones (16 rows, as wide as
+// V's last column chunk) into shared memory once, and the value product's
+// last wgmma of every 16-key k-step is 8 columns wider than V's chunk
+// (m64n72k16 at D 64), those 8 columns read from the ones tile as the
+// next atom along N.  So sum(bf16(e)) accumulates in fp32 in the same
+// instruction as the numerator, and K1's fp32 row-sum adds go.  Keys past N
+// are masked to e = 0 by the max-free step already, which is what the TPU
+// kernel's zero V rows give.  A separate m64n8k16 against the ones tile a
+// k-step (8 more wgmma a tile) was measured slower on the card than the
+// widened product and was dropped.  (The same function could add the
+// bf16(e) on the CUDA cores; the experiment asks whether the tensor cores
+// can take the denominator, so this kernel does not.)
 //
-// Bound.  Per head 4*N^2*D (+ N^2 * 16 for the ninth n-tile) tensor-core
-// FLOPs and N^2 exps against 4 * N * D * 2 bytes: compute-bound.
+// Bound.  Per head N^2 * (4 * D + 2) tensor-core FLOPs (the ones column's
+// useful work; the 8 extra columns issue 16 N^2) and N^2 exps against
+// 4 * N * D * 2 bytes of q, k, v and out: bound by operations.  At BH 768,
+// N 1765, D 64 that is 6.17e11 FLOP, 0.624 ms at 989 TFLOP/s, against
+// 0.104 ms for the bytes; the 2.39e9 exps take 0.57 ms at the
+// special-function units' 16 a clock an SM, so, as in K1, the exps of one
+// tile have to run under the products of another.
 //
-// Layout.  q, k, v: (B, N, H, D) with arbitrary strides for B, N and H
+// Operands.  q, k, v: (B, N, H, D) with arbitrary strides for B, N and H
 // (multiples of 8 elements, 16-byte aligned base); a (BH, N, D) operand is
 // the case H = 1.  out is (B, N, H, D) contiguous.  D in {16, 32, 64, 80}.
 
@@ -31,157 +47,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;         // query rows per block (4 warps x 16)
-constexpr int kBK = 64;         // keys per shared-memory tile
-constexpr int kThreads = 128;
-constexpr float kClamp = 60.0f;
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-exp_attn_ones_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int n, int heads,
-                     int64_t qsb, int64_t qsn, int64_t qsh,
-                     int64_t ksb, int64_t ksn, int64_t ksh,
-                     int64_t vsb, int64_t vsn, int64_t vsh) {
-  constexpr int kSteps = D / 16;  // 16-wide k-steps of q.k^T
-  constexpr int kTiles = D / 8;   // 8-wide n-tiles of the numerator
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK][D + 8];      // K tile [key][d]
-  // [V | 1 | 0 x 7]^T tile [column][key]: rows 0..D-1 are V's columns, row D
-  // is the ones column, rows D+1..D+7 fill the ninth n-tile with zeros.
-  __shared__ __align__(16) __nv_bfloat16 vt[D + 8][kBK + 8];
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qf[kk][0] = r0 < n ? ld32(qb + r0 * qsn + c) : 0u;
-    qf[kk][1] = r1 < n ? ld32(qb + r1 * qsn + c) : 0u;
-    qf[kk][2] = r0 < n ? ld32(qb + r0 * qsn + c + 8) : 0u;
-    qf[kk][3] = r1 < n ? ld32(qb + r1 * qsn + c + 8) : 0u;
-  }
-
-  // o[kTiles] is the ninth n-tile: its column 0 is the row sum.
-  float o[kTiles + 1][4];
-#pragma unroll
-  for (int i = 0; i <= kTiles; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.f), one = __float2bfloat16(1.f);
-  for (int i = threadIdx.x; i < 7 * kBK; i += kThreads)
-    vt[D + 1 + i / kBK][i % kBK] = zero;  // written once; no tile touches them
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBK * D / 8; i += kThreads) {
-      const int row = i / (D / 8), col = (i % (D / 8)) * 8, key = k0 + row;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < n) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * ksn + col);
-        vv = *reinterpret_cast<const uint4*>(vb + key * vsn + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[row][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[col + j][row] = ve[j];
-    }
-    if (threadIdx.x < kBK)  // the ones column: 1 for a key, 0 past the last
-      vt[D][threadIdx.x] = k0 + threadIdx.x < n ? one : zero;
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + t * 2];
-        const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16_16816(s[nt], qf[kk], bf);
-      }
-    }
-
-    // e = bf16(exp(min(s, 60))) for every key of the tile, no mask: a key
-    // past N meets only the zero rows of [V | 1].
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int kk = nt >> 1, hi = (nt & 1) * 2;
-      pf[kk][hi] = pack_bf16(__expf(fminf(s[nt][0], kClamp)),
-                             __expf(fminf(s[nt][1], kClamp)));      // row g
-      pf[kk][hi + 1] = pack_bf16(__expf(fminf(s[nt][2], kClamp)),
-                                 __expf(fminf(s[nt][3], kClamp)));  // row g + 8
-    }
-
-    // o += bf16(e) . [V | 1]: 4 k-steps of 16 keys x (D/8 + 1) n-tiles.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt <= kTiles; ++nt) {
-        const __nv_bfloat16* vr = &vt[nt * 8 + g][kk * 16 + t * 2];
-        const uint32_t bf[2] = {ld32(vr), ld32(vr + 8)};
-        mma_bf16_16816(o[nt], pf[kk], bf);
-      }
-    }
-  }
-
-  // Column D of the product sits in the lane with t = 0 of each row group.
-  const float l0 = __shfl_sync(0xffffffffu, o[kTiles][0], lane & ~3);
-  const float l1 = __shfl_sync(0xffffffffu, o[kTiles][2], lane & ~3);
-
-  const int64_t row_stride = static_cast<int64_t>(heads) * D;
-  __nv_bfloat16* ob = out + static_cast<int64_t>(b) * n * row_stride + h * D;
-#pragma unroll
-  for (int nt = 0; nt < kTiles; ++nt) {
-    const int c = nt * 8 + t * 2;
-    if (r0 < n)
-      *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + c) =
-          pack_bf16(o[nt][0] / l0, o[nt][1] / l0);
-    if (r1 < n)
-      *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + c) =
-          pack_bf16(o[nt][2] / l1, o[nt][3] / l1);
-  }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* out, int batch,
-            int n, int heads, const int64_t* st, cudaStream_t stream) {
-  const dim3 grid((n + kBQ - 1) / kBQ, batch * heads);
-  exp_attn_ones_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), n,
-      heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int n, int heads, const int64_t* st, cudaStream_t stream) {
+  return attn_fwd::launch<D, attn_fwd::Step::kMaxFreeOnes>(
+      q, k, v, out, nullptr, batch, n, heads, 0.f, st, stream);
 }
 
 }  // namespace
 
 // q (pre-scaled), k, v: (B, N, H, D) bf16 with element strides (s_b, s_n,
-// s_h), head dim contiguous; out: (B, N, H, D) bf16 contiguous; D in
-// {16, 32, 64, 80}.  Returns cudaGetLastError().
+// s_h) each in `strides` order q, k, v, head dim contiguous; out:
+// (B, N, H, D) bf16 contiguous; D in {16, 32, 64, 80}.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue if the
+// tensor-map encoder refuses an operand.
 extern "C" int dupl_exp_attention_ones(const void* q, const void* k,
                                        const void* v, void* out, int batch,
                                        int n, int heads, int head_dim,
                                        const int64_t* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: launch<16>(q, k, v, out, batch, n, heads, strides, s); break;
-    case 32: launch<32>(q, k, v, out, batch, n, heads, strides, s); break;
-    case 64: launch<64>(q, k, v, out, batch, n, heads, strides, s); break;
-    case 80: launch<80>(q, k, v, out, batch, n, heads, strides, s); break;
+    case 16: return launch<16>(q, k, v, out, batch, n, heads, strides, s);
+    case 32: return launch<32>(q, k, v, out, batch, n, heads, strides, s);
+    case 64: return launch<64>(q, k, v, out, batch, n, heads, strides, s);
+    case 80: return launch<80>(q, k, v, out, batch, n, heads, strides, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

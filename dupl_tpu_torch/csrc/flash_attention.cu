@@ -18,7 +18,7 @@
 // tensor cores' peak.  So the kernel has to keep the tensor cores fed while
 // the exps of the same block run.
 //
-// Design (attention_fwd.cuh, shared with K1).  One block owns 128 query
+// Design (attention_fwd.cuh, shared with K1, P1 and P2).  One block owns 128 query
 // rows of one head and walks the whole row of keys in 128-key tiles (the
 // online softmax of flash attention: per tile the row maximum is updated,
 // the accumulator and the running sum are rescaled by exp(m_old - m_new),
@@ -57,9 +57,9 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int batch, int n, int heads, float scale, const int64_t* st,
            cudaStream_t stream) {
-  return attn_fwd::launch<D, false>(q, k, v, out, static_cast<float*>(lse),
-                                    batch, n, heads, scale * attn_fwd::kLog2e,
-                                    st, stream);
+  return attn_fwd::launch<D, attn_fwd::Step::kExact>(
+      q, k, v, out, static_cast<float*>(lse), batch, n, heads,
+      scale * attn_fwd::kLog2e, st, stream);
 }
 
 }  // namespace

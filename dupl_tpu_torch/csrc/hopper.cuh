@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (attention_fwd.cuh: K1 and L1f; attention_bwd.cuh: K2 and L1b): mbarriers,
-// TMA tensor copies, wgmma descriptors and products, register rebalancing,
-// the softmax's exp2 and bf16 packing, and the host-side launch set-up and
-// encoding of TMA tensor maps.  Raw PTX, as the PTX ISA defines each
-// instruction; no CUTLASS.
+// (attention_fwd.cuh: K1, L1f, P1, P2; attention_bwd.cuh: K2, L1b):
+// mbarriers, TMA tensor copies, wgmma descriptors and products, register
+// rebalancing, proxy fences and named barriers, the softmax's exp2 and bf16
+// packing, and the host-side launch set-up and encoding of TMA tensor maps.
+// Raw PTX, as the PTX ISA defines each instruction; no CUTLASS.
 //
 // Operand tiles.  A (rows x D) bf16 operand lives in shared memory as one
 // or two column chunks, each stored row after row in the swizzled layout
@@ -88,6 +88,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Make this thread's ordinary stores to shared memory visible to the async
+// proxy (wgmma, TMA); a barrier after it orders them for the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------------
 
 // One box of a 4-D tensor map into shared memory; completion (the box's
@@ -167,9 +194,14 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int width, int kk
 // MN-major operand (the product's K runs down the chunk's rows, its N along
 // the columns; wgmma reads it through the transpose bit): rows 16 kk ..
 // 16 kk + 15.  The chunk is one swizzle atom wide, so only the stride of
-// 8-row groups matters; both offsets carry it.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int width, int kk) {
-  return make_desc(addr + 32 * width * kk, 16 * width, 16 * width, width);
+// 8-row groups matters; both offsets carry it.  With `atom2` (a shared
+// address past the chunk) a product wider than the chunk reads its next
+// atom along N there: the leading offset is the stride between atoms, and
+// atom2 holds 16 rows laid out as the chunk's.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int width, int kk,
+                                                 uint32_t atom2 = 0) {
+  const uint32_t start = addr + 32 * width * kk;
+  return make_desc(start, atom2 ? atom2 - start : 16 * width, 16 * width, width);
 }
 
 // D (64 x 64, fp32) {=|+=} A (64 x 16, shared) . B (64 x 16, shared)^T,
@@ -283,6 +315,23 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 24, fp32) += A (64 x 16, registers) . B (16 x 24, shared,
+// MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D (64 x 32, fp32) += A (64 x 16, registers) . B (16 x 32, shared,
 // MN-major: read through the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -298,6 +347,26 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 40, fp32) += A (64 x 16, registers) . B (16 x 40, shared,
+// MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -325,13 +394,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 72, fp32) += A (64 x 16, registers) . B (16 x 72, shared,
+// MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // o (64 x W, fp32) += a (64 x 16, registers) . B (16 x W, shared, MN-major)
-// for a column chunk of width W.
+// for a column chunk of width W (16, 32, 64), or a chunk and the 8 columns
+// of a second atom past it (24, 40, 72: P1's ones column).
 template <int W>
 __device__ __forceinline__ void wgmma_rs(float (&o)[W / 2], const uint32_t (&a)[4],
                                          uint64_t b) {
-  if constexpr (W == 64) wgmma_rs_n64(o, a, b);
+  if constexpr (W == 72) wgmma_rs_n72(o, a, b);
+  else if constexpr (W == 64) wgmma_rs_n64(o, a, b);
+  else if constexpr (W == 40) wgmma_rs_n40(o, a, b);
   else if constexpr (W == 32) wgmma_rs_n32(o, a, b);
+  else if constexpr (W == 24) wgmma_rs_n24(o, a, b);
   else wgmma_rs_n16(o, a, b);
 }
 

@@ -1,7 +1,6 @@
-// Helpers shared by the mma.sync kernels of the experiment tools
-// (exp_attention_ones.cu, exp_attention_bnhd.cu, crf_apply_bf16.cu): the
-// m16n8k16 bf16 tensor-core product with fp32 accumulation, and packed bf16
-// loads and conversions.
+// Helpers shared by the mma.sync kernels (crf_apply.cu, crf_apply_bf16.cu):
+// the m16n8k16 bf16 tensor-core product with fp32 accumulation, and packed
+// bf16 loads and conversions.
 //
 // Fragment layout of mma.sync.m16n8k16 for lane = 4 * g + t (g = 0..7, t =
 // 0..3): A (16 x 16, row) a[0] = (row g, cols 2t, 2t+1), a[1] = (row g+8,

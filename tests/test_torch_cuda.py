@@ -839,33 +839,90 @@ def test_exp_attention_ones_matches_twin(dev, bh, n, d, q_mult):
 
 def test_exp_attention_ones_on_views_and_wrong_twin(dev):
     """Strided q, k, v (column slices of one projection) through the
-    (B, N, H, D) wrapper; and the twin with the fp32 row sum (the
-    exp-attention twin) falls outside the mean bound."""
+    (B, N, H, D) wrapper; and each wrong twin of chip_smoke.py's
+    ``exp_attn_ones_wrong`` (the fp32 row sum; the 111 keys past N 785 in its
+    last 128-key tile counted by the ones column) falls outside the mean
+    bound."""
+    from chip_smoke import exp_attn_ones_wrong
+
     b, n, h, d = 2, 785, 12, 64
-    g = torch.Generator(device=dev).manual_seed(3)
-    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(torch.bfloat16)
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
-               for i in range(3))
-    q = q * torch.tensor(0.125, dtype=torch.bfloat16, device=dev)
+    q, k, v = _proj_views(dev, b, n, h, d, seed=3, q_scale=0.125)
+    assert not q.is_contiguous()
     got = experiments.exp_attention_ones_cuda(q, k, v)
     bhnd = [attention._to_bhnd(x) for x in (q, k, v)]
     want = attention._from_bhnd(experiments.exp_attention_ones_ref(*bhnd).to(
         torch.bfloat16), b).float()
     mx, mean = _row_ulps(got, want)
     assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
-    wrong = attention._from_bhnd(attention.exp_attention_ref(*bhnd).to(
-        torch.bfloat16), b).float()
-    assert _row_ulps(got, wrong)[1] > 1e-3
+    for kind in ("fp32_row_sum", "pad_counted"):
+        wrong = attention._from_bhnd(exp_attn_ones_wrong(*bhnd, kind), b)
+        assert _row_ulps(got, wrong.float())[1] > 1e-3, kind
+
+
+def _proj_views(dev, b, n, h, d, seed, q_scale=1.0):
+    """q, k, v: column slices of one (B, N, 3C) bf16 projection, as the ViT
+    hands them over, q's columns first multiplied by ``q_scale``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = h * d
+    qkv = torch.randn(b, n, 3 * c, generator=g, device=dev)
+    qkv[..., :c] *= q_scale
+    qkv = qkv.to(torch.bfloat16)
+    return tuple(qkv[..., i * c:(i + 1) * c].reshape(b, n, h, d)
+                 for i in range(3))
+
+
+_P12_EDGES = [(n, d) for d in (16, 32, 64, 80)
+              for n in (1, 64, 127, 128, 129, 255, 256, 257)]
+
+
+@pytest.mark.parametrize("n,d", _P12_EDGES)
+def test_exp_attention_ones_tile_edges(dev, n, d):
+    """P1 at the edges of its 128-key tiles and 128-row blocks (a last key
+    tile of 1, 127 or 128 keys; a last block whose second warpgroup has no
+    row, one row or a full half), every head dim, strided q, k, v: within 2
+    bf16 ulps of the row at the maximum and 1e-3 on average of its twin."""
+    q, k, v = _proj_views(dev, 2, n, 2, d, seed=n + d, q_scale=d ** -0.5)
+    assert not q.is_contiguous()
+    got = experiments.exp_attention_ones_cuda(q, k, v)
+    torch.cuda.synchronize()
+    want = experiments.exp_attention_ones_ref(
+        *(attention._to_bhnd(x) for x in (q, k, v))).to(torch.bfloat16)
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _row_ulps(attention._to_bhnd(got), want.float())
+    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+
+
+@pytest.mark.parametrize("n,d", _P12_EDGES)
+def test_exp_attention_bnhd_tile_edges(dev, n, d):
+    """P2 at the same edges on strided q, k, v with the scale 1 / sqrt(D)
+    (bf16 holds it at D 16 and 64, not at 32 and 80): within P1's bounds of
+    its twin, and the bits of K1 on bf16(q * bf16(scale))."""
+    scale = d ** -0.5
+    q, k, v = _proj_views(dev, 2, n, 2, d, seed=n + d + 1)
+    assert not q.is_contiguous()
+    got = experiments.exp_attention_bnhd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    want = experiments.exp_attention_bnhd_ref(q, k, v, scale).to(
+        torch.bfloat16)
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _row_ulps(got, want.float())
+    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+    k1 = attention.exp_attention_cuda(q * experiments.bf16_scale(scale), k, v)
+    assert torch.equal(got, k1)
 
 
 @pytest.mark.parametrize("b,n,h,d,scale", [
     (1, 197, 3, 64, 0.125), (2, 300, 2, 32, 32 ** -0.5),
     (1, 64, 2, 16, 0.25), (1, 257, 2, 80, 80 ** -0.5), (2, 442, 12, 64, 0.11)])
 def test_exp_attention_bnhd_matches_twin(dev, b, n, h, d, scale):
-    """P2 against its twin, also at scales bf16 does not represent; equal to
-    the scale pass followed by K1 but for the order of fp32 sums (K1 sums in
-    128-key tiles, P2 in 64: within the same bounds of each other); and the
-    twin with the scale left in fp32 falls outside the mean bound."""
+    """P2 against its twin, also at scales bf16 does not represent; bit-equal
+    to the scale pass followed by K1 (P2 is K1's step on the scaled q tile:
+    the same tiling and order of sums); and, where bf16 does not hold the
+    scale, each wrong twin of chip_smoke.py's ``exp_attn_bnhd_wrong`` (q *
+    scale in fp32 rounded once; the fp32 scale on the scores) falls outside
+    the mean bound."""
+    from chip_smoke import exp_attn_bnhd_wrong
+
     q, k, v = _attn_operands(dev, (b, n, h, d), seed=n + 7)
     n0 = experiments.exp_attention_bnhd_cuda.launches
     got = experiments.exp_attention_bnhd(q, k, v, scale)
@@ -875,13 +932,11 @@ def test_exp_attention_bnhd_matches_twin(dev, b, n, h, d, scale):
     mx, mean = _row_ulps(got, want)
     assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
     k1 = attention.exp_attention_cuda(q * experiments.bf16_scale(scale), k, v)
-    mx, mean = _row_ulps(got, k1.float())
-    assert mx <= 2.0 and mean <= 1e-3, (mx, mean)
+    assert torch.equal(got, k1)
     if experiments.bf16_scale(scale) != scale:
-        qs = (q.float() * scale).to(torch.bfloat16)
-        wrong = attention._from_bhnd(attention.exp_attention_ref(
-            *(attention._to_bhnd(x) for x in (qs, k, v))).to(torch.bfloat16), b)
-        assert _row_ulps(got, wrong.float())[1] > 1e-3
+        for kind in ("fp32_scale", "scale_on_scores"):
+            wrong = exp_attn_bnhd_wrong(q, k, v, scale, kind)
+            assert _row_ulps(got, wrong.float())[1] > 1e-3, kind
 
 
 def _crf_operands(dev, b, n, ns, v, seed):

@@ -90,6 +90,46 @@ def test_ones_twin_differs_from_fp32_row_sum():
     assert (a - b).abs().max() <= 2 ** -7 * b.abs().max()
 
 
+# P1's and P2's bounds on the card (chip_smoke.py phases 18-19 and the card
+# tests): within 2 bf16 ulps of the row at the maximum and 1e-3 on average
+# of the twin rounded to bf16.
+def _inside_p12_bounds(got, want):
+    u = _row_ulp(got.float().numpy(), want.to(torch.bfloat16).float().numpy())
+    return u.max() <= 2.0 and u.mean() <= 1e-3, (u.max(), u.mean())
+
+
+def _exp_attention_by_tiles(qs, k, v, ones):
+    """The exp attention of pre-scaled (..., N, D) operands with both sums
+    taken 128 keys at a time, the last tile first: the kernels' tiling with
+    another order of sums.  ``ones``: the denominator sums bf16(e) (P1),
+    else the fp32 e (K1, P2)."""
+    qf, kf, vf = (x.float() for x in (qs, k, v))
+    num = den = 0.0
+    for lo in reversed(range(0, k.shape[-2], 128)):
+        e = torch.exp(torch.clamp(qf @ kf[..., lo:lo + 128, :].transpose(-1, -2),
+                                  max=60.0))
+        eb = e.to(torch.bfloat16).float()
+        num = num + eb @ vf[..., lo:lo + 128, :]
+        den = den + (eb if ones else e).sum(-1, keepdim=True)
+    return (num / den).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["by_tiles", "fp32_row_sum", "pad_counted"])
+def test_ones_bounds_tell_wrong_twins(kind):
+    """P1's bounds at a ragged length (N 197, 59 keys short of the second
+    128-key tile): its function with the sums in another order lies inside
+    them, and each wrong twin of chip_smoke.py's ``exp_attn_ones_wrong``
+    (the fp32 row sum; keys past N counted by the ones column) outside."""
+    from chip_smoke import exp_attn_ones_wrong
+
+    q, k, v = (_bf16(x) for x in _qkv((4, 197, 64), seed=11, q_mult=0.125))
+    want = experiments.exp_attention_ones_ref(q, k, v)
+    got = (_exp_attention_by_tiles(q, k, v, ones=True) if kind == "by_tiles"
+           else exp_attn_ones_wrong(q, k, v, kind))
+    inside, err = _inside_p12_bounds(got, want)
+    assert inside == (kind == "by_tiles"), (kind, err)
+
+
 # ------------------------------------------------------------------- P2
 @pytest.mark.parametrize("n,scale,q_mult", [(197, 0.125, 1.0),
                                             (256, 0.11, 1.0),
@@ -118,6 +158,28 @@ def test_bnhd_twin_rounds_the_scale():
     b = attention._from_bhnd(attention.exp_attention_ref(
         *(attention._to_bhnd(x) for x in (qs, k, v))), 1)
     assert not torch.allclose(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["by_tiles", "fp32_scale", "scale_on_scores"])
+def test_bnhd_bounds_tell_wrong_twins(kind):
+    """P2's bounds at N 197 and a scale bf16 does not hold (0.11): its
+    function with the sums in another order lies inside them, and each wrong
+    twin of chip_smoke.py's ``exp_attn_bnhd_wrong`` (q * 0.11 in fp32 rounded
+    once; the fp32 scale on the fp32 scores) outside."""
+    from chip_smoke import exp_attn_bnhd_wrong
+
+    from dupl_tpu_torch.ops import attention
+
+    q, k, v = (_bf16(x) for x in _qkv((2, 197, 3, 64), seed=12))
+    want = experiments.exp_attention_bnhd_ref(q, k, v, 0.11)
+    if kind == "by_tiles":
+        qs = q * experiments.bf16_scale(0.11)
+        got = attention._from_bhnd(_exp_attention_by_tiles(
+            *(attention._to_bhnd(x) for x in (qs, k, v)), ones=False), 2)
+    else:
+        got = exp_attn_bnhd_wrong(q, k, v, 0.11, kind)
+    inside, err = _inside_p12_bounds(got, want)
+    assert inside == (kind == "by_tiles"), (kind, err)
 
 
 # ------------------------------------------------------------------- P3

@@ -9,6 +9,8 @@ a row sum of the fp32 e taken with scalar additions.  Arm B (ones-column):
 kernel P1 (``csrc/exp_attention_ones.cu``), whose second tensor-core product
 contracts bf16(e) with ``[V | 1]`` and so yields the numerator and the row
 sum together; the denominator then carries the numerator's bf16 rounding.
+Both kernels are built from one design (``csrc/attention_fwd.cuh``), so the
+ratio measures the denominator alone.
 
 Shapes are the three CAM scales at inference batch 16 (x2 flip, x2 branch
 folded into the batch): BH = 64 * 12, D = 64, N = 197, 785, 1765.  Prints per

@@ -11,7 +11,9 @@ elementwise pass that scales q and rounds it to bf16, then kernel K1
 (``csrc/exp_attention_bnhd.cu``) alone, which scales q as it loads it.  The
 reference variant also saved the transposes to and from a (BH, N, D) layout;
 K1 reads and writes (B, N, H, D) by strides already, so here neither arm has
-any, and what is measured is the scale pass.
+any, and what is measured is the scale pass.  P2 is K1's kernel
+(``csrc/attention_fwd.cuh``) with the scale applied to its q tile in shared
+memory, so the two arms give the same bits.
 
 B = 64, H = 12, D = 64, N = 197, 785, 1765.  Prints per N the median ms of
 each arm (CUDA events), their ratio and the largest difference relative to
