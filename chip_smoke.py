@@ -29,7 +29,9 @@ JAX.  Phases, each printing one result line:
 6b. COCO serving: ``make_serving_fn(coco_config())`` (81 classes) at batch
    2, crop 448, sum merge: well-formed labels, and K5 launched at V 82;
 7. K3 (PAR affinity) against its plain twin at (16, 224, 224, 3): smooth,
-   noisy and uint8-quantised images, and a ragged small case;
+   noisy and uint8-quantised images, and a ragged small case; the same bits
+   from call to call; four wrong twins (``par_affinity_wrong``) outside the
+   bound on the smooth and uint8 images; one call and back to back;
 8. K4 (PAR propagation) against its plain twin at 16 x 224^2, 10 rounds:
    C = 40 in fp32 and bf16, C = 84 in fp32, and a ragged case;
 9. the pseudo-label slice: ``make_pseudo_label_fn`` with the same model at
@@ -115,7 +117,10 @@ JAX.  Phases, each printing one result line:
 20. P3 (CRF kernel-apply with the exp taken in bf16) through its tool at
    (16, 200,704, 11) x (16, 11, 3,136) x (16, 3,136, 22) beside K5 and the
    plain tile loop, then against its twin and the fp32-exp twin (outside),
-   with pivots of logc = -inf, which give exactly 0;
+   with pivots of logc = -inf, which give exactly 0; then on the fast CRF's
+   own operands (phase 4's two 448^2 images) at V 22 and 82, every 32-column
+   slice bit-equal to a call on it alone, beside K5; its share of the bound
+   and the tool's K5 / P3 ratio;
 21. P4 (the instruction-rate probe) through its tool: six functions in fp32, five
    in bf16, (512, 1024) x 4096 passes: ms, Gop/s, each against its twin and
    beside the bound of the unit that binds it;
@@ -308,6 +313,70 @@ def crf_apply_err(got, want):
             (err.mean(0) / scale).max().item())
 
 
+def crf_images(g, dev, size=448):
+    """Two smooth (size, size, 3) images in [0, 1] with noise from ``g``,
+    the second the first upside down: the fast CRF's test scenes (phases 4
+    and 20)."""
+    import torch
+
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, size, device=dev),
+                            torch.linspace(0, 1, size, device=dev),
+                            indexing="ij")
+    img = torch.stack([torch.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)
+    img = torch.stack([img, img.flip(0)])
+    return (img + 0.03 * torch.randn(img.shape, generator=g, device=dev)
+            ).clamp(0, 1)
+
+
+def par_affinity_wrong(img, kind, dilations=(1, 2, 4, 8, 12, 24), w1=0.3,
+                       w2=0.01):
+    """K3's twin (``par_cuda.affinity_ref``) with one change: ``w2_half``
+    the position term at half its w2, ``reflect_pad`` reflect padding in
+    place of replicate (images larger than the largest dilation),
+    ``biased_std`` the variance over K and not K - 1, ``fma_var`` sum x^2
+    accumulated by fused multiply-add (emulated in float64, rounded to fp32
+    once a tap).  Each is a mistake a rewrite of the kernel can make; phase
+    7 and the CPU and card tests hold K3's 1e-5 bound against each."""
+    import torch
+
+    from dupl_tpu_torch.ops.image import shift_clamped
+    from dupl_tpu_torch.ops.par import position_affinity, tap_offsets
+
+    x = img.float().permute(0, 3, 1, 2)                        # (B, 3, H, W)
+    h, w = x.shape[2:]
+
+    def tap(dy, dx):
+        if kind != "reflect_pad":
+            return shift_clamped(x, dy, dx, axis=2)
+        iy = (torch.arange(h, device=x.device) + dy).abs()
+        ix = (torch.arange(w, device=x.device) + dx).abs()
+        iy = torch.where(iy > h - 1, 2 * (h - 1) - iy, iy)
+        ix = torch.where(ix > w - 1, 2 * (w - 1) - ix, ix)
+        return x.index_select(2, iy).index_select(3, ix)
+
+    offs = tap_offsets(dilations)
+    k = len(offs)
+    s1 = torch.zeros_like(x)
+    s2 = torch.zeros_like(x)
+    for dy, dx in offs:
+        t = tap(dy, dx)
+        s1 = s1 + t
+        s2 = ((s2.double() + t.double() * t.double()).float()
+              if kind == "fma_var" else s2 + t * t)
+    mean = s1 * (1.0 / k)
+    var = torch.clamp(s2 - k * mean * mean, min=0.0) * (
+        1.0 / (k if kind == "biased_std" else k - 1))
+    inv_w1 = torch.tensor(1.0 / w1, dtype=torch.float32, device=x.device)
+    inv = inv_w1 / (torch.sqrt(var) + 1e-8)
+    sc = torch.stack([-((tap(dy, dx) - x).abs() * inv).square().mean(dim=1)
+                      for dy, dx in offs], dim=1)              # (B, K, H, W)
+    e = torch.exp(sc - sc.amax(dim=1, keepdim=True))
+    pos = torch.tensor(position_affinity(
+        dilations, w1, w2 / 2 if kind == "w2_half" else w2),
+        dtype=torch.float32, device=x.device)
+    return e / e.sum(dim=1, keepdim=True) + pos[None, :, None, None]
+
+
 def main() -> int:
     import torch
 
@@ -342,13 +411,13 @@ def main() -> int:
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s | ptxas serialised no "
           f"wgmma (a build that it does fails)", flush=True)
-    # K5's, K4's and the attention forward's (K1, L1f, P1, P2) registers and
-    # spills per instantiation (ptxas -v): a spill would put a pass's
-    # accumulators, a pixel's affinities or a score tile in local memory, so
-    # it fails the build phase.
+    # K5's, K4's, the attention forward's (K1, L1f, P1, P2), K3's and P3's
+    # registers and spills per instantiation (ptxas -v): a spill would put a
+    # pass's accumulators, a pixel's affinities or logits or a score tile in
+    # local memory, so it fails the build phase.
     for name in ("crf_apply", "par_propagate", "exp_attention",
                  "flash_attention", "exp_attention_ones",
-                 "exp_attention_bnhd"):
+                 "exp_attention_bnhd", "par_affinity", "crf_apply_bf16"):
         usage = build.ptxas_usage(name)
         check(bool(usage), f"{name}: no ptxas -v lines in its build log")
         for fn, regs, st, ld in usage:
@@ -408,6 +477,24 @@ def main() -> int:
         """The least time the card could take: (ms, what bounds it)."""
         ops_ms = 1e3 * flops / peak_flops[kind]
         bytes_ms = 1e3 * nbytes / hbm_bytes_per_s
+        return ((ops_ms, "operations") if ops_ms >= bytes_ms
+                else (bytes_ms, "bytes"))
+
+    def k5_bound(b, n, ns, v):
+        """K5's and P3's least time: per (pixel, pivot) entry the 11-wide
+        score's 22 fp32 FLOPs outside the tensor cores, one exp on the
+        special-function unit, and the value product's 2 VP FLOPs (VP = V
+        rounded up to 8) at its own precision, bf16 x bf16 -> fp32, on the
+        tensor cores: the largest of the three, or of the bytes (basis, coef,
+        logc, values in, (N, V) out, fp32).  P3's bf16 roundings of the
+        score and the entry are no FLOPs."""
+        entries = b * n * ns
+        vp = -(-v // 8) * 8
+        ops_ms = max(1e3 * 22 * entries / peak_flops["fp32"],
+                     1e3 * entries / (peak_flops["fp32"] / 2 / 8),
+                     1e3 * 2 * vp * entries / peak_flops["bf16"])
+        bytes_ms = 1e3 * 4 * b * (n * 11 + 11 * ns + ns + ns * v + n * v) / \
+            hbm_bytes_per_s
         return ((ops_ms, "operations") if ops_ms >= bytes_ms
                 else (bytes_ms, "bytes"))
 
@@ -550,12 +637,7 @@ def main() -> int:
     # of the 11-wide score can flip that rounding for an entry.  The three
     # wrong twins of crf_apply_wrong (entries in fp32, values in fp32, the
     # exp of the bf16 score) must fall outside them, at V 22 and 82.
-    yy, xx = torch.meshgrid(torch.linspace(0, 1, 448, device=dev),
-                            torch.linspace(0, 1, 448, device=dev),
-                            indexing="ij")
-    img = torch.stack([torch.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)
-    img = torch.stack([img, img.flip(0)])
-    img = (img + 0.03 * torch.randn(img.shape, generator=g, device=dev)).clamp(0, 1)
+    img = crf_images(g, dev)
     # V 82 is COCO's fast mode (81 classes and the cell count): every
     # 32-column slice of the call must be bit-equal to a call on that slice
     # of the values alone.
@@ -806,9 +888,12 @@ def main() -> int:
     # the same fp32 operations in the same order (the kernel's sums use
     # __fmul_rn/__fadd_rn, so nvcc cannot contract them), so even where var =
     # sum x^2 - K mean^2 cancels on a flat neighbourhood they round alike;
-    # only exp and the order of the softmax sum differ, by ulps.  The bound
-    # sits well below the position term (up to ~8e-4 a tap), so a kernel
-    # with a wrong w2 or misplaced position constants fails.
+    # only exp, the order of the softmax sum and the reciprocals (1/3,
+    # 1/sum) differ, by ulps.  The bound sits well below the position term
+    # (up to ~8e-4 a tap), and on the smooth and uint8 images each wrong
+    # twin of par_affinity_wrong (w2 halved, reflect padding, the biased
+    # std, sum x^2 by FMA) must fall outside it; two calls give the same
+    # bits.
     b7, h7 = 16, 224
     yy, xx = torch.meshgrid(torch.linspace(0, 1, h7, device=dev),
                             torch.linspace(0, 1, h7, device=dev), indexing="ij")
@@ -822,7 +907,8 @@ def main() -> int:
         "uint8": (smooth * 255).round() / 255,
         "ragged": torch.rand(3, 37, 53, 3, generator=g, device=dev),
     }
-    k3 = {"err": 0.0, "ms": {}, "plain_ms": {}}
+    k3 = {"err": 0.0, "ms": {}, "ms_back_to_back": {}, "plain_ms": {},
+          "wrong_err": {}}
     for name, img in images7.items():
         got = par_cuda.affinity_cuda(img)
         torch.cuda.synchronize()
@@ -830,14 +916,30 @@ def main() -> int:
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite")
         check(err <= 1e-5, f"K3 {name}: error {err:.3g} exceeds 1e-5")
+        check(bool(torch.equal(got, par_cuda.affinity_cuda(img))),
+              f"K3 {name}: two calls differ")
         k3["err"] = max(k3["err"], err)
+        if name in ("smooth", "uint8"):
+            for kind in ("w2_half", "reflect_pad", "biased_std", "fma_var"):
+                werr = (par_affinity_wrong(img, kind) - got).abs().max().item()
+                check(werr > 1e-5, f"K3 {name}: the wrong twin {kind} lies "
+                      f"within 1e-5 ({werr:.3g})")
+                k3["wrong_err"][f"{name},{kind}"] = werr
         if name != "ragged":
             k3["ms"][name] = time_ms(lambda: par_cuda.affinity_cuda(img))
+            k3["ms_back_to_back"][name] = time_ms(
+                lambda: par_cuda.affinity_cuda(img), back_to_back=True)
             k3["plain_ms"][name] = time_ms(lambda: par_cuda.affinity_ref(img))
     aff40 = par_cuda.affinity_cuda(images7["uint8"])    # feeds phase 8
     del images7, smooth, got, want
-    print(f"[K3 par_affinity] max_abs_err {k3['err']:.4g} (bound 1e-5) | B=16, "
-          f"224^2, 48 taps | kernel ms {json.dumps(k3['ms'])} | plain ms "
+    k3_share = bound_ms(0, "fp32", 16 * 224 * 224 * (12 + 4 * 48))[0] / \
+        k3["ms"]["uint8"]
+    print(f"[K3 par_affinity] max_abs_err {k3['err']:.4g} (bound 1e-5), the "
+          f"same bits twice | wrong twins, each outside "
+          f"{json.dumps(k3['wrong_err'])} | B=16, 224^2, 48 taps | kernel ms "
+          f"{json.dumps(k3['ms'])} | back to back "
+          f"{json.dumps(k3['ms_back_to_back'])} | share of the bound (uint8, "
+          f"one call) {k3_share:.3f} | plain ms "
           f"{json.dumps(k3['plain_ms'])}", flush=True)
 
     # -- 8. K4 against its twin ------------------------------------------------------
@@ -1342,6 +1444,8 @@ def main() -> int:
           "training step's image")
     k3["err"] = max(k3["err"], err3)
     k3["ms"]["train"] = time_ms(lambda: par_cuda.affinity(img_t, *aff_args))
+    k3["ms_back_to_back"]["train"] = time_ms(
+        lambda: par_cuda.affinity(img_t, *aff_args), back_to_back=True)
     k3["plain_ms"]["train"] = time_ms(
         lambda: par_cuda.affinity_ref(img_t, *aff_args))
     got = par_cuda.propagate(masks_t, aff_t, *prop_args)
@@ -2305,7 +2409,21 @@ def main() -> int:
     # value rounds the other way: rare, and small in a sum over 3,136
     # pivots).  The wrong twin (exp of the fp32 score: K5's roundings) must
     # exceed both.  Every seventh pivot has logc = -inf; with all of them
-    # -inf the output is exactly 0.
+    # -inf the output is exactly 0.  Then the same bounds on the fast CRF's
+    # own operands (phase 4's two 448^2 images, whose colour terms reach
+    # ~2,600 and cancel) at V 22 and 82, where every 32-column slice of the
+    # call is bit-equal to a call on that slice alone, beside K5.
+    def p3_err(got, want, wrong):
+        """(max, mean) over columns of |got - want| over the column's scale,
+        and the same of the wrong twin, whose mean takes the smallest
+        column."""
+        scale = want.abs().amax(dim=(0, 1))
+        e, w = (got - want).abs(), (got - wrong).abs()
+        return ((e.amax(dim=(0, 1)) / scale).max().item(),
+                (e.mean(dim=(0, 1)) / scale).max().item(),
+                (w.amax(dim=(0, 1)) / scale).max().item(),
+                (w.mean(dim=(0, 1)) / scale).min().item())
+
     p3_records, p3_launches = tool_run("crf_apply_bf16", crf_tool.run)
     rec20 = p3_records[0]
     ops20 = list(crf_tool.make_inputs(rec20["batch"], rec20["n"], rec20["ns"],
@@ -2315,14 +2433,11 @@ def main() -> int:
     torch.cuda.synchronize()
     rows20 = rec20["n"] // 16
     want = experiments.kernel_apply_bf16_ref(*ops20, block_rows=rows20)
-    wrong = crf_cuda.kernel_apply_ref(*ops20, block_rows=rows20)
-    scale20 = want.abs().amax(dim=(0, 1))
-    err20, werr20 = (got - want).abs(), (got - wrong).abs()
-    p3 = {"err": err20.max().item(),
-          "max_rel": (err20.amax(dim=(0, 1)) / scale20).max().item(),
-          "mean_rel": (err20.mean(dim=(0, 1)) / scale20).max().item(),
-          "wrong_max_rel": (werr20.amax(dim=(0, 1)) / scale20).max().item(),
-          "wrong_mean_rel": (werr20.mean(dim=(0, 1)) / scale20).min().item()}
+    errs = p3_err(got, want, crf_cuda.kernel_apply_ref(*ops20,
+                                                       block_rows=rows20))
+    p3 = {"err": (got - want).abs().max().item(), "max_rel": errs[0],
+          "mean_rel": errs[1], "wrong_max_rel": errs[2],
+          "wrong_mean_rel": errs[3]}
     check(bool(torch.isfinite(got).all()), "P3: non-finite")
     check(p3["max_rel"] <= 5e-4 and p3["mean_rel"] <= 1e-4,
           f"P3 vs its twin: {p3['max_rel']:.2e} max, {p3['mean_rel']:.2e} mean "
@@ -2330,7 +2445,7 @@ def main() -> int:
     check(p3["wrong_max_rel"] > 5e-4 and p3["wrong_mean_rel"] > 1e-4,
           f"P3: the fp32-exp twin is inside the bounds "
           f"({p3['wrong_max_rel']:.2e}, {p3['wrong_mean_rel']:.2e})")
-    del want, wrong, err20, werr20
+    del want
     ops20[2].fill_(float("-inf"))
     check(experiments.kernel_apply_bf16(*ops20).abs().max().item() == 0.0,
           "P3: pivots with logc = -inf do not give exactly 0")
@@ -2340,6 +2455,37 @@ def main() -> int:
         *ops20, block_rows=rows20), iters=2, warmup=1)
     del ops20, got
     torch.cuda.empty_cache()
+    img = crf_images(g, dev)
+    crf20 = list(crf.pivot_lattice(img, 8, 121.0, 5.0)[:3])
+    p3["crf"] = {}
+    for nv in (22, 82):
+        vals = torch.rand(2, crf20[1].shape[2], nv, generator=g, device=dev) * 2.0
+        vals[..., -1] = 64.0
+        got = experiments.kernel_apply_bf16(*crf20, vals)
+        torch.cuda.synchronize()
+        errs = p3_err(got, experiments.kernel_apply_bf16_ref(*crf20, vals),
+                      crf_cuda.kernel_apply_ref(*crf20, vals))
+        check(bool(torch.isfinite(got).all()) and errs[0] <= 5e-4
+              and errs[1] <= 1e-4,
+              f"P3 on the CRF's operands, V {nv}: {errs[0]:.2e} max, "
+              f"{errs[1]:.2e} mean of the column (bounds 5e-4, 1e-4)")
+        check(errs[2] > 5e-4 and errs[3] > 1e-4,
+              f"P3 on the CRF's operands, V {nv}: the fp32-exp twin is inside "
+              f"the bounds ({errs[2]:.2e}, {errs[3]:.2e})")
+        for c0 in range(0, nv, 32):
+            part = experiments.kernel_apply_bf16(
+                *crf20, vals[..., c0:c0 + 32].contiguous())
+            check(torch.equal(got[..., c0:c0 + 32], part),
+                  f"P3 V={nv}: columns {c0}.. differ from a call on them alone")
+        key = f"B=2,N={crf20[0].shape[1]},Ns={crf20[1].shape[2]},V={nv}"
+        p3["crf"][key] = {
+            "err_rel": errs[:2], "wrong_rel": errs[2:],
+            "ms": time_ms(lambda: experiments.kernel_apply_bf16(*crf20, vals)),
+            "k5_ms": time_ms(lambda: crf_cuda.kernel_apply(*crf20, vals))}
+    del crf20, img, vals, got, part
+    torch.cuda.empty_cache()
+    p3_bound = k5_bound(rec20["batch"], rec20["n"], rec20["ns"], rec20["v"])
+    p3["share"] = p3_bound[0] / rec20["bf16_ms"]
     print(f"[P3 crf_apply_bf16] {key20} | max_abs_err {p3['err']:.4g}, of the "
           f"column {p3['max_rel']:.2e} max / {p3['mean_rel']:.2e} mean (bounds "
           f"5e-4, 1e-4) | wrong twin (fp32 exp) {p3['wrong_max_rel']:.2e} / "
@@ -2349,7 +2495,12 @@ def main() -> int:
           f"{rec20['fp32_max_rel']:.2e}) | plain: its twin "
           f"{p3['plain_ms']:.1f} ms, the tool's tile loop "
           f"{rec20['plain_ms']:.1f} ms | launches of the tool's run "
-          f"{p3_launches}", flush=True)
+          f"{p3_launches} | share of the bound ({p3_bound[0]:.3f} ms, "
+          f"{p3_bound[1]}) {p3['share']:.3f} | K5 / P3 "
+          f"{rec20['fp32_ms'] / rec20['bf16_ms']:.3f} | the CRF's operands "
+          f"(error over the column: max, mean; the fp32-exp twin's; ms; K5 "
+          f"ms), every 32-column slice bit-equal {json.dumps(p3['crf'])}",
+          flush=True)
 
     # -- 21. P4 against its twin ---------------------------------------------------
     # Tolerances, written before the run.  fp32: 1e-5 * iters of the largest
@@ -2558,23 +2709,6 @@ def main() -> int:
     # the measured evaluation run for L1f, the grad_step at crop 768 for
     # L1b), each read with the counts set to 0 just before.  ``bound_ms``: from the
     # shapes timed here; each input read once, each output written once.
-    def k5_bound(b, n, ns, v):
-        """K5's least time: per (pixel, pivot) entry the 11-wide score's 22
-        fp32 FLOPs outside the tensor cores, one exp on the special-function
-        unit, and the value product's 2 VP FLOPs (VP = V rounded up to 8) at
-        its own precision, bf16 x bf16 -> fp32, on the tensor cores: the
-        largest of the three, or of the bytes (basis, coef, logc, values in,
-        (N, V) out, fp32)."""
-        entries = b * n * ns
-        vp = -(-v // 8) * 8
-        ops_ms = max(1e3 * 22 * entries / peak_flops["fp32"],
-                     1e3 * entries / (peak_flops["fp32"] / 2 / 8),
-                     1e3 * 2 * vp * entries / peak_flops["bf16"])
-        bytes_ms = 1e3 * 4 * b * (n * 11 + 11 * ns + ns + ns * v + n * v) / \
-            hbm_bytes_per_s
-        return ((ops_ms, "operations") if ops_ms >= bytes_ms
-                else (bytes_ms, "bytes"))
-
     k1_key, k2_key = "BH=192,N=1765", "B=4,N=785,H=12,D=64"
     k3_key, k4_key = "uint8", "B=16,224x224,C=40,float32"
     k5_key = "B=2,N=200704,Ns=3136,V=22"
@@ -2609,12 +2743,10 @@ def main() -> int:
         # P2: K1's work; the scale is N D multiplies a head
         "exp_attention_bnhd": bound_ms(4 * 768 * 1765 ** 2 * 64, "bf16",
                                        4 * 768 * 1765 * 64 * 2),
-        # P3 per (pixel, pivot): 11 fp32 FMAs outside the tensor cores (the
-        # 2 V FLOPs inside them take 0.45 ms at their peak, the exps 2.4 ms
-        # at the special-function unit's rate: both below the fp32 time)
-        "crf_apply_bf16": bound_ms(2 * 11 * 16 * 200704 * 3136, "fp32",
-                                   4 * 16 * (200704 * 11 + 11 * 3136 + 3136
-                                             + 3136 * 22 + 200704 * 22)),
+        # P3 as K5 counts it: the fp32 score is the design's largest term
+        # (the 2 VP FLOPs on the tensor cores take 0.49 ms at their peak,
+        # the exps 2.4 ms at the special-function unit's rate)
+        "crf_apply_bf16": p3_bound,
         # P4, the fp32 exp variant: one MUFU an element-pass
         "exp_rate": bound_ms(n21, "sfu", 2 * 4 * 512 * 1024),
     }
@@ -2683,7 +2815,12 @@ def main() -> int:
         entry("par_affinity", "par_affinity.cu",
               "dupl_tpu/ops/par_pallas.py:141", pl_launches["par_affinity"],
               k3["err"], k3["ms"][k3_key], k3["plain_ms"][k3_key], None,
-              launches_train=per_phase("par_affinity")),
+              launches_train=per_phase("par_affinity"),
+              ms_back_to_back=k3["ms_back_to_back"][k3_key],
+              ms_by_shape=k3["ms"],
+              ms_back_to_back_by_shape=k3["ms_back_to_back"],
+              plain_ms_by_shape=k3["plain_ms"],
+              wrong_twins_err=k3["wrong_err"]),
         entry("par_propagate", "par_propagate.cu",
               "dupl_tpu/ops/par_pallas.py:37", pl_launches["par_propagate"],
               k4["err"][k4_key], k4["ms"][k4_key], k4["plain_ms"][k4_key],
@@ -2724,7 +2861,10 @@ def main() -> int:
               scale_pass_and_k1_ms_by_shape=p2["k1_ms"]),
         entry("crf_apply_bf16", "crf_apply_bf16.cu",
               "tools/crf_apply_experiment.py:53", p3_launches, p3["err"],
-              rec20["bf16_ms"], p3["plain_ms"], None, k5_ms=rec20["fp32_ms"]),
+              rec20["bf16_ms"], p3["plain_ms"], None, k5_ms=rec20["fp32_ms"],
+              err_rel=[p3["max_rel"], p3["mean_rel"]],
+              wrong_rel=[p3["wrong_max_rel"], p3["wrong_mean_rel"]],
+              share_of_bound=p3["share"], crf_operands=p3["crf"]),
         entry("exp_rate", "exp_rate.cu", "tools/exp_rate_experiment.py:28",
               p4_launches, p4["err"], p4["variants"]["float32 exp"]["ms"],
               p4["variants"]["float32 exp"]["plain_ms"], None,

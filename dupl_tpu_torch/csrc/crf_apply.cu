@@ -92,36 +92,6 @@ __device__ __forceinline__ uint32_t entries(float lo, float hi) {
   return pack_bf16(__expf(lo), __expf(hi));
 }
 
-// B fragments of two k-halves (pivot rows r0..r0+7 and r0+8..r0+15 of the
-// pivot-major value tile) for one or two neighbouring n-tiles: lane L gives
-// the address of row (L & 15) of n-tile (L >> 4).
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&b)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
-               "l"(gmem)
-               : "memory");
-}
-
 template <int NT>  // 8-wide n-tiles of the value columns in one pass
 __global__ void __launch_bounds__(kThreads)
 crf_apply_kernel(const float* __restrict__ basis, const float* __restrict__ coef,

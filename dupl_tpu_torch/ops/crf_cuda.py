@@ -44,6 +44,15 @@ def _entry():
     return fn
 
 
+def _values_bf16(vals: torch.Tensor) -> torch.Tensor:
+    """K5's and P3's value operand: (B, Ns, V) rounded to bf16 once and
+    zero-padded to a multiple of 8 columns (the kernels copy them 16 bytes
+    at a time)."""
+    vb = vals.to(torch.bfloat16)
+    nv = vals.shape[-1]
+    return torch.nn.functional.pad(vb, (0, 8 - nv % 8)) if nv % 8 else vb
+
+
 def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                       logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Launch kernel K5 on the current stream; one launch covers the batch
@@ -72,11 +81,7 @@ def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
                          f"{tuple(logc.shape)} {tuple(vals.shape)}")
     if nv < 1:
         raise ValueError(f"crf kernel_apply: V must be at least 1, got {nv}")
-    # the values rounded to bf16 once, zero-padded to a multiple of 8
-    # columns: the kernel copies them 16 bytes at a time
-    vb = vals.to(torch.bfloat16)
-    if nv % 8:
-        vb = torch.nn.functional.pad(vb, (0, 8 - nv % 8))
+    vb = _values_bf16(vals)
     out = torch.empty((b, n, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

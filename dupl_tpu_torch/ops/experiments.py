@@ -14,7 +14,8 @@ or raise.
 * P2 ``exp_attention_bnhd`` (``csrc/exp_attention_bnhd.cu``): exp attention
   on (B, N, H, D) operands with the q scale applied inside the kernel.
 * P3 ``kernel_apply_bf16`` (``csrc/crf_apply_bf16.cu``): the CRF
-  kernel-apply with the clamped score rounded to bf16 before the exp.
+  kernel-apply with the clamped score rounded to bf16 before the exp, any
+  number of value columns.
 * P4 ``exp_rate`` (``csrc/exp_rate.cu``): the instruction-rate probe,
   ``acc <- acc + f(x + acc * 1e-9)`` for ``iters`` passes.
 """
@@ -27,9 +28,9 @@ import functools
 import torch
 
 from dupl_tpu_torch.ops.attention import _LOGIT_CLAMP, _check_flash_operands
+from dupl_tpu_torch.ops.crf_cuda import _values_bf16
 
 _DIM = 11
-_MAX_V = 32
 RATE_FNS = ("mul", "exp", "exp2", "exp_min", "tanh", "expf")
 
 
@@ -205,9 +206,9 @@ def _apply_entry():
 def kernel_apply_bf16_cuda(basis: torch.Tensor, coef: torch.Tensor,
                            logc: torch.Tensor,
                            vals: torch.Tensor) -> torch.Tensor:
-    """Launch kernel P3 on the current stream; one launch covers the batch.
-    All operands fp32 and contiguous on one CUDA device (the values are
-    rounded to bf16 as they are staged)."""
+    """Launch kernel P3 on the current stream; one launch covers the batch
+    and every value column (any V).  All operands fp32 and contiguous on one
+    CUDA device."""
     from dupl_tpu_torch.kernels import build
 
     dev = basis.device
@@ -229,14 +230,14 @@ def kernel_apply_bf16_cuda(basis: torch.Tensor, coef: torch.Tensor,
                          f"(B, {_DIM}, Ns), logc (B, Ns), vals (B, Ns, V); got "
                          f"{tuple(basis.shape)} {tuple(coef.shape)} "
                          f"{tuple(logc.shape)} {tuple(vals.shape)}")
-    if not 1 <= nv <= _MAX_V:
-        raise ValueError(f"kernel_apply_bf16: V must be in [1, {_MAX_V}], "
-                         f"got {nv}")
+    if nv < 1:
+        raise ValueError(f"kernel_apply_bf16: V must be at least 1, got {nv}")
+    vb = _values_bf16(vals)
     out = torch.empty((b, n, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = _apply_entry()(basis.data_ptr(), coef.data_ptr(),
-                                logc.data_ptr(), vals.data_ptr(),
+                                logc.data_ptr(), vb.data_ptr(),
                                 out.data_ptr(), b, n, ns, nv, stream)
     build.check(status, "crf_apply_bf16")
     kernel_apply_bf16_cuda.launches += 1

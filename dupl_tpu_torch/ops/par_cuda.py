@@ -17,15 +17,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
+from dupl_tpu_torch.ops.attention import _raw_stream
 from dupl_tpu_torch.ops.image import shift_clamped
 from dupl_tpu_torch.ops.par import position_affinity, tap_offsets
 
 _MAX_DILATIONS = 6     # taps held in registers: 8 per dilation
-_MAX_DILATION = 40     # K4's two haloed stages fit shared memory up to here
+_MAX_DILATION = 40     # K3's and K4's haloed tiles fit shared memory up to here
 _GROUP = 8             # bf16 mode: taps summed in bf16 before the fp32 sum
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,6 +124,15 @@ def _entries():
     return aff, prop
 
 
+@functools.lru_cache(maxsize=None)
+def _affinity_args(dilations: Tuple[int, ...], w1: float, w2: float):
+    """K3's host arguments for a dilation set: the dilations and the
+    position constants as C arrays (made once, not every call)."""
+    k = 8 * len(dilations)
+    return ((ctypes.c_int * len(dilations))(*dilations),
+            (ctypes.c_float * k)(*position_affinity(dilations, w1, w2)))
+
+
 def _check_cuda(x: torch.Tensor, name: str, dtypes, what: str) -> None:
     if not x.is_cuda:
         raise ValueError(f"{what}: {name} must be on a CUDA device, got "
@@ -146,14 +156,13 @@ def affinity_cuda(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12
         raise ValueError(f"par affinity: want imgs (B, H, W, 3), got "
                          f"{tuple(imgs.shape)}")
     b, h, w, _ = imgs.shape
-    k = 8 * len(dilations)
-    out = torch.empty((b, k, h, w), dtype=torch.float32, device=imgs.device)
-    dil = (ctypes.c_int * len(dilations))(*dilations)
-    pos = (ctypes.c_float * k)(*position_affinity(dilations, w1, w2))
+    out = torch.empty((b, 8 * len(dilations), h, w), dtype=torch.float32,
+                      device=imgs.device)
+    dil, pos = _affinity_args(tuple(dilations), float(w1), float(w2))
     with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
         status = _entries()[0](imgs.data_ptr(), out.data_ptr(), b, h, w,
-                               len(dilations), dil, pos, 1.0 / w1, stream)
+                               len(dilations), dil, pos, 1.0 / w1,
+                               _raw_stream(imgs.device))
     build.check(status, "par_affinity")
     affinity_cuda.launches += 1
     return out

@@ -134,6 +134,8 @@ def test_port_never_imports_jax():
                                     "tools/exp_attn_layout_experiment_torch.py",
                                     "tools/crf_apply_experiment_torch.py",
                                     "tools/exp_rate_experiment_torch.py",
+                                    "tools/attn_fwd_timing_torch.py",
+                                    "tools/crf_par_timing_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
     """The port's scripts import nothing of jax, flax, optax or the JAX

@@ -437,13 +437,16 @@ def _smooth_image(b, h, w, dev, seed):
 
 
 @pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (3, 1, 30),
-                                   (1, 64, 1), (2, 224, 224)])
-@pytest.mark.parametrize("dil", [DIL, (1, 3)])
+                                   (1, 64, 1), (2, 224, 224), (1, 33, 65),
+                                   (1, 96, 31)])
+@pytest.mark.parametrize("dil", [DIL, (1, 3), (2, 25, 40)])
 def test_par_affinity_shapes(dev, b, h, w, dil):
-    """K3 against its twin at ragged sizes, sizes below the largest
-    dilation (every tap clamps) and another dilation set: bound 1e-5 on
-    values in [0, 1.01] (kernel and twin round alike, even where the
-    variance cancels; see chip_smoke.py)."""
+    """K3 against its twin at ragged sizes, tiles that overhang the image
+    (K3's tiles are 32 columns by 32 rows), sizes below the largest
+    dilation (every tap clamps) and other dilation sets (up to 40, the
+    wider halo): bound 1e-5 on values in [0, 1.01] (kernel and twin round
+    alike, even where the variance cancels; see chip_smoke.py); two calls
+    give the same bits."""
     img = _smooth_image(b, h, w, dev, seed=h * w)
     n0 = par_cuda.affinity_cuda.launches
     got = par_cuda.affinity(img, dil)
@@ -453,6 +456,34 @@ def test_par_affinity_shapes(dev, b, h, w, dil):
     assert (got - want).abs().max().item() <= 1e-5
     torch.testing.assert_close(got.sum(1), torch.full_like(got[:, 0], 1.01),
                                rtol=0, atol=1e-5)
+    assert torch.equal(got, par_cuda.affinity(img, dil))
+
+
+def _phase7_image(dev, kind, b=2, h=224, seed=7):
+    """chip_smoke.py phase 7's ``smooth`` or ``uint8`` image at (b, h, h)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, h, device=dev),
+                            torch.linspace(0, 1, h, device=dev), indexing="ij")
+    smooth = torch.stack([0.5 + 0.4 * torch.sin(5 * xx + 3 * yy), yy,
+                          0.3 + 0.5 * xx * yy], -1).expand(b, h, h, 3)
+    smooth = (smooth + 0.002 * torch.randn(b, h, h, 3, generator=g,
+                                           device=dev)).clamp(0, 1)
+    return smooth if kind == "smooth" else (smooth * 255).round() / 255
+
+
+@pytest.mark.parametrize("image", ["smooth", "uint8"])
+@pytest.mark.parametrize("kind", ["w2_half", "reflect_pad", "biased_std",
+                                  "fma_var"])
+def test_par_affinity_bound_tells_a_wrong_kernel(dev, image, kind):
+    """K3's 1e-5 bound tells a changed function apart on phase 7's images:
+    the kernel lies inside it and each wrong twin of chip_smoke.py's
+    ``par_affinity_wrong`` outside."""
+    from chip_smoke import par_affinity_wrong
+
+    img = _phase7_image(dev, image)
+    got = par_cuda.affinity_cuda(img)
+    assert (got - par_cuda.affinity_ref(img)).abs().max().item() <= 1e-5
+    assert (got - par_affinity_wrong(img, kind)).abs().max().item() > 1e-5
 
 
 @pytest.mark.parametrize("c", [1, 5, 40, 84])
@@ -951,11 +982,13 @@ def _crf_operands(dev, b, n, ns, v, seed):
 
 @pytest.mark.parametrize("b,n,ns,v", [(2, 1000, 200, 22), (1, 130, 17, 1),
                                       (1, 4096, 256, 8), (2, 777, 333, 32),
-                                      (1, 50176, 784, 21)])
+                                      (1, 50176, 784, 21), (2, 1000, 200, 33),
+                                      (1, 777, 333, 82), (2, 500, 150, 130)])
 def test_kernel_apply_bf16_matches_twin(dev, b, n, ns, v):
     """P3 against its twin at ragged pixel and pivot counts and every width
-    class: at most 5e-4 of a column's largest output, 1e-4 of it on
-    average; every fifth pivot has logc = -inf."""
+    class, past one pass of 96 columns too: at most 5e-4 of a column's
+    largest output, 1e-4 of it on average; every fifth pivot has logc =
+    -inf."""
     ops = _crf_operands(dev, b, n, ns, v, seed=n)
     n0 = experiments.kernel_apply_bf16_cuda.launches
     got = experiments.kernel_apply_bf16(*ops)
@@ -977,13 +1010,58 @@ def test_kernel_apply_bf16_zero_pivots_and_wrong_twin(dev):
     assert ((got - wrong).abs().mean(dim=(0, 1)) > 1e-4 * scale).all()
     with pytest.raises(TypeError, match="float32"):
         experiments.kernel_apply_bf16_cuda(basis.double(), coef, logc, vals)
+    wide = vals.repeat(1, 1, 2)     # V 44: two n-tile classes past 32
+    got = experiments.kernel_apply_bf16_cuda(basis, coef, logc, wide)
+    want = experiments.kernel_apply_bf16_ref(basis, coef, logc, wide)
+    err, scale = (got - want).abs(), want.abs().amax(dim=(0, 1))
+    assert (err.amax(dim=(0, 1)) <= 5e-4 * scale).all()
+    assert (err.mean(dim=(0, 1)) <= 1e-4 * scale).all()
     with pytest.raises(ValueError, match="V must be"):
-        experiments.kernel_apply_bf16_cuda(basis, coef, logc,
-                                           vals.repeat(1, 1, 2))
+        experiments.kernel_apply_bf16_cuda(basis, coef, logc, vals[..., :0])
     with pytest.raises(ValueError, match="contiguous"):
         experiments.kernel_apply_bf16_cuda(basis, coef.transpose(1, 2)
                                            .contiguous().transpose(1, 2),
                                            logc, vals)
+
+
+def test_kernel_apply_bf16_column_slices_are_independent(dev):
+    """P3 at V 130 (two passes of the grid's third dimension): every
+    32-column slice of a call is bit-equal to a call on that slice of the
+    values alone."""
+    ops = _crf_operands(dev, 2, 777, 250, 130, seed=130)
+    got = experiments.kernel_apply_bf16_cuda(*ops)
+    for c0 in range(0, 130, 32):
+        part = experiments.kernel_apply_bf16_cuda(
+            *ops[:3], ops[3][..., c0:c0 + 32].contiguous())
+        assert torch.equal(got[..., c0:c0 + 32], part), c0
+
+
+@pytest.mark.parametrize("nv", [22, 82])
+def test_kernel_apply_bf16_on_crf_operands(dev, nv):
+    """P3 on the fast CRF's own operands (the pivot lattice of two smooth
+    224^2 images at the VOC widths; colour terms up to ~2,600 that cancel):
+    within P3's bounds (5e-4 max, 1e-4 mean of a column's scale), the
+    fp32-exp twin outside both."""
+    g = torch.Generator(device=dev).manual_seed(nv)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, 224, device=dev),
+                            torch.linspace(0, 1, 224, device=dev),
+                            indexing="ij")
+    img = torch.stack([torch.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)
+    img = torch.stack([img, img.flip(0)])
+    img = (img + 0.03 * torch.randn(img.shape, generator=g, device=dev)
+           ).clamp(0, 1)
+    basis, coef, logc, _, _ = crf.pivot_lattice(img, 8, 121.0, 5.0)
+    vals = torch.rand(2, coef.shape[2], nv, generator=g, device=dev) * 2.0
+    vals[..., -1] = 64.0
+    got = experiments.kernel_apply_bf16(basis, coef, logc, vals)
+    want = experiments.kernel_apply_bf16_ref(basis, coef, logc, vals)
+    wrong = crf_cuda.kernel_apply_ref(basis, coef, logc, vals)
+    scale = want.abs().amax(dim=(0, 1))
+    err, werr = (got - want).abs(), (wrong - want).abs()
+    assert (err.amax(dim=(0, 1)) <= 5e-4 * scale).all()
+    assert (err.mean(dim=(0, 1)) <= 1e-4 * scale).all()
+    assert (werr.amax(dim=(0, 1)) > 5e-4 * scale).all()
+    assert (werr.mean(dim=(0, 1)) > 1e-4 * scale).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -193,7 +193,8 @@ def _crf_operands(batch, n, ns, v, seed, inf_every=5):
     return basis, coef, logc, vals
 
 
-@pytest.mark.parametrize("n,ns,v", [(512, 128, 22), (700, 200, 5)])
+@pytest.mark.parametrize("n,ns,v", [(512, 128, 22), (700, 200, 5),
+                                    (384, 160, 40)])
 def test_apply_bf16_twin_matches_jax_kernel(interpret, n, ns, v):
     """P3's twin against ``pallas16`` in interpret mode.  Bound, per output
     column c: |err[i, c]| <= 2^-7 * sum_j k[i, j] |vals[j, c]|, two bf16
@@ -225,6 +226,109 @@ def test_apply_bf16_inf_pivots_give_zero():
     a = experiments.kernel_apply_bf16_ref(basis, coef, logc, vals)
     b = crf_cuda.kernel_apply_ref(basis, coef, logc, vals)
     assert not torch.equal(a, b)
+
+
+def _split3(x):
+    """fp32 -> three bf16 parts (as fp32 values) with x = a0 + a1 + a2 up to
+    ~2^-24 |x|: each remainder is exact in fp32, as in the kernel."""
+    a0 = x.to(torch.bfloat16).float()
+    a1 = (x - a0).to(torch.bfloat16).float()
+    return a0, a1, (x - a0 - a1).to(torch.bfloat16).float()
+
+
+def _split_score(basis, coef):
+    """P3's score as the kernel takes it on the tensor cores: basis and coef
+    split into bf16 parts, the six products that matter (bf16 x bf16 is
+    exact in fp32) summed in fp32, smallest first."""
+    a, b = _split3(basis), _split3(coef)
+    s = None
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        p = torch.matmul(a[i], b[j])
+        s = p if s is None else s + p
+    return s
+
+
+def _apply(score, logc, vals, bf16_score=True):
+    """The kernel-apply on a given score: P3's roundings (the clamped score
+    rounded to bf16 before the exp), or K5's (``bf16_score=False``)."""
+    x = torch.minimum(score, logc[:, None, :])
+    if bf16_score:
+        x = x.to(torch.bfloat16).float()
+    k = torch.exp(x).to(torch.bfloat16).float()
+    return torch.matmul(k, vals.to(torch.bfloat16).float())
+
+
+def _column_err(got, want):
+    """(max, mean) over output columns of the largest and of the mean
+    absolute error, each over the column's scale, as phase 20 reads P3."""
+    err = (got - want).abs().flatten(0, 1)
+    scale = want.abs().flatten(0, 1).amax(0)
+    return ((err.amax(0) / scale).max().item(),
+            (err.mean(0) / scale).max().item())
+
+
+def _crf_shaped_operands(v, n_pix=16384):
+    """The fast CRF's operands: ``ops.crf.pivot_lattice`` of one synthetic
+    448^2 image at the VOC config's bilateral widths (xy 121, rgb 5), whose
+    colour f^2 terms reach ~2,600 and cancel to scores of order 1; values as
+    phase 4's (uniform in [0, 2], the last column the cell count 64); the
+    output at a seeded sample of ``n_pix`` pixels."""
+    from dupl_tpu_torch.ops import crf
+
+    rs = np.random.RandomState(v)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 448), np.linspace(0, 1, 448),
+                         indexing="ij")
+    img = np.stack([np.sin(6 * xx) * 0.5 + 0.5, yy, xx * yy], -1)[None]
+    img = np.clip(img + 0.03 * rs.randn(*img.shape), 0, 1).astype(np.float32)
+    basis, coef, logc, _, _ = crf.pivot_lattice(torch.from_numpy(img), 8,
+                                                121.0, 5.0)
+    basis = basis[:, torch.from_numpy(rs.permutation(basis.shape[1])[:n_pix])]
+    vals = torch.from_numpy(rs.rand(1, coef.shape[2], v).astype(np.float32)) * 2
+    vals[..., -1] = 64.0
+    return basis.contiguous(), coef, logc, vals
+
+
+@pytest.mark.parametrize("operands,v", [("tool", 22), ("crf", 22), ("crf", 82)])
+def test_apply_bf16_split_score_emulation(operands, v):
+    """The gate of a tensor-core score for P3: the CPU emulation of a score
+    split into bf16 parts (``_split_score``) against the twin (fp32 score),
+    beside the fp32 FMA chain summed term by term (the kernel's score, in
+    another order than the CPU's matrix product).  The split is as exact as
+    an fp32 sum: mean error within half of P3's mean bound (1e-4 of a
+    column's scale), where the fp32-exp wrong twin lies outside it, and the
+    largest error within 2x of the chain's.  Printed: whether the largest
+    error is within half of P3's maximum bound (5e-4): on both operand sets
+    neither the split nor the chain is (one flipped bf16 rounding of a score
+    near -1 moves an entry by up to e^-1 2^-7), so only a score summed in
+    the twin's own order holds it, and P3 keeps the fp32 chain that the
+    card's matrix product also sums; and whether K5's bounds (2e-3, 2e-5)
+    would hold for a K5 on the split score."""
+    from chip_smoke import K5_MAX, K5_MEAN
+
+    if operands == "tool":
+        tool = _load("crf_apply_experiment_torch")
+        basis, coef, logc, vals = tool.make_inputs(1, 16384, 3136, "cpu", v=v)
+    else:
+        basis, coef, logc, vals = _crf_shaped_operands(v)
+    assert coef.shape == (1, 11, 3136)
+    fp32 = torch.matmul(basis, coef)
+    chain = basis[..., :1] * coef[:, :1]
+    for d in range(1, 11):
+        chain = chain + basis[..., d:d + 1] * coef[:, d:d + 1]
+    split = _split_score(basis, coef)
+    want = _apply(fp32, logc, vals)
+    got = _column_err(_apply(split, logc, vals), want)
+    ref = _column_err(_apply(chain, logc, vals), want)
+    wrong = _column_err(_apply(fp32, logc, vals, bf16_score=False), want)
+    k5 = _column_err(_apply(split, logc, vals, bf16_score=False),
+                     _apply(fp32, logc, vals, bf16_score=False))
+    print(f"{operands} V {v}: (max, mean) split {got}, fp32 chain {ref}, "
+          f"fp32-exp twin {wrong}; split max within half of 5e-4: "
+          f"{got[0] <= 2.5e-4}; K5 on the split score {k5}, inside K5's "
+          f"bounds: {k5[0] <= K5_MAX and k5[1] <= K5_MEAN}")
+    assert got[1] <= 0.5e-4, got
+    assert got[0] <= 2 * ref[0], (got, ref)
+    assert wrong[1] > 1e-4, wrong
 
 
 # ------------------------------------------------------------------- P4

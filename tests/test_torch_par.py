@@ -211,3 +211,32 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         par_cuda.propagate_cuda(masks.permute(0, 3, 1, 2).contiguous(), aff,
                                 DIL, 2)
+
+
+def _phase7_images(b, h, seed=0):
+    """chip_smoke.py phase 7's ``smooth`` and ``uint8`` images at (b, h, h):
+    smooth gradients plus 0.002 noise, and the same quantised to uint8 / 255
+    (flat neighbourhoods, where the variance cancels in fp32)."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, h),
+                         indexing="ij")
+    smooth = np.stack([0.5 + 0.4 * np.sin(5 * xx + 3 * yy), yy,
+                       0.3 + 0.5 * xx * yy], -1)[None]
+    smooth = np.clip(smooth + 0.002 * np.random.RandomState(seed).randn(
+        b, h, h, 3), 0, 1).astype(np.float32)
+    return {"smooth": smooth,
+            "uint8": (np.round(smooth * 255) / 255).astype(np.float32)}
+
+
+@pytest.mark.parametrize("image", ["smooth", "uint8"])
+@pytest.mark.parametrize("kind", ["w2_half", "reflect_pad", "biased_std",
+                                  "fma_var"])
+def test_affinity_bound_tells_wrong_twins(image, kind):
+    """K3's card bound (1e-5 absolute, chip_smoke.py phase 7) tells each
+    wrong twin of chip_smoke.py's ``par_affinity_wrong`` apart from the
+    function on phase 7's images at 2 x 96^2: every one lies outside it."""
+    from chip_smoke import par_affinity_wrong
+
+    x = torch.from_numpy(_phase7_images(2, 96)[image])
+    want = par_cuda.affinity_ref(x, DIL)
+    err = (par_affinity_wrong(x, kind, DIL) - want).abs().max().item()
+    assert err > 1e-5, (kind, image, err)
