@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path,
 the pseudo-label path, the training step, the evaluation path, the four
-kernel-experiment tools and the training run.
+kernel-experiment tools, the training run and the recipe's COCO inputs
+(packed records, a DeiT checkpoint, COCO training and evaluation).
 
     python3 chip_smoke.py
 
@@ -133,7 +134,31 @@ JAX.  Phases, each printing one result line:
    then ``--resume`` to step 14, which must start at step 12 on batch 12 of
    the loader's index stream; s/it per phase beside phase 12's bare step,
    the feeder's wait, the host-to-device copy, validation and checkpoint
-   times.
+   times;
+23. COCO inputs, at full width and depth (ViT-B/16, crop 448, bf16): (a) a
+   ``write_synthetic_coco`` tree (24 train and 16 ``val_part`` JPEGs of
+   281-640 px, one grayscale) packed by ``pack_coco`` into two ``.duplrec``
+   shards a split and read back through a glob, every val sample equal to
+   the tree's, and a synthetic DeiT-B/16 ``.pth`` (seeded timm-named
+   tensors under ``{"model": ...}`` with a 1000-row head and a
+   distillation token, both dropped on load); (b) ``tools/train_torch.py
+   --dataset coco --train-records --val-records --pretrained`` in-process,
+   batch 4, 6 steps through ``seg_static`` and ``full``, validation and
+   weight export at 6: both students' encoders equal the ``.pth`` bit for
+   bit before step 0, finite losses every step, the launches of K1-K4 a
+   step as in phase 13b, no twin on a CUDA tensor; the run four times,
+   fed from the shards, the tree, the tree and the shards (s/it beside
+   s/it); (c) ``tools/eval_seg_torch.py
+   --dataset coco --records`` on (b)'s ``weights.npz``, batch 8, device CRF
+   (fixed crop, scales 1.0 / 1.25 / 1.5 x flip summed at the decoder grid,
+   the full mean-field CRF: 1 + 10 K5 applies a batch at V 1 and V 81):
+   K1 72 a forward, K5 11 a CRF batch, K5 against its twin on a batch's
+   own V 81 operands within phase 4's bounds, histograms that sum to the
+   labelled pixels and equal those of the same run from the tree; an
+   untimed warm-up run from the tree, then timed runs from the shards, the
+   tree, the tree and the shards; (d)
+   ``tools/crf_width_probe_torch.py``: the fast CRF at B 16, 448^2, C 21 /
+   32 / 81, ``pos_w`` 1 and 0, one K5 launch a call.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -2703,11 +2728,409 @@ def main() -> int:
           f"{json.dumps({k_: v_ for k_, v_ in run_launches.items() if v_})} | "
           f"resumed at step 12 on batch 12 of the index stream", flush=True)
 
+    # -- 23. COCO inputs -----------------------------------------------------------
+    # The recipe's real inputs at full width and depth (ViT-B/16, crop 448,
+    # bf16 compute).  (a) A synthetic COCO tree (24 train and 16 val_part
+    # JPEGs of 281-640 px, val image 0 grayscale) packed by pack_coco into
+    # two shards a split and read back through a glob, every val sample
+    # equal to the tree's; a synthetic DeiT-B/16 .pth (seeded tensors in timm
+    # names under {"model": ...}, with the 1000-row head and the
+    # distillation token that must be dropped).  (b) tools/train_torch.py
+    # --dataset coco from the shards and from the .pth, batch 4, 6 steps
+    # (seg_static 0-2, full 3-5), validation and weight export at 6: both
+    # students' encoders equal the .pth's tensors before step 0, finite
+    # losses at every step, K1-K4 launches a step as phase 13b counts them,
+    # no twin on a CUDA tensor; four runs, the feeds alternating (s/it
+    # beside s/it).  (c) tools/eval_seg_torch.py --dataset coco on (b)'s
+    # weights.npz from the val shards and from the tree (a warm-up, then
+    # alternating), batch 8, device CRF:
+    # the COCO protocol (fixed crop 448, scales 1.0 / 1.25 / 1.5 x flip
+    # summed at the decoder grid), the full mean-field CRF (1 + 10 K5 applies
+    # a batch: V 1 for the degree, V 81 a round); the launches of K1 and K5
+    # as counted from the code; K5 against its twin on a batch's own V 81
+    # operands within phase 4's bounds; histograms that sum to the labelled
+    # pixels and equal between the runs.  (d) tools/crf_width_probe_torch
+    # .py: the fast CRF at B 16, 448^2, C 21 / 32 / 81, pos_w 1 and 0.
+    import crf_width_probe_torch
+    import eval_seg_torch
+
+    from dupl_tpu_torch.data import records as records_mod
+    from dupl_tpu_torch.data.coco import CocoSegDataset, write_synthetic_coco
+    from dupl_tpu_torch.data.voc import load_name_list
+    from dupl_tpu_torch.engine import eval_seg as eval_mod
+    from dupl_tpu_torch.models.vit import VIT_CONFIGS, ViT
+    from dupl_tpu_torch.utils import metrics as plain_metrics
+
+    ccfg23 = production_config("coco")
+    nc23 = ccfg23.num_classes
+    sizes23 = [(427, 640), (640, 480), (480, 640), (375, 500), (500, 375),
+               (281, 500), (612, 612), (360, 640)]          # (height, width)
+    twin_calls.clear()
+    originals = []
+    for mod, name in twins:
+        fn, wrapped = counting(mod, name)
+        originals.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    plain_step = train_mod.Trainer.train_step
+    plain_msc23 = eval_mod.SegEvaluator.msc_logits
+    plain_apply23 = crf_cuda.kernel_apply
+    try:
+        with tempfile.TemporaryDirectory() as tmp23:
+            # (a) the inputs
+            t = time.perf_counter()
+            root23, lists23 = write_synthetic_coco(
+                os.path.join(tmp23, "coco"), sizes23 * 2, sizes23 * 3, seed=23)
+            globs23 = {}
+            for split, n_want in (("train", 24), ("val_part", 16)):
+                n_ = records_mod.pack_coco(
+                    root23, lists23, split,
+                    os.path.join(tmp23, f"{split}.duplrec"), shards=2)
+                globs23[split] = os.path.join(tmp23, f"{split}-*.duplrec")
+                store = records_mod.RecordStore(globs23[split])
+                check(n_ == len(store) == n_want
+                      and store.path.endswith("(+1)")
+                      and store.names == load_name_list(
+                          os.path.join(lists23, split + ".txt")),
+                      f"COCO {split} shards: {n_} packed, {store.path}")
+                store.close()
+            rec_va = records_mod.RecordCocoSegDataset(globs23["val_part"],
+                                                      transfer_dtype="uint8")
+            dir_va = CocoSegDataset(root23, lists23, "val_part",
+                                    transfer_dtype="uint8")
+            for i in range(len(dir_va)):
+                a_, b_ = rec_va[i], dir_va[i]
+                check(a_["name"] == b_["name"] and all(
+                    np.array_equal(a_[k_], b_[k_])
+                    for k_ in ("image", "raw_image", "label", "cls_label")),
+                      f"COCO val sample {i}: records differ from the tree")
+            gray = dir_va[0]["raw_image"]
+            check(gray.shape[2] == 3 and np.array_equal(gray[..., 0],
+                                                        gray[..., 2]),
+                  "val image 0 is not the grayscale one")
+            labelled23 = sum(h * w - 4 for h, w in sizes23 * 2)
+            g23 = torch.Generator().manual_seed(23)
+            deit = {}
+            for k_, v_ in ViT(VIT_CONFIGS[ccfg23.model.backbone]
+                              ).state_dict().items():
+                r_ = torch.randn(v_.shape, generator=g23) * 0.02
+                deit[k_] = (1.0 + r_ if "norm" in k_ and k_.endswith("weight")
+                            else r_)
+            d23 = deit["cls_token"].shape[-1]
+            pth23 = os.path.join(tmp23, "deit_base_patch16_224.pth")
+            torch.save({"model": {
+                **deit, "head.weight": torch.randn(1000, d23, generator=g23),
+                "head.bias": torch.zeros(1000),
+                "dist_token": torch.randn(1, 1, d23, generator=g23)}}, pth23)
+            inputs_s = time.perf_counter() - t
+            shard_mb = sum(os.path.getsize(os.path.join(tmp23, e))
+                           for e in os.listdir(tmp23)
+                           if e.endswith(".duplrec")) / 1e6
+            print(f"[COCO inputs] write_synthetic_coco: 24 train, 16 val_part "
+                  f"JPEGs of 281-640 px (val 0 grayscale), packed in 2 shards "
+                  f"a split ({shard_mb:.1f} MB), "
+                  f"read back through a glob, every val sample equal to the "
+                  f"tree's | DeiT-B/16 .pth of {len(deit)} encoder tensors "
+                  f"+ head + dist_token, {os.path.getsize(pth23) / 1e6:.0f} MB "
+                  f"| {inputs_s:.1f} s", flush=True)
+
+            # (b) the training run, from the shards and from the tree
+            run_cfg = dataclasses.replace(ccfg23, cam_iters=0,
+                                          refine_switch_iters=3, gmm_iters=3)
+            steps23, starts23 = [], []
+
+            def counted_step23(self, state_, batch_, step=None, aug_ops=None):
+                if step == 0:
+                    starts23.append(all(
+                        sd_.keys() == deit.keys() and all(
+                            torch.equal(sd_[k_].cpu(), v_)
+                            for k_, v_ in deit.items())
+                        for sd_ in (state_.model.branch1.encoder.state_dict(),
+                                    state_.model.branch2.encoder.state_dict())))
+                before = {k_: f.launches for k_, f in train_counters.items()}
+                out_ = plain_step(self, state_, batch_, step, aug_ops)
+                steps23.append((step, {k_: f.launches - before[k_]
+                                       for k_, f in train_counters.items()}))
+                return out_
+
+            train_mod.Trainer.train_step = counted_step23
+            argv23 = ["--dataset", "coco", "--pretrained", pth23,
+                      "--samples-per-device", "4", "--max-iters", "6",
+                      "--cam-iters", "0", "--refine-switch-iters", "3",
+                      "--gmm-iters", "3", "--eval-iters", "6",
+                      "--log-iters", "1"]
+            feeds23 = {
+                "records": ["--train-records", globs23["train"],
+                            "--val-records", globs23["val_part"]],
+                "tree": ["--data-folder", root23, "--list-folder", lists23]}
+            # the feeds alternate (records, tree, tree, records), so that
+            # neither takes every first call at the COCO shapes
+            train23 = {"records": [], "tree": []}
+            for i23, feed in enumerate(("records", "tree", "tree",
+                                        "records")):
+                more = feeds23[feed]
+                del steps23[:], starts23[:]
+                work = os.path.join(tmp23, f"run{i23}_{feed}")
+                for f in train_counters.values():
+                    f.launches = 0
+                t = time.perf_counter()
+                check(train_torch.main(argv23 + more + ["--work-dir", work])
+                      == 0, f"the COCO training run ({feed}) did not exit 0")
+                run_s = time.perf_counter() - t
+                run_dir = os.path.join(work, os.listdir(work)[0])
+                recs = train_torch.read_metrics(os.path.join(run_dir,
+                                                             "metrics.jsonl"))
+                tr_ = [r for r in recs if r["event"] == "train"]
+                va_ = [r for r in recs if r["event"] == "val"]
+                check(starts23 == [True], f"{feed}: the students' encoders "
+                      f"are not the .pth's before step 0")
+                check([r["step"] for r in tr_] == [1, 2, 3, 4, 5, 6]
+                      and [r["phase"] for r in tr_]
+                      == ["seg_static"] * 3 + ["full"] * 3,
+                      f"{feed}: train records "
+                      f"{[(r['step'], r['phase']) for r in tr_]}")
+                check(all(np.isfinite(r[k_]) for r in tr_ for k_ in
+                          ("loss", "cls_loss", "ptc_loss", "seg_loss",
+                           "sim_loss", "reg_loss")),
+                      f"{feed}: a non-finite loss {tr_}")
+                check([r["step"] for r in va_] == [6], f"{feed}: val {va_}")
+                check([s_ for s_, _ in steps23] == list(range(6)),
+                      f"{feed}: steps {[s_ for s_, _ in steps23]}")
+                for step, got_l in steps23:
+                    want_l = cexpected[phase_of(run_cfg, step)]
+                    check(got_l == want_l, f"{feed} step {step}: launches "
+                          f"{got_l}, expected {want_l}")
+                train23[feed].append({
+                    "dir": run_dir, "run_s": run_s,
+                    "s_per_iter": statistics.median(r["s_per_iter"]
+                                                    for r in tr_[1:]),
+                    "feeder_wait_ms": statistics.median(r["feeder_wait_ms"]
+                                                        for r in tr_[1:]),
+                    "loss": [r["loss"] for r in tr_], "val_s": va_[0]["val_s"],
+                    "launches": {k_: f.launches
+                                 for k_, f in train_counters.items()}})
+            train_mod.Trainer.train_step = plain_step
+            check(not twin_calls, f"plain twins ran on CUDA tensors: "
+                  f"{twin_calls}")
+            print(f"[COCO training run] tools/train_torch.py --dataset coco "
+                  f"--pretrained, ViT-B/16, crop 448, batch 4, 6 steps "
+                  f"(seg_static 3, full 3), validation and export at 6 | "
+                  f"encoders equal the .pth before step 0 | launches a step "
+                  f"as phase 13b | runs records, tree, tree, records | "
+                  + " | ".join(
+                      f"{feed}: " + " / ".join(
+                          f"{v_['run_s']:.1f} s" for v_ in runs_) + ", "
+                      + " / ".join(f"{v_['s_per_iter']:.3f}" for v_ in runs_)
+                      + " s/it (median of steps 2-6), feeder wait "
+                      + " / ".join(f"{v_['feeder_wait_ms']:.1f}"
+                                   for v_ in runs_)
+                      + " ms, validation "
+                      + " / ".join(f"{v_['val_s']:.2f}" for v_ in runs_)
+                      + f" s, loss {[round(x, 4) for x in runs_[0]['loss']]}"
+                      for feed, runs_ in train23.items()), flush=True)
+
+            # (c) the evaluation, from the shards and from the tree
+            weights23 = os.path.join(train23["records"][0]["dir"], "checkpoints",
+                                     "weights.npz")
+            coco_counters = {"exp_attention": attention.exp_attention_cuda,
+                             "flash_attention": attention.flash_attention_cuda,
+                             "crf_apply": crf_cuda.kernel_apply_cuda}
+            forwards23, widths23, k5_23 = [], [], {}
+
+            def counted_msc23(self, x):
+                before = {k_: f.launches for k_, f in coco_counters.items()}
+                out_ = plain_msc23(self, x)
+                forwards23.append((tuple(x.shape), before, {
+                    k_: f.launches for k_, f in coco_counters.items()}))
+                return out_
+
+            def keeping_apply23(basis, coef, logc, vals, block_rows=25088):
+                widths23.append(vals.shape[-1])
+                if "operands" not in k5_23 and vals.shape[-1] == nc23:
+                    k5_23["operands"] = tuple(
+                        x.detach().float().contiguous().clone()
+                        for x in (basis, coef, logc, vals))
+                    k5_23["block_rows"] = block_rows
+                return plain_apply23(basis, coef, logc, vals, block_rows)
+
+            # the host's share: the COCO protocol resizes every class plane
+            # of the logits to the label's size on the host, in PIL
+            plain_resize23 = eval_mod.resize_logits_host
+            resize_s = [0.0]
+
+            def timed_resize23(logits, size):
+                t_ = time.perf_counter()
+                out_ = plain_resize23(logits, size)
+                resize_s[0] += time.perf_counter() - t_
+                return out_
+
+            eval_mod.SegEvaluator.msc_logits = counted_msc23
+            eval_mod.resize_logits_host = timed_resize23
+            crf_cuda.kernel_apply = keeping_apply23
+            # a warm-up run from the tree, whose time is not kept, takes
+            # the first calls at the COCO shapes; the timed runs alternate
+            eval_feeds23 = {"tree": ["--data-folder", root23,
+                                     "--list-folder", lists23],
+                            "records": ["--records", globs23["val_part"]]}
+            eval23 = {"records": [], "tree": []}
+            warm23 = None
+            for i23, feed in enumerate(("tree", "records", "tree", "tree",
+                                        "records")):
+                more = eval_feeds23[feed]
+                del forwards23[:], widths23[:]
+                resize_s[0] = 0.0
+                for f in coco_counters.values():
+                    f.launches = 0
+                t = time.perf_counter()
+                res = eval_seg_torch.main(
+                    ["--dataset", "coco", "--weights", weights23, "--crf",
+                     "device", "--batch-size", "8"] + more)
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t
+                launches23 = {k_: f.launches for k_, f in coco_counters.items()}
+                check(len(forwards23) == 4, f"{feed}: {len(forwards23)} "
+                      f"forwards in two passes of two batches")
+                for i, (shape, before, after) in enumerate(forwards23):
+                    d_ = {k_: after[k_] - before[k_] for k_ in after}
+                    check(shape == (8, 448, 448, 3)
+                          and d_ == {"exp_attention": 72,
+                                     "flash_attention": 0, "crf_apply": 0},
+                          f"{feed} forward {i} {shape}: launches {d_}")
+                    nxt = (forwards23[i + 1][1]["crf_apply"] if i < 3
+                           else launches23["crf_apply"])
+                    check(nxt - after["crf_apply"]
+                          == (0 if i < 2 else 1 + ccfg23.crf.iter_max),
+                          f"{feed}: K5 launches after forward {i}: "
+                          f"{nxt - after['crf_apply']}")
+                check(widths23 == ([1] + [nc23] * ccfg23.crf.iter_max) * 2,
+                      f"{feed}: K5 widths {widths23}")
+                for k_ in ("hist_1", "hist_2", "crf_hist"):
+                    check(res[k_].shape == (nc23, nc23)
+                          and res[k_].sum() == labelled23,
+                          f"{feed} {k_} sums to {res[k_].sum()}, labelled "
+                          f"{labelled23}")
+                check(res["crf_branch"] == res["branch"] in (1, 2)
+                      and all(np.isfinite(res[k_]["miou"]) for k_ in
+                              ("seg_score_1", "seg_score_2", "crf_score")),
+                      f"{feed}: evaluation scores")
+                run_ = {"res": res, "s": eval_s, "launches": launches23,
+                        "resize_s": resize_s[0]}
+                if i23 == 0:
+                    warm23 = run_
+                else:
+                    eval23[feed].append(run_)
+            eval_mod.SegEvaluator.msc_logits = plain_msc23
+            eval_mod.resize_logits_host = plain_resize23
+            crf_cuda.kernel_apply = plain_apply23
+            for k_ in ("hist_1", "hist_2", "crf_hist"):
+                for run_ in eval23["tree"] + eval23["records"]:
+                    check(np.array_equal(warm23["res"][k_], run_["res"][k_]),
+                          f"{k_}: a run's histogram differs from the first "
+                          f"tree run's by {np.abs(warm23['res'][k_] - run_['res'][k_]).sum() / 2:.0f} pixels")
+    finally:
+        train_mod.Trainer.train_step = plain_step
+        eval_mod.SegEvaluator.msc_logits = plain_msc23
+        eval_mod.resize_logits_host = plain_metrics.resize_logits_host
+        crf_cuda.kernel_apply = plain_apply23
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+
+    # K5 against its twin on the evaluation's own operands (bounds as in
+    # phase 4): a batch of eight 448^2 images, 3,136 pivots, V 81
+    kb, kc, kl_, kv = k5_23["operands"]
+    check(kb.shape == (8, 448 * 448, 11) and kc.shape == (8, 11, 3136)
+          and kv.shape == (8, 3136, nc23),
+          f"COCO evaluation K5 operands: {tuple(kb.shape)} {tuple(kc.shape)} "
+          f"{tuple(kv.shape)}")
+    got = crf_cuda.kernel_apply_cuda(kb, kc, kl_, kv)
+    want = crf_cuda.kernel_apply_ref(kb[:2], kc[:2], kl_[:2], kv[:2],
+                                     block_rows=k5_23["block_rows"])
+    worst, mean = crf_apply_err(got[:2], want)
+    k5_23["err"] = (got[:2] - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and worst <= K5_MAX
+          and mean <= K5_MEAN,
+          f"K5 on the COCO evaluation's operands: error {worst:.3g} / "
+          f"{mean:.3g} of the column scale (max / mean; bounds {K5_MAX} / "
+          f"{K5_MEAN})")
+    k5_23["err_rel"] = [worst, mean]
+    ones23 = torch.full((*kv.shape[:2], 1), 64.0, device=dev)  # the degree's
+    k5_23["ms_v81"] = time_ms(lambda: crf_cuda.kernel_apply_cuda(kb, kc, kl_,
+                                                                 kv))
+    k5_23["ms_back_to_back_v81"] = time_ms(
+        lambda: crf_cuda.kernel_apply_cuda(kb, kc, kl_, kv), back_to_back=True)
+    k5_23["ms_v1"] = time_ms(lambda: crf_cuda.kernel_apply_cuda(kb, kc, kl_,
+                                                                ones23))
+    k5_23["plain_ms_v81"] = time_ms(
+        lambda: crf_cuda.kernel_apply_ref(kb, kc, kl_, kv,
+                                          block_rows=k5_23["block_rows"]),
+        iters=3, warmup=1)
+    k5_23["bound_v81"] = k5_bound(8, 448 * 448, 3136, nc23)
+    ev_r = eval23["records"][0]
+
+    def rates23(runs_):
+        return (" / ".join(f"{r_['s']:.3f}" for r_ in runs_) + " s, "
+                + " / ".join(f"{16 / r_['s']:.3f}" for r_ in runs_)
+                + " img/s, "
+                + " / ".join(f"{1e3 * r_['s'] / 2:.1f}" for r_ in runs_)
+                + " ms a batch (both passes), of it "
+                + " / ".join(f"{r_['resize_s']:.3f}" for r_ in runs_)
+                + " s in the host's per-class logit resizes")
+    print(format_score_table(
+        [ev_r["res"]["seg_score_1"], ev_r["res"]["seg_score_2"],
+         ev_r["res"]["crf_score"]],
+        ["Seg_1", "Seg_2", f"branch{ev_r['res']['branch']}+CRF"],
+        ccfg23.class_list).splitlines()[-1], flush=True)
+    print(f"[COCO evaluation] tools/eval_seg_torch.py --dataset coco on the "
+          f"run's weights.npz, 16 val_part images, batch 8, fixed crop 448, "
+          f"scales 1.0/1.25/1.5 x flip summed at the decoder grid, full CRF "
+          f"(K5 V 1 + {ccfg23.crf.iter_max} x V {nc23} a batch) | a "
+          f"warm-up from the tree ({warm23['s']:.3f} s, not kept), then "
+          f"records, tree, tree, records | records {rates23(eval23['records'])}"
+          f"; tree {rates23(eval23['tree'])} | launches of a run "
+          f"{json.dumps(ev_r['launches'])} (a "
+          f"forward: K1 72; K5 {1 + ccfg23.crf.iter_max} a CRF batch) | "
+          f"histograms sum to the {labelled23} labelled pixels and equal "
+          f"between the feeds | K5 on a batch's V {nc23} operands: "
+          f"max_abs_err {k5_23['err']:.4g}, over the column scale "
+          f"{worst:.3g} / {mean:.3g} (max / mean; bounds {K5_MAX} / "
+          f"{K5_MEAN}); kernel ms V {nc23} {k5_23['ms_v81']:.4f} (back to "
+          f"back {k5_23['ms_back_to_back_v81']:.4f}), V 1 "
+          f"{k5_23['ms_v1']:.4f}, plain ms V {nc23} "
+          f"{k5_23['plain_ms_v81']:.4f}; bound "
+          f"{k5_23['bound_v81'][0]:.4f} ({k5_23['bound_v81'][1]})",
+          flush=True)
+    del kb, kc, kl_, kv, got, want, ones23, k5_23["operands"]
+    torch.cuda.empty_cache()
+
+    # (d) the width probe: one K5 launch a fast-CRF call
+    originals = []
+    for mod, name in twins:
+        fn, wrapped = counting(mod, name)
+        originals.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        crf_cuda.kernel_apply_cuda.launches = 0
+        rows23 = crf_width_probe_torch.main([])
+        probe_launches = crf_cuda.kernel_apply_cuda.launches
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    check(probe_launches == len(rows23) * 6 and len(rows23) == 6
+          and all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows23),
+          f"width probe: {probe_launches} K5 launches, rows {rows23}")
+    print(f"[COCO CRF width probe] tools/crf_width_probe_torch.py, fast CRF "
+          f"at B 16, 448^2 (K5 at V C + 1, one launch a call; "
+          f"{probe_launches} launches) | ms a call " + ", ".join(
+              f"C {r_['classes']} pos_w {r_['pos_w']:g}: {r_['ms']:.3f}"
+              for r_ in rows23), flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
     # the measured evaluation run for L1f, the grad_step at crop 768 for
-    # L1b), each read with the counts set to 0 just before.  ``bound_ms``: from the
+    # L1b), each read with the counts set to 0 just before; the
+    # ``*_coco_*`` keys are phase 23's runs, counted the same way.  ``bound_ms``: from the
     # shapes timed here; each input read once, each output written once.
     k1_key, k2_key = "BH=192,N=1765", "B=4,N=785,H=12,D=64"
     k3_key, k4_key = "uint8", "B=16,224x224,C=40,float32"
@@ -2780,6 +3203,7 @@ def main() -> int:
               library_ms_by_shape=k1["library_ms"],
               launches_pseudo_label=pl_launches["exp_attention"],
               launches_eval=eval_launches["exp_attention"],
+              launches_coco_eval=ev_r["launches"]["exp_attention"],
               launches_train=per_phase("exp_attention")),
         entry("exp_attention_bwd", "exp_attention_bwd.cu",
               "dupl_tpu/ops/attention.py:164",
@@ -2811,7 +3235,16 @@ def main() -> int:
               ms_eval_v82=k5_eval["ms_v82"],
               ms_back_to_back_eval_v82=k5_eval["ms_back_to_back_v82"],
               bound_ms_eval_v82=k5_v82_bound[0],
-              launches_coco_serving=k5_coco),
+              launches_coco_serving=k5_coco,
+              launches_coco_eval=ev_r["launches"]["crf_apply"],
+              coco_eval_shape=f"B=8,N=200704,Ns=3136,V={nc23}",
+              ms_coco_eval=k5_23["ms_v81"],
+              ms_back_to_back_coco_eval=k5_23["ms_back_to_back_v81"],
+              ms_coco_eval_v1=k5_23["ms_v1"],
+              plain_ms_coco_eval=k5_23["plain_ms_v81"],
+              err_rel_coco_eval=k5_23["err_rel"],
+              bound_ms_coco_eval=k5_23["bound_v81"][0],
+              launches_width_probe=probe_launches),
         entry("par_affinity", "par_affinity.cu",
               "dupl_tpu/ops/par_pallas.py:141", pl_launches["par_affinity"],
               k3["err"], k3["ms"][k3_key], k3["plain_ms"][k3_key], None,
@@ -2870,9 +3303,11 @@ def main() -> int:
               p4["variants"]["float32 exp"]["plain_ms"], None,
               variant="float32 exp", variants=p4["variants"]),
     ]
-    for e in kernels[:5]:   # K1-K4 in the training run
+    for e in kernels[:5]:   # K1-K4 in the training runs
         if e["name"] in run_launches and e["name"] != "crf_apply":
             e["launches_train_run"] = run_launches[e["name"]]
+            e["launches_coco_train_run"] = train23["records"][0]["launches"][
+                e["name"]]
     check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
           "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -91,12 +91,12 @@ def restore_state(ckpt_dir: str, state: TrainState,
     return state
 
 
-def export_weights(path: str, model: torch.nn.Module) -> None:
-    """Weights-only export of a ``DualStudent`` (the artifact the evaluation
-    tools load) as a flat ``.npz`` keyed by flax parameter path, every leaf
-    branch-stacked: what ``models.convert.load_weights`` and the JAX
-    package's ``checkpoint.load_weights`` read."""
-    flat = state_dict_to_jax(model.state_dict())
+def export_weights(path: str, state_dict) -> None:
+    """Weights-only export of a ``DualStudent`` state dict (the artifact the
+    evaluation tools load) as a flat ``.npz`` keyed by flax parameter path,
+    every leaf branch-stacked: what ``models.convert.load_weights`` and the
+    JAX package's ``checkpoint.load_weights`` read."""
+    flat = state_dict_to_jax(state_dict)
     tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)

@@ -109,6 +109,8 @@ def test_port_never_imports_jax():
                      "dupl_tpu_torch.engine.eval_seg",
                      "dupl_tpu_torch.ops.experiments",
                      "dupl_tpu_torch.engine.checkpoint",
+                     "dupl_tpu_torch.models.pretrained",
+                     "dupl_tpu_torch.data.coco", "dupl_tpu_torch.data.records",
                      "dupl_tpu_torch.utils.logging",
                      "dupl_tpu_torch.utils.timing"):
         assert expected in names
@@ -136,10 +138,16 @@ def test_port_never_imports_jax():
                                     "tools/exp_rate_experiment_torch.py",
                                     "tools/attn_fwd_timing_torch.py",
                                     "tools/crf_par_timing_torch.py",
+                                    "tools/convert_ref_checkpoint_torch.py",
+                                    "tools/pack_records_torch.py",
+                                    "tools/gen_cls_labels_torch.py",
+                                    "tools/bench_records_torch.py",
+                                    "tools/crf_width_probe_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
-    """The port's scripts import nothing of jax, flax, optax or the JAX
-    package, by name or by file path."""
+    """The port's scripts import nothing of jax, flax, optax, the JAX
+    package or the JAX side's tree writers (``tools/make_fake_*``), by name
+    or by file path."""
     import ast
     root = Path(dupl_tpu_torch.__file__).parents[1]
     tree = ast.parse((root / script).read_text())
@@ -151,4 +159,5 @@ def test_port_scripts_name_no_jax_module(script):
             mods.add(node.module)
     bad = ("jax", "jaxlib", "flax", "optax", "dupl_tpu")
     assert not [m for m in mods if m.split(".")[0] in bad], mods
+    assert not [m for m in mods if "make_fake" in m], mods
     assert "spec_from_file_location" not in (root / script).read_text()

@@ -155,7 +155,7 @@ def test_exported_weights_load_in_both_packages(trained, jax_params, tmp_path):
     cfg, _, state, _ = trained
     jmodel, template = jax_params
     path = str(tmp_path / "weights.npz")
-    ckpt.export_weights(path, state.model)
+    ckpt.export_weights(path, state.model.state_dict())
     assert os.listdir(tmp_path) == ["weights.npz"]      # no temp file left
     params = jckpt.load_weights(path, template)
     x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)

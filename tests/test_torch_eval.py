@@ -372,14 +372,20 @@ def test_eval_cli_on_the_cpu(setup, tmp_path):
 
 @pytest.mark.parametrize("args,message", [
     ((), "no CUDA device"),
-    (("--device", "cpu", "--dataset", "coco"), "not ported yet"),
-    (("--device", "cpu", "--records", "x.duplrec"), "not ported yet")])
+    (("--device", "cpu", "--no-data"),
+     "either --data-folder or --records is required"),
+    (("--device", "cpu", "--no-weights"), "--weights is required")])
 def test_eval_cli_refusals(setup, args, message):
     """Without a card the tool refuses to start unless told ``--device
-    cpu``; COCO and packed records are not ported yet."""
-    r = _tool("eval_seg_torch.py", "--weights", setup["path"],
-              "--data-folder", setup["root"], "--list-folder", setup["lists"],
-              *args)
+    cpu``; as the JAX tool, it needs ``--weights`` and a directory tree or
+    ``--records`` (``--no-data`` / ``--no-weights`` stand for leaving the
+    flag out)."""
+    given = [("--weights", setup["path"]), ("--data-folder", setup["root"])]
+    drop = {"--no-data": "--data-folder", "--no-weights": "--weights"}
+    argv = [x for flag, value in given if flag not in
+            {drop.get(a) for a in args} for x in (flag, value)]
+    r = _tool("eval_seg_torch.py", *argv, "--list-folder", setup["lists"],
+              *[a for a in args if a not in drop])
     assert r.returncode != 0 and message in r.stderr
 
 

@@ -223,13 +223,27 @@ def test_cli_resume_equals_the_straight_run(straight, tree, tmp_path):
     assert got == want
 
 
-@pytest.mark.parametrize("flags", [
-    ("--dataset", "coco"), ("--train-records", "x.duplrec"),
-    ("--val-records", "x.duplrec"), ("--model-parallel", "2"), ("--fsdp",),
-    ("--multihost",), ("--pretrained", "deit.pth")])
-def test_cli_refuses_what_is_not_ported(tree, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _tool().main(_argv(tree, tmp_path, *flags))
+@pytest.mark.parametrize("flags,error,message", [
+    (("--train-records", "x.duplrec"), SystemExit, "go together"),
+    (("--val-records", "x.duplrec"), SystemExit, "go together"),
+    (("--model-parallel", "2"), NotImplementedError, "not ported yet"),
+    (("--fsdp",), NotImplementedError, "not ported yet"),
+    (("--multihost",), NotImplementedError, "not ported yet"),
+    (("--no-data",), SystemExit, "either --data-folder")],
+    ids=["flags1", "flags2", "flags3", "flags4", "flags5", "no_data"])
+def test_cli_refuses_what_is_not_ported(tree, tmp_path, flags, error,
+                                        message):
+    """What is not ported, and what the JAX tool refuses as well: one
+    record flag without the other, and no input at all (``--no-data``
+    stands for leaving out ``--data-folder``).  Nothing is written."""
+    if flags == ("--no-data",):
+        argv = _argv(tree, tmp_path)
+        i = argv.index("--data-folder")
+        del argv[i:i + 2]
+    else:
+        argv = _argv(tree, tmp_path, *flags)
+    with pytest.raises(error, match=message):
+        _tool().main(argv)
     assert not os.listdir(tmp_path)
 
 

@@ -7,10 +7,14 @@ Same flags as ``tools/eval_seg.py`` (reference: tools/eval_seg_voc.py,
 tools/eval_seg_coco_ddp.py): multi-scale + flip inference, branch selection
 by raw mIoU, CRF post-processing (device mean-field by default; ``--crf
 native`` uses the C++ permutohedral oracle at native resolution).
-``--weights`` takes the ``.npz`` written by the JAX package's
-``checkpoint.export_weights``.  Plus ``--device`` (default ``cuda``):
-without a CUDA device the script refuses to start unless ``--device cpu`` is
-given.  ``--dataset coco`` and ``--records`` are not ported yet.
+``--weights`` takes the ``.npz`` written by either package's
+``checkpoint.export_weights`` (or by ``tools/convert_ref_checkpoint_torch.py``
+from a reference ``.pth``).  ``--dataset coco`` follows the reference's COCO
+protocol: split ``val_part``, the fixed crop, scales 1.0 / 1.25 / 1.5 summed
+at the scale-1.0 decoder grid.  ``--records`` reads a packed ``.duplrec``
+shard (or a glob of shards) in place of the directory tree.  Plus
+``--device`` (default ``cuda``): without a CUDA device the script refuses to
+start unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ def main(argv=None):
     p.add_argument("--data-folder", default=None,
                    help="dataset directory tree")
     p.add_argument("--records", default=None,
-                   help=".duplrec shard for the eval split (not ported yet)")
+                   help=".duplrec shard (or glob) of the eval split, in "
+                        "place of --data-folder")
     p.add_argument("--list-folder", default=None)
     p.add_argument("--label-folder", default=None, help="COCO masks root")
     p.add_argument("--weights", default=None, help="weights .npz from training")
@@ -89,17 +94,12 @@ def main(argv=None):
         return merge_main(args.merge_hists)
     if not args.weights:
         raise SystemExit("--weights is required (unless --merge-hists)")
-    if args.dataset == "coco":
-        raise SystemExit("--dataset coco is not ported yet (data/coco.py)")
-    if args.records:
-        raise SystemExit("--records is not ported yet (data/records.py)")
-    if not args.data_folder:
-        raise SystemExit("--data-folder is required")
+    if not args.data_folder and not args.records:
+        raise SystemExit("either --data-folder or --records is required")
 
     import dataclasses as dc
 
-    from dupl_tpu_torch.config import voc_config
-    from dupl_tpu_torch.data.voc import VocSegDataset
+    from dupl_tpu_torch.config import coco_config, voc_config
     from dupl_tpu_torch.engine.eval_seg import SegEvaluator, resolve_input_mode
     from dupl_tpu_torch.models.convert import load_model
     from dupl_tpu_torch.utils.device import cli_device
@@ -108,7 +108,7 @@ def main(argv=None):
     device = cli_device(args.device)
     log = setup_logger()
     args.input_mode = resolve_input_mode(args.dataset, args.input_mode, log)
-    cfg = voc_config()
+    cfg = voc_config() if args.dataset == "voc" else coco_config()
     if args.backbone:
         cfg = dc.replace(cfg, model=dc.replace(cfg.model, backbone=args.backbone))
     if args.crop_size:
@@ -117,16 +117,19 @@ def main(argv=None):
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "datasets", args.dataset)
 
-    split = args.infer_set or "val"
-    ds = VocSegDataset(args.data_folder, list_folder, split,
-                       stage="test" if split == "test" else "val",
-                       num_classes=cfg.num_classes,
-                       transfer_dtype=args.transfer_dtype)
-    scales = tuple(args.scales or (1.0, 1.5, 1.25))
+    ds = build_dataset(args, cfg, list_folder)
+    if args.dataset == "voc":
+        scales = tuple(args.scales or (1.0, 1.5, 1.25))
+        merge, merge_at = "max", "input"          # eval_seg_voc.py:76-77
+    else:
+        scales = tuple(args.scales or (1.0, 1.25, 1.5))
+        # summed at the scale-1.0 seg grid (eval_seg_coco_ddp.py:93-121)
+        merge, merge_at = "sum", "decoder"
 
     ev = SegEvaluator(cfg, load_model(cfg, args.weights, device),
-                      scales=scales, merge="max",  # eval_seg_voc.py:76-77
-                      input_mode=args.input_mode, merge_at="input")
+                      scales=scales, merge=merge, input_mode=args.input_mode,
+                      merge_at="input" if args.input_mode == "native"
+                      else merge_at)
     if args.num_shards > 1 and not (args.branch or args.ensemble):
         log.warning(
             "num_shards=%d: the branch pick below is LOCAL to this shard's "
@@ -154,6 +157,29 @@ def main(argv=None):
         names.append("ensemble+CRF" if args.ensemble else f"branch{res['branch']}+CRF")
     print(format_score_table(tables, names, cfg.class_list))
     return res
+
+
+def build_dataset(args, cfg, list_folder):
+    """The evaluation split: VOC ``--infer-set`` (default ``val``; ``test``
+    has no masks) or COCO ``--infer-set`` (default ``val_part``), from the
+    directory tree or from ``--records``."""
+    kw = dict(num_classes=cfg.num_classes, transfer_dtype=args.transfer_dtype)
+    if args.dataset == "voc":
+        split = args.infer_set or "val"
+        stage = "test" if split == "test" else "val"
+        if args.records:
+            from dupl_tpu_torch.data.records import RecordVocSegDataset
+            return RecordVocSegDataset(args.records, stage=stage, **kw)
+        from dupl_tpu_torch.data.voc import VocSegDataset
+        return VocSegDataset(args.data_folder, list_folder, split,
+                             stage=stage, **kw)
+    if args.records:
+        from dupl_tpu_torch.data.records import RecordCocoSegDataset
+        return RecordCocoSegDataset(args.records, **kw)
+    from dupl_tpu_torch.data.coco import CocoSegDataset
+    return CocoSegDataset(args.data_folder, list_folder,
+                          args.infer_set or "val_part",
+                          label_folder=args.label_folder, **kw)
 
 
 def merge_main(paths):

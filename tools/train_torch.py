@@ -14,13 +14,19 @@ exports the weights as ``.npz`` and validates.  SIGTERM / SIGINT checkpoint
 and exit 0; ``--resume`` continues from the latest checkpoint of
 ``--work-dir`` with the batches an uninterrupted run would have seen.
 
+Inputs: a VOC or COCO directory tree (``--data-folder``; COCO trains on
+``train`` and validates on ``val_part``), or packed ``.duplrec`` shards
+(``--train-records`` with ``--val-records``, from
+``tools/pack_records_torch.py``), which give the directory feed's samples
+byte for byte.  ``--pretrained`` starts both students' encoders from a DeiT /
+timm ``.pth``; a ``--resume`` that finds a checkpoint wins over it.
+
 Writes under the run directory: ``train.log``, ``metrics.jsonl`` (one JSON
 line per log, validation and end-of-run event), ``checkpoints/step_<n>.pt``
 and ``checkpoints/weights.npz``.
 
-Not ported yet, and refused: ``--dataset coco``, ``--train-records`` /
-``--val-records``, ``--model-parallel`` above 1, ``--fsdp``, ``--multihost``,
-``--pretrained``; TensorBoard output and the MFU line are not written.
+Not ported yet, and refused: ``--model-parallel`` above 1, ``--fsdp``,
+``--multihost``; TensorBoard output and the MFU line are not written.
 """
 
 from __future__ import annotations
@@ -43,13 +49,15 @@ def parse_args(argv=None):
     p.add_argument("--data-folder", default=None, help="dataset directory tree")
     p.add_argument("--list-folder", default=None)
     p.add_argument("--train-records", default=None,
-                   help="packed train shard (not ported yet)")
+                   help="packed train shard, or a glob of shards "
+                        "(with --val-records, in place of --data-folder)")
     p.add_argument("--val-records", default=None,
-                   help="packed val shard (not ported yet)")
+                   help="packed val shard, or a glob of shards")
     p.add_argument("--work-dir", default="work_dir")
     p.add_argument("--comment", default="")
     p.add_argument("--pretrained", default=None,
-                   help="DeiT .pth checkpoint (not ported yet)")
+                   help="DeiT / timm .pth checkpoint for both students' "
+                        "encoders (a checkpoint found by --resume wins)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card the tool "
                         "refuses to start unless told cpu")
@@ -100,16 +108,53 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     unported = [
-        (args.dataset == "coco", "--dataset coco"),
-        (args.train_records or args.val_records,
-         "--train-records / --val-records"),
         (args.model_parallel > 1, "--model-parallel above 1"),
         (args.fsdp, "--fsdp"), (args.multihost, "--multihost"),
-        (args.pretrained, "--pretrained"),
     ]
     for given, flag in unported:
         if given:
             raise NotImplementedError(f"{flag}: not ported yet")
+
+
+def check_inputs(args) -> None:
+    """Exit unless the inputs are a directory tree or both record flags."""
+    if not args.data_folder and not (args.train_records and args.val_records):
+        raise SystemExit("either --data-folder or --train-records + "
+                         "--val-records is required")
+    if bool(args.train_records) != bool(args.val_records):
+        raise SystemExit("--train-records and --val-records go together "
+                         "(mixing a packed train feed with a directory val "
+                         "feed is almost never intended)")
+
+
+def build_datasets(args, cfg, list_folder):
+    """(train dataset, val dataset) of the recipe: packed shards when the
+    record flags are given, else the directory tree."""
+    kw = dict(num_classes=cfg.num_classes, transfer_dtype=args.transfer_dtype)
+    train_kw = dict(kw, crop_size=cfg.data.crop_size,
+                    rescale_range=cfg.data.rescale_range,
+                    ignore_index=cfg.ignore_index)
+    if args.train_records:
+        from dupl_tpu_torch.data import records
+
+        coco = args.dataset == "coco"
+        cls_ds = (records.RecordCocoClsDataset if coco
+                  else records.RecordVocClsDataset)
+        seg_ds = (records.RecordCocoSegDataset if coco
+                  else records.RecordVocSegDataset)
+        return cls_ds(args.train_records, **train_kw), seg_ds(
+            args.val_records, **kw)
+    if args.dataset == "voc":
+        from dupl_tpu_torch.data.voc import VocClsDataset, VocSegDataset
+
+        return (VocClsDataset(args.data_folder, list_folder,
+                              cfg.data.train_split, **train_kw),
+                VocSegDataset(args.data_folder, list_folder,
+                              cfg.data.val_split, **kw))
+    from dupl_tpu_torch.data.coco import CocoClsDataset, CocoSegDataset
+
+    return (CocoClsDataset(args.data_folder, list_folder, "train", **train_kw),
+            CocoSegDataset(args.data_folder, list_folder, "val_part", **kw))
 
 
 def build_config(args):
@@ -150,24 +195,24 @@ def read_metrics(path: str):
 def main(argv=None) -> int:
     args = parse_args(argv)
     refuse_unported(args)
+    check_inputs(args)
 
     import torch
 
     from dupl_tpu_torch.config import resolve_samples_per_device
     from dupl_tpu_torch.data.pipeline import DeviceFeeder, PrefetchLoader
-    from dupl_tpu_torch.data.voc import VocClsDataset, VocSegDataset
     from dupl_tpu_torch.engine import checkpoint as ckpt
     from dupl_tpu_torch.engine.optimizer import current_lr
     from dupl_tpu_torch.engine.train import Trainer, phase_of
     from dupl_tpu_torch.engine.validate import Validator
+    from dupl_tpu_torch.models.pretrained import (install_pretrained_encoder,
+                                                  load_deit_checkpoint)
     from dupl_tpu_torch.ops import cam as cam_ops
     from dupl_tpu_torch.utils.device import cli_device
     from dupl_tpu_torch.utils.logging import AverageMeter, cal_eta, setup_logger
 
     device = cli_device(args.device)
     on_card = device.type == "cuda"
-    if not args.data_folder:
-        raise SystemExit("--data-folder is required")
     cfg = build_config(args)
     list_folder = args.list_folder or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -196,15 +241,7 @@ def main(argv=None) -> int:
                                       indent=1))
 
     # data ---------------------------------------------------------------
-    train_ds = VocClsDataset(args.data_folder, list_folder, cfg.data.train_split,
-                             crop_size=cfg.data.crop_size,
-                             rescale_range=cfg.data.rescale_range,
-                             num_classes=cfg.num_classes,
-                             ignore_index=cfg.ignore_index,
-                             transfer_dtype=args.transfer_dtype)
-    val_ds = VocSegDataset(args.data_folder, list_folder, cfg.data.val_split,
-                           num_classes=cfg.num_classes,
-                           transfer_dtype=args.transfer_dtype)
+    train_ds, val_ds = build_datasets(args, cfg, list_folder)
     if args.samples_per_device is None:
         # pin the recipe's global batch on the one device
         cfg, warn = resolve_samples_per_device(cfg, 1)
@@ -227,6 +264,12 @@ def main(argv=None) -> int:
                     if r.get("step", 0) <= state.step]
             with open(metrics_path, "w") as f:
                 f.writelines(json.dumps(r) + "\n" for r in kept)
+    elif args.pretrained:
+        # the backbone's own depth: blocks past it in the file are ignored
+        enc = load_deit_checkpoint(args.pretrained,
+                                   len(state.model.branch1.encoder.blocks))
+        install_pretrained_encoder(state.model, enc)
+        log.info("loaded pretrained encoder from %s", args.pretrained)
 
     # The loader is built AFTER the restore, so a resumed run fast-forwards
     # the deterministic index stream to the restored step: batch k is a pure
@@ -328,7 +371,7 @@ def main(argv=None) -> int:
                 path = ckpt.save_state(ckpt_dir, state)
                 ckpt_s = time.perf_counter() - t_ck
                 ckpt.export_weights(os.path.join(ckpt_dir, "weights.npz"),
-                                    state.model)
+                                    state.model.state_dict())
                 export_s = time.perf_counter() - t_ck - ckpt_s
                 log.info("validating at iter %d ...", step + 1)
                 t_val = time.perf_counter()
