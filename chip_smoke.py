@@ -129,7 +129,8 @@ JAX.  Phases, each printing one result line:
    tree of 40 train and 8 val JPEGs at full width and depth (crop 448, batch
    4, uint8 wire format): 12 steps through warm-up, seg and full with
    validation, checkpoint and weight export at steps 6 and 12, every step
-   that is neither a log nor an eval boundary under the sync debug mode, the
+   that is neither a log nor an eval boundary nor the process's first in
+   its phase under the sync debug mode, the
    launches of K1-K4 in every step as in phase 12, no twin on a CUDA tensor;
    then ``--resume`` to step 14, which must start at step 12 on batch 12 of
    the loader's index stream; s/it per phase beside phase 12's bare step,
@@ -158,7 +159,20 @@ JAX.  Phases, each printing one result line:
    untimed warm-up run from the tree, then timed runs from the shards, the
    tree, the tree and the shards; (d)
    ``tools/crf_width_probe_torch.py``: the fast CRF at B 16, 448^2, C 21 /
-   32 / 81, ``pos_w`` 1 and 0, one K5 launch a call.
+   32 / 81, ``pos_w`` 1 and 0, one K5 launch a call;
+24. data-parallel and fully-sharded training (``dupl_tpu_torch/parallel``)
+   at full width (``production_config("voc")``, ViT-B/16, crop 448, batch
+   4), three steps at the start of each phase, each phase's from the same
+   seeded weights and a fresh optimizer: (a) the bare ``Trainer``,
+   then a process group of one over NCCL, plain and FSDP, and the bare
+   ``Trainer`` again, K1-K4 launches a step as phase 12 in every arm, each
+   arm against the first bare run (``P24_FIRST_REL``, ``P24_LATER_REL``,
+   ``P24_GRAD_COS``, ``P24_LEAF_REL``); (b) two spawned ranks sharing the
+   card over gloo at batch 2 each, against the bare run at batch 4 the same
+   way; (c) ``torchrun --nproc_per_node 1 tools/train_torch.py --multihost
+   --sync-debug`` on phase 22's tree, 5 steps with validation and a
+   checkpoint at 4, then ``--resume`` to 7.  Step ms of every arm, peak
+   memory of every rank.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -172,8 +186,10 @@ Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -400,6 +416,341 @@ def par_affinity_wrong(img, kind, dilations=(1, 2, 4, 8, 12, 24), w1=0.3,
         dilations, w1, w2 / 2 if kind == "w2_half" else w2),
         dtype=torch.float32, device=x.device)
     return e / e.sum(dim=1, keepdim=True) + pos[None, :, None, None]
+
+
+# Phase 24: data parallel and FSDP.  In every arm each phase's steps
+# start from the same seeded weights and a fresh optimizer, so that the
+# phase's first step compares two runs on equal weights.  Bounds: the first
+# step of each phase within P24_FIRST_REL of the bare run on every logged
+# loss term (relative, absolute below 1) and P24_GRAD_COS on the cosine of
+# the whole gradient; the later steps within P24_LATER_REL on the loss
+# terms, since their weights already differ by Adam steps taken on the
+# card's run-to-run noise.  A cosine does not see a gradient scaled by a
+# constant (a reduction that averaged, or a loss constant counted on every
+# rank), so the worst leaf's relative L2 gap of the first steps is held to
+# P24_LEAF_REL: sound runs read 0.38-0.61% there (the bare run against
+# itself 0.41-0.51%), a factor of 2 reads 50%.
+P24_FIRST_REL, P24_LATER_REL, P24_GRAD_COS = 1e-3, 1e-2, 0.999
+P24_LEAF_REL = 2e-2
+P24_STEPS_A_PHASE = 3
+P24_LOSSES = ("loss", "cls_loss", "ptc_loss", "seg_loss", "sim_loss",
+              "reg_loss")
+
+
+def p24_steps(cfg):
+    """The first steps of each phase: warm-up, seg and full."""
+    from dupl_tpu_torch.engine.train import phase_start
+
+    return [phase_start(cfg, ph) + i for ph in ("warmup", "seg", "full")
+            for i in range(P24_STEPS_A_PHASE)]
+
+
+def p24_batches(n):
+    """Global batches of 4 at crop 448, one a step."""
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+
+    return [synthetic_batch(4, crop=448, num_fg=20, seed=2400 + i)
+            for i in range(n)]
+
+
+def p24_weights(cfg):
+    """The seeded initial weights, on the host."""
+    import torch
+
+    from dupl_tpu_torch.models.convert import init_weights
+    from dupl_tpu_torch.models.network import DualStudent
+
+    model = DualStudent(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    return model.state_dict()
+
+
+def p24_run(trainer, state, d, step, batch):
+    """One step on this rank's slice of a global batch: its host ms to a
+    synchronize, the launches of K1-K4 in it, and the logged metrics
+    (summed over the ranks)."""
+    import torch
+
+    from dupl_tpu_torch.ops import attention, par_cuda
+    from dupl_tpu_torch.parallel.data_parallel import (METRIC_KEYS,
+                                                       reduce_window)
+    from dupl_tpu_torch.utils.logging import AverageMeter
+
+    counters = {"exp_attention": attention.exp_attention_cuda,
+                "exp_attention_bwd": attention.exp_attention_bwd_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda}
+    b = len(batch["image"]) // d.world
+    dev_batch = trainer.put({k: v[d.batch_slice(b)] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t = time.perf_counter()
+    state, m = trainer.train_step(state, dev_batch, step=step)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    meter = AverageMeter()
+    meter.add(m)
+    return {"step": step, "ms": ms,
+            "launches": {k: f.launches for k, f in counters.items()},
+            "metrics": reduce_window(meter, d, METRIC_KEYS)}
+
+
+def p24_grad_gap(want, got):
+    """(cosine of the whole gradient, worst leaf's relative L2 gap)."""
+    check(sorted(got) == sorted(want),
+          "the gradients are not on the bare run's parameters")
+    dot = na = nb = leaf = 0.0
+    for n, w in want.items():
+        g, w = got[n].double(), w.double()
+        dot += float((g * w).sum())
+        na += float(w.square().sum())
+        nb += float(g.square().sum())
+        leaf = max(leaf, float((g - w).norm() / w.norm().clamp_min(1e-30)))
+    return dot / (na * nb) ** 0.5, leaf
+
+
+def p24_arm(dev, cfg, weights, expected, d, fsdp=False, ref=None):
+    """The phase-24 steps on this rank: per phase a fresh state from
+    ``weights``, placed by ``shard_state`` (plain or ``fsdp``), and its
+    steps.  Returns the step records, the peak memory, the memory already
+    allocated before the arm, and the first step's full gradients of each
+    phase (``ref`` None) or their gaps to ``ref``'s."""
+    import torch
+
+    from dupl_tpu_torch.engine.train import Trainer, phase_of
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.parallel.mesh import full_tensor, shard_state
+
+    steps = p24_steps(cfg)
+    batches = p24_batches(len(steps))
+    recs, grads, peak = [], {}, 0.0
+    gc.collect()     # what earlier arms left (FSDP's units hold cycles)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev) / 2 ** 30
+    for i in range(0, len(steps), P24_STEPS_A_PHASE):
+        with torch.device("meta"):       # no host init: the weights follow
+            model = DualStudent(cfg.model)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(weights)
+        trainer = Trainer(cfg, model=model, device=dev, dist=d)
+        state = shard_state(trainer.init_state(init=False), d, fsdp=fsdp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        recs.append(p24_run(trainer, state, d, steps[i], batches[i]))
+        g = {n: full_tensor(p.grad).float().cpu()
+             for n, p in state.model.named_parameters() if p.grad is not None}
+        phase = phase_of(cfg, steps[i])
+        grads[phase] = g if ref is None else p24_grad_gap(ref[phase], g)
+        del g
+        for j in range(i + 1, i + P24_STEPS_A_PHASE):
+            recs.append(p24_run(trainer, state, d, steps[j], batches[j]))
+        peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        del trainer, state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for r in recs:
+        phase = phase_of(cfg, r["step"])
+        check(r["launches"] == expected[phase],
+              f"step {r['step']} ({phase}): launches {r['launches']}, "
+              f"expected {expected[phase]}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"step {r['step']}: non-finite metrics {r['metrics']}")
+    return {"recs": recs, "peak_gib": peak, "base_gib": base, "grads": grads}
+
+
+def p24_gaps(ref, run):
+    """An arm against the bare run ``ref``: the largest relative gap of a
+    logged loss term over the first and over the later steps of the
+    phases, and the smallest gradient cosine and worst leaf gap of the
+    first steps."""
+    def loss(first):
+        return max(abs(a["metrics"][k] - b["metrics"][k])
+                   / max(1.0, abs(a["metrics"][k]))
+                   for i, (a, b) in enumerate(zip(ref["recs"], run["recs"]))
+                   if (i % P24_STEPS_A_PHASE == 0) == first
+                   for k in P24_LOSSES)
+    return {"first_loss_rel": loss(True), "later_loss_rel": loss(False),
+            "grad_cos": min(c for c, _ in run["grads"].values()),
+            "grad_leaf_rel": max(lf for _, lf in run["grads"].values())}
+
+
+def p24_within(g):
+    return (g["first_loss_rel"] <= P24_FIRST_REL
+            and g["later_loss_rel"] <= P24_LATER_REL
+            and g["grad_cos"] >= P24_GRAD_COS
+            and g["grad_leaf_rel"] <= P24_LEAF_REL)
+
+
+def p24_gloo_rank(rank, world, port, results, ref_path, expected):
+    """A rank of phase 24(b): the two ranks share card 0 and reduce over
+    gloo, which copies CUDA tensors through the host."""
+    import torch
+
+    from dupl_tpu_torch.engine.train import production_config
+    from dupl_tpu_torch.parallel.mesh import init_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    d = init_group(rank, world, dev, backend="gloo",
+                   init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        cfg = production_config("voc")
+        ref = torch.load(ref_path, weights_only=False)
+        run = p24_arm(dev, cfg, ref["weights"], expected, d,
+                      ref=ref["grads"])
+        results.put((rank, {"gaps": p24_gaps(ref, run), "recs": run["recs"],
+                            "peak_gib": run["peak_gib"],
+                            "base_gib": run["base_gib"]}))
+    finally:
+        d.close()
+
+
+def phase24(dev, expected):
+    """Phase 24, data-parallel and fully-sharded training: (a) the steps of
+    ``p24_steps`` at full width through a process group of one over NCCL,
+    plain and FSDP, against the bare Trainer; (b) two ranks sharing the card
+    over gloo at batch 2 each against one process at batch 4; (c) the
+    training tool under ``torchrun``.  Returns (a)'s launches per phase."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dupl_tpu_torch.data.voc import write_synthetic_voc
+    from dupl_tpu_torch.engine.train import phase_of, production_config
+    from dupl_tpu_torch.parallel.dryrun import free_port, spawn_ranks
+    from dupl_tpu_torch.parallel.mesh import Dist, init_group
+
+    cfg = production_config("voc")
+    steps = p24_steps(cfg)
+    weights = p24_weights(cfg)
+    bare = p24_arm(dev, cfg, weights, expected, Dist())
+    runs, gaps = {"bare": bare}, {}
+    for name, group, fsdp in (("data parallel", True, False),
+                              ("fsdp", True, True),
+                              ("bare again", False, False)):
+        d = (init_group(0, 1, dev,
+                        init_method=f"tcp://127.0.0.1:{free_port()}")
+             if group else Dist())
+        try:
+            runs[name] = p24_arm(dev, cfg, weights, expected, d, fsdp,
+                                 ref=bare["grads"])
+        finally:
+            d.close()
+        gaps[name] = p24_gaps(bare, runs[name])
+
+    def ms(run):
+        return [round(r["ms"], 1) for r in run["recs"]]
+
+    def later_ms(run):
+        """Per phase, the median ms of the steps after its first."""
+        return json.dumps({
+            phase_of(cfg, steps[i]): round(statistics.median(
+                r["ms"] for r in run["recs"][i + 1:i + P24_STEPS_A_PHASE]), 1)
+            for i in range(0, len(steps), P24_STEPS_A_PHASE)})
+
+    def rounded(g):
+        return json.dumps({k: float(f"{v:.4g}") for k, v in g.items()})
+
+    print(f"[data parallel, NCCL world 1] production_config('voc'), "
+          f"ViT-B/16 dual student, crop 448, batch 4, steps {steps} (each "
+          f"phase's from the seeded weights) | ms a step: " + "; ".join(
+              f"{n} {ms(r)}" for n, r in runs.items()) + " | median ms of "
+          f"a phase's later steps: " + "; ".join(
+              f"{n} {later_ms(r)}" for n, r in runs.items()) + " | peak GiB "
+          "[of it allocated before the arm] " + json.dumps(
+              {n: [round(r["peak_gib"], 3), round(r["base_gib"], 3)]
+               for n, r in runs.items()})
+          + f" | against the bare Trainer (bounds: first steps' loss terms "
+          f"{P24_FIRST_REL}, later steps' {P24_LATER_REL}, first steps' "
+          f"gradient cosine {P24_GRAD_COS} and worst leaf {P24_LEAF_REL}): "
+          + "; ".join(
+              f"{n} {rounded(g)}" for n, g in gaps.items())
+          + " | K1-K4 launches a step as phase 12 in every arm", flush=True)
+    for name in ("data parallel", "fsdp"):
+        check(p24_within(gaps[name]), f"{name} at NCCL world 1 against the "
+              f"bare Trainer: {gaps[name]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) two processes on card 0 over gloo, batch 2 each
+        ref_path = os.path.join(tmp, "bare.pt")
+        torch.save({"recs": bare["recs"], "grads": bare["grads"],
+                    "weights": weights}, ref_path)
+        ranks = spawn_ranks(p24_gloo_rank, 2, (ref_path, expected),
+                            timeout=900)
+        print(f"[data parallel, 2 ranks over gloo on one card] batch 2 a "
+              f"rank against one process at batch 4, the same steps | ms a "
+              f"step (rank 0) {ms(ranks[0])}, one process {ms(bare)} | median "
+              f"of the later steps {later_ms(ranks[0])}, one process "
+              f"{later_ms(bare)} | peak GiB a rank [of it allocated before "
+              f"the steps] {[[round(r['peak_gib'], 3), round(r['base_gib'], 3)] for r in ranks]} | "
+              f"against the bare Trainer (bounds as above) "
+              f"{rounded(ranks[0]['gaps'])} | K1-K4 launches a step as phase "
+              f"12 on both ranks | FSDP over gloo on CUDA tensors is not run "
+              f"(its ranks died with SIGSEGV in a trial under torch 2.11): "
+              f"FSDP's multi-rank check stays on the CPU tests", flush=True)
+        check(p24_within(ranks[0]["gaps"]),
+              f"two gloo ranks against one process: {ranks[0]['gaps']}")
+
+        # (c) the training tool under torchrun: one process, NCCL
+        sizes = [(375, 500), (500, 375), (500, 500), (333, 500), (500, 334),
+                 (281, 500), (366, 500), (480, 360)]      # phase 22's tree
+        root, lists = write_synthetic_voc(os.path.join(tmp, "voc"), sizes,
+                                          seed=22, train_sizes=sizes * 5)
+        tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tools", "train_torch.py")
+        work = os.path.join(tmp, "run")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", tool, "--multihost", "--data-folder",
+                root, "--list-folder", lists, "--cam-iters", "1",
+                "--gmm-iters", "2", "--eval-iters", "4", "--log-iters", "2",
+                "--num-workers", "4", "--sync-debug"]
+        times = []
+        # guarded by the sync debug mode: steps 0, 2 and 4, then 4 and 6
+        # after the resume (the log and eval boundaries are not); each
+        # process's first step in a phase among them
+        for more in (["--work-dir", work, "--max-iters", "5"],
+                     ["--resume", "--max-iters", "7"]):
+            if more[0] == "--resume":
+                more = more + ["--work-dir", os.path.join(
+                    work, os.listdir(work)[0])]
+            t = time.perf_counter()
+            proc = subprocess.run(argv + more, capture_output=True, text=True,
+                                  timeout=600)
+            times.append(time.perf_counter() - t)
+            check(proc.returncode == 0, f"torchrun train_torch.py {more}: "
+                  f"exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                  f"{proc.stderr[-3000:]}")
+        run = os.path.join(work, os.listdir(work)[0])
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(run, "train.log")) as f:
+            log = f.read()
+        train = [r for r in recs if r["event"] == "train"]
+        val = [r for r in recs if r["event"] == "val"]
+        done = [r for r in recs if r["event"] == "done"]
+        check([(r["step"], r["phase"]) for r in train]
+              == [(2, "seg"), (4, "full"), (6, "full")]
+              and all(math.isfinite(r[k]) for r in train for k in P24_LOSSES),
+              f"torchrun run's train records {train}")
+        check([r["step"] for r in val] == [4] and [r["step"] for r in done]
+              == [7], f"torchrun run's records {recs}")
+        check(log.count("validating at iter") == 1
+              and "resumed from step 4" in log and "rank 0 of 1" in log,
+              "torchrun run's train.log")
+        print(f"[torchrun train_torch.py] --nproc_per_node 1 --multihost "
+              f"(NCCL group of one), phase 22's tree, crop 448, batch 4, "
+              f"--sync-debug: steps 0-4 with validation and checkpoint at 4, "
+              f"then --resume to 7 | {times[0]:.1f} s and {times[1]:.1f} s "
+              f"end to end | s/it {[r['s_per_iter'] for r in train]} | val "
+              f"{val[0]['val_s']} s, checkpoint {val[0]['ckpt_s']} s | peak "
+              f"GiB {[r['peak_gib'] for r in done]}", flush=True)
+    return {name: {phase_of(cfg, r["step"]): r["launches"]
+                   for r in runs[name]["recs"]}
+            for name in ("data parallel", "fsdp")}
 
 
 def main() -> int:
@@ -3125,6 +3476,9 @@ def main() -> int:
               f"C {r_['classes']} pos_w {r_['pos_w']:g}: {r_['ms']:.3f}"
               for r_ in rows23), flush=True)
 
+    # -- 24. data-parallel and fully-sharded training ---------------------------
+    launches24 = phase24(dev, expected)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -3308,6 +3662,9 @@ def main() -> int:
             e["launches_train_run"] = run_launches[e["name"]]
             e["launches_coco_train_run"] = train23["records"][0]["launches"][
                 e["name"]]
+            for arm, by_phase in launches24.items():
+                e[f"launches_train_{arm.replace(' ', '_')}"] = {
+                    ph: n_[e["name"]] for ph, n_ in by_phase.items()}
     check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
           "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,12 @@ view's ops.  A file is written under a temporary name and renamed, so a
 killed save never leaves a half-written ``step_<n>.pt``.  The weights-only
 export for the evaluation tools is a flat ``.npz`` in the JAX package's key
 layout, which both packages load.
+
+A file has one layout whatever the world size that wrote it: under FSDP
+``save_state`` gathers the full weights and moments from every rank (a
+collective: every rank calls it) and rank 0 alone writes;
+``restore_state`` loads the file into a plain or a sharded state.  So a run
+saved at one world size, sharded or not, resumes at another.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dupl_tpu_torch.engine.train import TrainState
 from dupl_tpu_torch.models.convert import state_dict_to_jax
+from dupl_tpu_torch.parallel.mesh import full_tensor, shard_like
 
 _PREFIX, _SUFFIX = "step_", ".pt"
 
@@ -40,19 +48,44 @@ def _path(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"{_PREFIX}{step}{_SUFFIX}")
 
 
+def _writes() -> bool:
+    """Whether this process writes the run's files: rank 0, or the only
+    process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def full_model_state(model: torch.nn.Module):
+    """The model's state dict with every sharded tensor gathered (a
+    collective under FSDP: every rank calls it)."""
+    return {k: full_tensor(v) for k, v in model.state_dict().items()}
+
+
+def full_optimizer_state(optimizer):
+    """The optimizer's state dict with the moments gathered, in the layout
+    of one process (a collective under FSDP)."""
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {k: full_tensor(v) for k, v in st.items()}
+                   for i, st in sorted(sd["state"].items())}
+    return sd
+
+
 def save_state(ckpt_dir: str, state: TrainState, *, keep: int = 3) -> str:
     """Save the full training state as ``ckpt_dir/step_<n>.pt``; retains the
     ``keep`` (>= 1) most recent steps.  Reads the weights and moments off
-    the device: one wait for the work queued so far."""
+    the device: one wait for the work queued so far.  Every rank calls it;
+    rank 0 writes."""
     if keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = _path(ckpt_dir, int(state.step))
+    payload = {"model": full_model_state(state.model),
+               "optimizer": full_optimizer_state(state.optimizer),
+               "step": int(state.step),
+               "rng": state.rng.get_state()}
+    if not _writes():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = f"{path}.tmp-{os.getpid()}"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step),
-                "rng": state.rng.get_state()}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     _prune(ckpt_dir, keep)
     return path
@@ -76,7 +109,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_state(ckpt_dir: str, state: TrainState,
                   step: Optional[int] = None) -> TrainState:
     """Load a saved step (default: the latest) into ``state`` in place (a
-    freshly initialised state of the same recipe, on its device) and return
+    freshly initialised state of the same recipe, on its device, plain or
+    sharded: each rank takes its shards of the file's tensors) and return
     it."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -84,8 +118,15 @@ def restore_state(ckpt_dir: str, state: TrainState,
     device = next(state.model.parameters()).device
     payload = torch.load(_path(ckpt_dir, step), map_location=device,
                          weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    own = state.model.state_dict()
+    state.model.load_state_dict({k: shard_like(own[k], v) if k in own else v
+                                 for k, v in payload["model"].items()})
+    opt = payload["optimizer"]
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for i, st in opt["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            st[k] = shard_like(params[i], st[k])
+    state.optimizer.load_state_dict(opt)
     state.step = int(payload["step"])
     state.rng.set_state(payload["rng"].cpu())
     return state
@@ -95,7 +136,8 @@ def export_weights(path: str, state_dict) -> None:
     """Weights-only export of a ``DualStudent`` state dict (the artifact the
     evaluation tools load) as a flat ``.npz`` keyed by flax parameter path,
     every leaf branch-stacked: what ``models.convert.load_weights`` and the
-    JAX package's ``checkpoint.load_weights`` read."""
+    JAX package's ``checkpoint.load_weights`` read.  Rank 0's to call, with
+    :func:`full_model_state`."""
     flat = state_dict_to_jax(state_dict)
     tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:

@@ -18,7 +18,10 @@ utils/train_helper.py:21-53, model/model_dupl.py:119-154).
   step, as in the reference, whose AdamW skips gradient-less parameters.
 
 Updates run through ``torch._foreach`` ops, in place on the parameters and
-the moments.
+the moments.  Under FSDP (``parallel/mesh.py``) parameters, gradients and
+moments are DTensors of this rank's shards, and the same calls update the
+shards elementwise, so the sharded update is the unsharded one's, bit for
+bit, on this rank's elements.
 """
 
 from __future__ import annotations

@@ -25,6 +25,16 @@ threshold schedule come from the host's step count; every data-dependent
 gate is a ``where``; metrics come back as 0-d tensors.  The one host-side
 decision, whether the batch fits PAR's class budget, is taken from the
 batch's host copy by :meth:`Trainer.put` before anything is queued.
+
+Under data parallelism (``dist``, ``parallel/mesh.py``) each rank holds its
+slice of the global batch and computes its share of the global batch's loss:
+every count-normalised term is its local sum over the global count (the
+counts of a step summed over the ranks in one collective) and every batch
+mean its local sum over the global batch size, as the JAX package computes
+them over its one global array.  After ``backward()`` the ranks' gradients
+are summed (``parallel/data_parallel.py``), or reduce-scattered by FSDP, so
+every rank applies the gradient of the global loss.  Without a process group
+the step is the one-device step, bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from dupl_tpu_torch.ops import image as image_ops
 from dupl_tpu_torch.ops import losses as loss_ops
 from dupl_tpu_torch.ops import par as par_ops
 from dupl_tpu_torch.ops import schedule as schedule_ops
+from dupl_tpu_torch.parallel import data_parallel
+from dupl_tpu_torch.parallel.mesh import Dist, is_sharded
 
 
 def par_fn(cfg, imgs: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -92,6 +104,18 @@ class TrainState:
     optimizer: PolyWarmupAdamW
     step: int                 # completed steps, known on the host
     rng: torch.Generator      # draws the strong view's op indices
+
+
+class Norms(NamedTuple):
+    """The normalisers of a step's losses (``ops/losses.py``): the global
+    batch size, this rank's part of a loss's constant, and per loss call the
+    global counts; None everywhere for one process, where each loss
+    normalises by its own batch."""
+    batch: Optional[int] = None
+    unit: float = 1.0
+    ptc: tuple = (None, None)
+    seg: tuple = (None, None)
+    reg: tuple = (None, None)
 
 
 class LossWeights(NamedTuple):
@@ -142,12 +166,16 @@ def phase_start(cfg, phase: str) -> int:
 
 class Trainer:
     """The phase steps of one recipe on one device (``"cuda"`` unless the
-    caller names another)."""
+    caller names another); ``dist``: this process's rank among the
+    data-parallel ranks (default: one process)."""
 
     def __init__(self, cfg, model: Optional[DualStudent] = None,
-                 device="cuda"):
+                 device="cuda", dist: Optional[Dist] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dist = dist if dist is not None else Dist()
+        # phases whose gradient sets the ranks have compared
+        self._checked_phases = set()
         self.model = model or DualStudent(cfg.model)
         # The no-grad CAM passes may run a cheaper residual stream
         # (ModelConfig.cam_stream_dtype) on the same parameters.
@@ -292,18 +320,42 @@ class Trainer:
             ignore_index=cfg.ignore_index) for k in range(2)])
 
     # ------------------------------------------------------------------ phases
+    def _norms(self, batch_size: int, aff_masks, seg_labels=(),
+               reg_masks=()) -> Norms:
+        """The step's :class:`Norms`.  A data-parallel rank takes the global
+        counts of the PTC pairs of ``aff_masks``, of the seg labels (in the
+        order of the ``seg_loss`` calls) and of the consistency term's
+        ``reg_masks``, in one collective on the device."""
+        d = self.dist
+        if not d.active:
+            return Norms()
+        counts = [c for a in aff_masks for c in loss_ops.ptc_counts(a)]
+        counts += [c for lab in seg_labels
+                   for c in loss_ops.seg_counts(lab, self.cfg.ignore_index)]
+        counts += [m.sum() for m in reg_masks]
+        g = iter(d.sum_counts(counts))
+        ptc = tuple((next(g), next(g)) for _ in aff_masks)
+        seg = tuple((next(g), next(g)) for _ in seg_labels) or (None, None)
+        return Norms(batch_size * d.world, d.unit, ptc, seg,
+                     tuple(g) or (None, None))
+
     @staticmethod
-    def _common_losses(out: StudentOut, cls_label, aff_masks):
+    def _common_losses(out: StudentOut, cls_label, aff_masks, n: Norms):
         """cls + ptc + sim, shared by all phases; ``out`` leaves are
         branch-stacked (2, B, ...)."""
-        msm = loss_ops.multilabel_soft_margin_loss
+        msm = functools.partial(loss_ops.multilabel_soft_margin_loss,
+                                batch=n.batch)
         cls_loss = (msm(out.cls[0], cls_label) + msm(out.cls_aux[0], cls_label)
                     + msm(out.cls[1], cls_label)
                     + msm(out.cls_aux[1], cls_label))
-        ptc_loss = (loss_ops.masked_ptc_loss(out.fmap[0], aff_masks[0])
-                    + loss_ops.masked_ptc_loss(out.fmap[1], aff_masks[1]))
-        sim_loss = (loss_ops.discrepancy_loss(out.fmap[0], out.fmap[1])
-                    + loss_ops.discrepancy_loss(out.fmap[1], out.fmap[0]))
+        ptc_loss = (loss_ops.masked_ptc_loss(out.fmap[0], aff_masks[0],
+                                             n.ptc[0], n.unit)
+                    + loss_ops.masked_ptc_loss(out.fmap[1], aff_masks[1],
+                                               n.ptc[1], n.unit))
+        disc = functools.partial(loss_ops.discrepancy_loss, batch=n.batch,
+                                 unit=n.unit)
+        sim_loss = (disc(out.fmap[0], out.fmap[1])
+                    + disc(out.fmap[1], out.fmap[0]))
         return cls_loss, ptc_loss, sim_loss
 
     @staticmethod
@@ -317,13 +369,19 @@ class Trainer:
         fn = (~pred & true).sum()
         return 2 * tp / (2 * tp + fp + fn).clamp_min(1)
 
-    @staticmethod
-    def _metrics(total, out, cls_label, **terms) -> Dict[str, torch.Tensor]:
+    def _metrics(self, total, out, cls_label,
+                 **terms) -> Dict[str, torch.Tensor]:
         zero = total.new_zeros(())
         m = {k: terms.get(k, zero).detach() for k in
              ("cls_loss", "ptc_loss", "seg_loss", "sim_loss", "reg_loss")}
         m["cls_score"] = Trainer._train_f1(out.cls[0], cls_label)
         m["loss"] = total.detach()
+        if self.dist.active:
+            # the global F1 of a step needs its counts summed over the ranks
+            pred, true = out.cls[0].detach() > 0, cls_label > 0
+            m.update(zip(data_parallel.F1_COUNTS,
+                         ((pred & true).sum(), (pred & ~true).sum(),
+                          (~pred & true).sum())))
         return m
 
     def _loss_warmup(self, batch, w: LossWeights, step: int, aug_ops=None):
@@ -337,7 +395,8 @@ class Trainer:
         aff = self._ptc_targets(cams_aux, cls_label, batch["img_box"], grid,
                                 high_thre=None, dynamic=False)
         self._mark("labels")
-        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff)
+        n = self._norms(inputs.shape[0], aff)
+        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff, n)
         total = w.cls * cls_l + w.ptc * ptc_l + w.sim * sim_l
         return total, self._metrics(total, out, cls_label, cls_loss=cls_l,
                                     ptc_loss=ptc_l, sim_loss=sim_l)
@@ -362,11 +421,14 @@ class Trainer:
                                inputs_denorm, batch,
                                cfg.high_thre if static_refine else high_b)
         self._mark("labels")
-        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff)
+        n = self._norms(inputs.shape[0], aff, (refined[1], refined[0]))
+        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff, n)
         segs_up = image_ops.resize_bilinear(out.seg, (h, w_), batch_dims=2)
         # cross supervision: student k learns from the other's labels
-        seg_l = (loss_ops.seg_loss(segs_up[0], refined[1], cfg.ignore_index)
-                 + loss_ops.seg_loss(segs_up[1], refined[0], cfg.ignore_index))
+        seg_l = (loss_ops.seg_loss(segs_up[0], refined[1], cfg.ignore_index,
+                                   n.seg[0])
+                 + loss_ops.seg_loss(segs_up[1], refined[0], cfg.ignore_index,
+                                     n.seg[1]))
         total = (w.cls * cls_l + w.ptc * ptc_l + w.seg * seg_l
                  + w.sim * sim_l)
         return total, self._metrics(total, out, cls_label, cls_loss=cls_l,
@@ -397,30 +459,34 @@ class Trainer:
         self._mark("labels")
         out_aug = self.model(inputs_aug_small)
         self._mark("strong_forward")
-        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff)
 
         segs_up = image_ops.resize_bilinear(out.seg, (h, w_), batch_dims=2)
         segs_sg = segs_up.detach()
         filtered = self._gmm_filter(segs_sg, refined)
-        seg_l = (loss_ops.seg_loss(segs_up[0], filtered[1], cfg.ignore_index)
-                 + loss_ops.seg_loss(segs_up[1], filtered[0], cfg.ignore_index))
-
         # consistency: the strong view (trained) matches confident clean-view
         # predictions inside the other label's ignore region (voc:404-436)
-        segs_aug = image_ops.resize_bilinear(out_aug.seg.flip(3), (h, w_),
-                                             batch_dims=2)  # flipped back
         with torch.no_grad():
             m, pseudo = segs_sg.float().max(dim=-1)
             conf = torch.exp(m - torch.logsumexp(segs_sg.float(), dim=-1))
+            uncertain = [(filtered[1 - k] == cfg.ignore_index)
+                         & (conf[k] > cfg.reg_conf_thre) for k in range(2)]
+        n = self._norms(inputs.shape[0], aff, (filtered[1], filtered[0]),
+                        uncertain)
+        cls_l, ptc_l, sim_l = self._common_losses(out, cls_label, aff, n)
+        seg_l = (loss_ops.seg_loss(segs_up[0], filtered[1], cfg.ignore_index,
+                                   n.seg[0])
+                 + loss_ops.seg_loss(segs_up[1], filtered[0], cfg.ignore_index,
+                                     n.seg[1]))
+
+        segs_aug = image_ops.resize_bilinear(out_aug.seg.flip(3), (h, w_),
+                                             batch_dims=2)  # flipped back
         reg_l = 0.0
         for k in range(2):
-            uncertain = ((filtered[1 - k] == cfg.ignore_index)
-                         & (conf[k] > cfg.reg_conf_thre))
-            target = torch.where(uncertain, pseudo[k],
+            target = torch.where(uncertain[k], pseudo[k],
                                  torch.full_like(pseudo[k], cfg.ignore_index))
             ce = loss_ops.cross_entropy_map(segs_aug[k], target,
                                             cfg.ignore_index)
-            cnt = uncertain.sum()
+            cnt = uncertain[k].sum() if n.reg[k] is None else n.reg[k]
             reg_k = ce.sum() / cnt.clamp_min(1)
             reg_l = reg_l + torch.where(cnt > 0, reg_k, torch.zeros_like(reg_k))
         total = (w.cls * cls_l + w.ptc * ptc_l + w.seg * seg_l
@@ -450,16 +516,22 @@ class Trainer:
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Phase-dispatched (grads, metrics) without applying an update:
         ``loss.backward()`` into the parameters' ``.grad`` (cleared first),
-        returned by parameter name; a parameter outside the phase's graph
-        (the decoder in warm-up) has no entry.  ``aug_ops``: the strong
-        view's (aug_n, B) op indices; drawn from ``state.rng`` when None."""
+        summed over the ranks, returned by parameter name (this rank's
+        shards under FSDP); a parameter outside the phase's graph (the
+        decoder in warm-up) has no entry.  ``aug_ops``: the strong
+        view's (aug_n, global B) op indices, of which a rank takes its own
+        columns; drawn from ``state.rng`` when None (every rank draws the
+        global batch's, so the ranks' generators stay in step)."""
         step = state.step if step is None else step
         batch = self.put(batch)
         phase = phase_of(self.cfg, step)
-        if phase == "full" and aug_ops is None:
-            aug_ops = augment_ops.draw_ops(
-                state.rng, self.cfg.aug_n, batch["image"].shape[0],
-                device=self.device)
+        if phase == "full":
+            b = batch["image"].shape[0]
+            if aug_ops is None:
+                aug_ops = augment_ops.draw_ops(
+                    state.rng, self.cfg.aug_n, b * self.dist.world,
+                    device=self.device)
+            aug_ops = aug_ops[:, self.dist.batch_slice(b)]
         loss_fn = {
             "warmup": self._loss_warmup,
             "seg_static": functools.partial(self._loss_seg, static_refine=True),
@@ -472,6 +544,14 @@ class Trainer:
         self._mark("losses")
         total.backward()
         self._mark("backward")
+        if self.dist.active:
+            params = list(state.model.parameters())
+            if phase not in self._checked_phases:
+                data_parallel.check_same_grad_set(params, self.dist,
+                                                  self.device)
+                self._checked_phases.add(phase)
+            if not is_sharded(state.model):   # FSDP has reduce-scattered
+                data_parallel.reduce_gradients(params, self.dist)
         grads = {n: p.grad for n, p in state.model.named_parameters()
                  if p.grad is not None}
         return grads, metrics

@@ -16,11 +16,18 @@ that it serialised a kernel's ``wgmma.mma_async`` products (its "Potential
 Performance Loss" notes, C7510-C7515): the flash kernels are built around
 asynchronous ``wgmma`` in flight while the softmax runs, and a serialised
 build would compute the right numbers slowly without saying so.
+
+One ``nvcc`` per source and machine: a build holds an exclusive ``flock`` on
+its source file, so the ranks of a node (``torchrun`` starts one process a
+GPU) wait for the first one's compile and load its library.  The kernel
+releases the lock when its holder exits, however it exits, so a killed build
+leaves nothing behind that blocks the next.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -69,6 +76,14 @@ def build(name: str, verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(src, "rb") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():      # another process built it while we waited
+            return out
+        return _compile(src, out, verbose)
+
+
+def _compile(src: Path, out: Path, verbose: bool) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

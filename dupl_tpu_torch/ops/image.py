@@ -17,14 +17,22 @@ IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
 
 
-# Constants are copied to a device once and kept: a copy from the host waits
-# for all work queued on the device, so it must not happen on every call.
-# They are made outside inference mode, so that recorded ops may use them.
+def _on_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` (on the host) on ``device``.  A card gets it from pinned memory
+    without blocking: a copy from pageable memory waits for all work queued
+    on the card, and would stall the first step that builds a constant."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# Constants are put on a device once and kept, made outside inference mode
+# so that recorded ops may use them.
 @functools.lru_cache(maxsize=None)
 def _imagenet_stats(dtype: torch.dtype, device: torch.device):
     with torch.inference_mode(False):
-        return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
-                torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+        return (_on_device(torch.tensor(IMAGENET_MEAN, dtype=dtype), device),
+                _on_device(torch.tensor(IMAGENET_STD, dtype=dtype), device))
 
 
 def _spatial_apply(x: torch.Tensor, batch_dims: int, fn) -> torch.Tensor:
@@ -92,7 +100,8 @@ def _bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
 def _bicubic_weights_on(in_size: int, out_size: int, dtype: torch.dtype,
                         device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
-        return _bicubic_weights(in_size, out_size).to(device, dtype)
+        return _on_device(_bicubic_weights(in_size, out_size).to(dtype),
+                          device)
 
 
 def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -58,6 +58,10 @@ class AverageMeter:
         self._vals.pop(key, None)
         return val
 
+    def pop_values(self, key: str) -> list:
+        """The window's values of ``key`` as they were added, removed."""
+        return self._vals.pop(key, [])
+
 
 def cal_eta(start: datetime.datetime, cur_iter: int, total_iter: int):
     """Elapsed / remaining wall time strings (reference: utils/pyutils.py:46-56)."""

@@ -5,6 +5,7 @@ port's rule that it never imports JAX."""
 import pkgutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -77,6 +78,32 @@ LOG
     assert len(list((tmp_path / "build").glob("par_propagate-*.log"))) == 1
 
 
+def test_one_nvcc_per_source_and_machine(monkeypatch, tmp_path):
+    """Builders of one source that start together (the ranks of a node)
+    run the compiler once: the others wait on the source's lock and load
+    the first one's library; another source builds alongside."""
+    nvcc = tmp_path / "nvcc"
+    calls = tmp_path / "calls"
+    nvcc.write_text(f"""#!/bin/sh
+while [ $# -gt 0 ]; do [ "$1" = -o ] && out="$2"; src="$1"; shift; done
+echo "$src" >> {calls}
+sleep 0.5
+: > "$out"
+""")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    names = ["par_propagate"] * 4 + ["crf_apply"]
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(build.build, names))
+    assert len(set(paths[:4])) == 1 and paths[4] != paths[0]
+    built = sorted(Path(line).name for line in calls.read_text().split())
+    assert built == ["crf_apply.cu", "par_propagate.cu"]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [paths[0].name, paths[0].with_suffix(".log").name, paths[4].name,
+         paths[4].with_suffix(".log").name])
+
+
 def test_library_name_follows_the_sources():
     """The cache key covers every source, header and flag."""
     src = build.CSRC / "exp_attention.cu"
@@ -112,7 +139,10 @@ def test_port_never_imports_jax():
                      "dupl_tpu_torch.models.pretrained",
                      "dupl_tpu_torch.data.coco", "dupl_tpu_torch.data.records",
                      "dupl_tpu_torch.utils.logging",
-                     "dupl_tpu_torch.utils.timing"):
+                     "dupl_tpu_torch.utils.timing",
+                     "dupl_tpu_torch.parallel.mesh",
+                     "dupl_tpu_torch.parallel.data_parallel",
+                     "dupl_tpu_torch.parallel.dryrun"):
         assert expected in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -227,15 +227,18 @@ def test_cli_resume_equals_the_straight_run(straight, tree, tmp_path):
     (("--train-records", "x.duplrec"), SystemExit, "go together"),
     (("--val-records", "x.duplrec"), SystemExit, "go together"),
     (("--model-parallel", "2"), NotImplementedError, "not ported yet"),
-    (("--fsdp",), NotImplementedError, "not ported yet"),
-    (("--multihost",), NotImplementedError, "not ported yet"),
+    (("--fsdp", "--model-parallel", "2"), NotImplementedError,
+     "tensor parallelism"),
+    (("--multihost",), SystemExit, "torchrun's environment"),
     (("--no-data",), SystemExit, "either --data-folder")],
     ids=["flags1", "flags2", "flags3", "flags4", "flags5", "no_data"])
 def test_cli_refuses_what_is_not_ported(tree, tmp_path, flags, error,
                                         message):
-    """What is not ported, and what the JAX tool refuses as well: one
-    record flag without the other, and no input at all (``--no-data``
-    stands for leaving out ``--data-folder``).  Nothing is written."""
+    """What is not ported (tensor parallelism, with or without ``--fsdp``),
+    and what the JAX tool refuses as well: one record flag without the
+    other, ``--multihost`` outside a cluster's environment (here torchrun's),
+    and no input at all (``--no-data`` stands for leaving out
+    ``--data-folder``).  Nothing is written."""
     if flags == ("--no-data",):
         argv = _argv(tree, tmp_path)
         i = argv.index("--data-folder")

@@ -4,8 +4,19 @@ reference entry scripts: train_final_voc.py / train_final_coco.py).
     python tools/train_torch.py --dataset voc --data-folder /path/VOC2012 \
         --list-folder datasets/voc [--device cuda] [--resume]
 
-One process, one device (``--device``, a CUDA card unless told ``cpu``).  The
-loop: a ``PrefetchLoader`` decodes and augments batches on worker threads, a
+One process a device (``--device``, a CUDA card unless told ``cpu``).  Under
+``torchrun`` (one process per GPU, one node or several) the processes train
+the recipe's global batch together: each rank loads its slice of every
+global batch and the gradients are summed over the ranks
+(``dupl_tpu_torch/parallel``); ``--fsdp`` also shards the parameters and the
+Adam moments over the ranks.  Rank 0 alone writes the run's files and
+validates, while the others wait::
+
+    torchrun --nproc_per_node 8 tools/train_torch.py --data-folder VOC2012 ...
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv-endpoint HOST:29500 \
+        tools/train_torch.py --multihost [--fsdp] ...
+
+The loop: a ``PrefetchLoader`` decodes and augments batches on worker threads, a
 ``DeviceFeeder`` stages them on the device ahead of the step,
 ``Trainer.train_step`` runs the curriculum phase the host-side step count
 falls in, an ``AverageMeter`` holds the step's device scalars until the log
@@ -25,8 +36,9 @@ Writes under the run directory: ``train.log``, ``metrics.jsonl`` (one JSON
 line per log, validation and end-of-run event), ``checkpoints/step_<n>.pt``
 and ``checkpoints/weights.npz``.
 
-Not ported yet, and refused: ``--model-parallel`` above 1, ``--fsdp``,
-``--multihost``; TensorBoard output and the MFU line are not written.
+Not ported yet, and refused: ``--model-parallel`` above 1 (tensor
+parallelism is the next slice of the port); TensorBoard output and the MFU
+line are not written.
 """
 
 from __future__ import annotations
@@ -65,8 +77,10 @@ def parse_args(argv=None):
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--samples-per-device", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="above 1: not ported yet")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+                   help="above 1: not ported yet (tensor parallelism)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard parameters and Adam moments over the ranks "
+                        "(under torchrun; one process has nothing to shard)")
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in work-dir")
@@ -84,7 +98,10 @@ def parse_args(argv=None):
     p.add_argument("--profile-iters", type=int, nargs=2, default=None,
                    metavar=("START", "STOP"),
                    help="capture a torch.profiler trace between these steps")
-    p.add_argument("--multihost", action="store_true", help="not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="require torchrun's environment and form the process "
+                        "group even at one process (several nodes: every "
+                        "node runs torchrun with --nnodes)")
     p.add_argument("--backbone", default=None,
                    help="override backbone (e.g. test_tiny_patch16 for smoke)")
     p.add_argument("--crop-size", type=int, default=None)
@@ -107,13 +124,11 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    unported = [
-        (args.model_parallel > 1, "--model-parallel above 1"),
-        (args.fsdp, "--fsdp"), (args.multihost, "--multihost"),
-    ]
-    for given, flag in unported:
-        if given:
-            raise NotImplementedError(f"{flag}: not ported yet")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel above 1: not ported yet (tensor parallelism is "
+            "the next slice of the port; data parallel and --fsdp run under "
+            "torchrun)")
 
 
 def check_inputs(args) -> None:
@@ -197,6 +212,17 @@ def main(argv=None) -> int:
     refuse_unported(args)
     check_inputs(args)
 
+    from dupl_tpu_torch.parallel.mesh import init_from_env
+    from dupl_tpu_torch.utils.device import cli_device
+
+    dist, device = init_from_env(cli_device(args.device), args.multihost)
+    try:
+        return _train(args, dist, device)
+    finally:
+        dist.close()
+
+
+def _train(args, dist, device) -> int:
     import torch
 
     from dupl_tpu_torch.config import resolve_samples_per_device
@@ -205,14 +231,17 @@ def main(argv=None) -> int:
     from dupl_tpu_torch.engine.optimizer import current_lr
     from dupl_tpu_torch.engine.train import Trainer, phase_of
     from dupl_tpu_torch.engine.validate import Validator
+    from dupl_tpu_torch.models.network import DualStudent
     from dupl_tpu_torch.models.pretrained import (install_pretrained_encoder,
                                                   load_deit_checkpoint)
     from dupl_tpu_torch.ops import cam as cam_ops
-    from dupl_tpu_torch.utils.device import cli_device
+    from dupl_tpu_torch.parallel.data_parallel import (METRIC_KEYS,
+                                                     reduce_window)
+    from dupl_tpu_torch.parallel.mesh import shard_state
     from dupl_tpu_torch.utils.logging import AverageMeter, cal_eta, setup_logger
 
-    device = cli_device(args.device)
     on_card = device.type == "cuda"
+    main_rank = dist.is_main
     cfg = build_config(args)
     list_folder = args.list_folder or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -222,18 +251,24 @@ def main(argv=None) -> int:
         # resume in place: --work-dir points at the previous run directory
         work_dir = args.work_dir
     else:
-        stamp = "{0:%Y-%m-%d-%H-%M-%S}".format(datetime.datetime.now())
+        # every rank writes under rank 0's timestamp
+        stamp = dist.broadcast_object("{0:%Y-%m-%d-%H-%M-%S}".format(
+            datetime.datetime.now()))
         work_dir = os.path.join(args.work_dir, stamp + args.comment)
     ckpt_dir = os.path.join(work_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    log = setup_logger(os.path.join(work_dir, "train.log"))
+    # rank 0 owns train.log, metrics.jsonl, the exports and validation; the
+    # other ranks log to the console
+    log = setup_logger(os.path.join(work_dir, "train.log") if main_rank
+                       else None)
 
     # machine-readable twin of the text log: one JSON line per event
     metrics_path = os.path.join(work_dir, "metrics.jsonl")
 
     def jlog(**rec):
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
 
     log.info("torch %s device %s", torch.__version__,
              torch.cuda.get_device_name(device) if on_card else "cpu")
@@ -243,20 +278,33 @@ def main(argv=None) -> int:
     # data ---------------------------------------------------------------
     train_ds, val_ds = build_datasets(args, cfg, list_folder)
     if args.samples_per_device is None:
-        # pin the recipe's global batch on the one device
-        cfg, warn = resolve_samples_per_device(cfg, 1)
+        # pin the recipe's global batch over the ranks
+        cfg, warn = resolve_samples_per_device(cfg, dist.world)
         if warn:
             log.warning("%s", warn)
     batch_size = cfg.samples_per_device
-    log.info("one device (%s); batch %d", device, batch_size)
+    log.info("rank %d of %d (%s%s); batch %d a rank, global batch %d",
+             dist.rank, dist.world, device, ", fsdp" if args.fsdp else "",
+             batch_size, batch_size * dist.world)
+    if args.fsdp and not dist.active:
+        log.warning("--fsdp: one process, nothing to shard")
 
     # model/state --------------------------------------------------------
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, dist=dist)
     state = trainer.init_state()
-    if args.resume and ckpt.latest_step(ckpt_dir) is not None:
+    resumed = args.resume and ckpt.latest_step(ckpt_dir) is not None
+    if args.pretrained and not resumed:
+        # the backbone's own depth: blocks past it in the file are ignored
+        enc = load_deit_checkpoint(args.pretrained,
+                                   len(state.model.branch1.encoder.blocks))
+        install_pretrained_encoder(state.model, enc)
+        log.info("loaded pretrained encoder from %s", args.pretrained)
+    # rank 0's weights on every rank; with --fsdp, shard them
+    state = shard_state(state, dist, fsdp=args.fsdp)
+    if resumed:
         state = ckpt.restore_state(ckpt_dir, state)
         log.info("resumed from step %d", state.step)
-        if os.path.exists(metrics_path):
+        if main_rank and os.path.exists(metrics_path):
             # drop records beyond the restored step: the resumed run
             # re-executes those steps and would otherwise append a second,
             # conflicting line for the same step
@@ -264,18 +312,14 @@ def main(argv=None) -> int:
                     if r.get("step", 0) <= state.step]
             with open(metrics_path, "w") as f:
                 f.writelines(json.dumps(r) + "\n" for r in kept)
-    elif args.pretrained:
-        # the backbone's own depth: blocks past it in the file are ignored
-        enc = load_deit_checkpoint(args.pretrained,
-                                   len(state.model.branch1.encoder.blocks))
-        install_pretrained_encoder(state.model, enc)
-        log.info("loaded pretrained encoder from %s", args.pretrained)
 
     # The loader is built AFTER the restore, so a resumed run fast-forwards
     # the deterministic index stream to the restored step: batch k is a pure
-    # function of (seed, k).
+    # function of (seed, k).  Rank r loads positions [r B, (r + 1) B) of
+    # every global batch.
     loader = PrefetchLoader(train_ds, batch_size, seed=cfg.seed,
                             num_workers=args.num_workers,
+                            shard=dist.rank, num_shards=dist.world,
                             start_step=state.step)
     budget = cfg.par.class_budget
     feeder = DeviceFeeder(
@@ -283,8 +327,14 @@ def main(argv=None) -> int:
         # read from the batch's HOST copy, so no step waits for it
         host_fn=lambda b: {"fits_budget": cam_ops.fits_class_budget(
             torch.as_tensor(b["cls_label"]), budget)})
-    validator = Validator(cfg, trainer.model,
-                          transfer_dtype=args.val_transfer_dtype)
+    validator = None
+    if main_rank:
+        # a sharded model's forward is a collective: rank 0 validates a
+        # plain copy that takes the gathered weights
+        eval_model = (DualStudent(cfg.model).to(device) if args.fsdp
+                      and dist.active else trainer.model)
+        validator = Validator(cfg, eval_model,
+                              transfer_dtype=args.val_transfer_dtype)
     meter = AverageMeter()
     t0 = datetime.datetime.now()
     step_t0 = time.perf_counter()
@@ -292,7 +342,10 @@ def main(argv=None) -> int:
 
     # Preemption safety: trap SIGTERM and SIGINT into a flag the loop checks
     # every iteration: checkpoint, then exit cleanly.  With the order-exact
-    # --resume a preempted run loses at most one step of work.
+    # --resume a preempted run loses at most one step of work.  Under a
+    # process group the ranks agree on the flag at log boundaries only,
+    # where they already wait for each other, so that they all stop at the
+    # same step; such a run loses at most a log window.
     preempted = {"sig": None}
 
     def _on_term(signum, frame):
@@ -308,11 +361,13 @@ def main(argv=None) -> int:
         for batch, dev_batch in feeder:
             if step >= cfg.max_iters:
                 break
-            if preempted["sig"] is not None:
-                log.info("signal %d: checkpointing at step %d and exiting "
-                         "(resume with --resume)", preempted["sig"], step)
+            agree = not dist.active or step % cfg.log_iters == 0
+            sig = dist.max_(preempted["sig"] or 0) if agree else 0
+            if sig:
+                log.info("signal %s: checkpointing at step %d and exiting "
+                         "(resume with --resume)", sig, step)
                 ckpt.save_state(ckpt_dir, state)
-                jlog(event="preempted", step=step, signal=preempted["sig"])
+                jlog(event="preempted", step=step, signal=sig)
                 return 0
             if args.profile_iters and step == args.profile_iters[0]:
                 acts = [torch.profiler.ProfilerActivity.CPU]
@@ -334,8 +389,9 @@ def main(argv=None) -> int:
             if profiler is not None and step == args.profile_iters[1]:
                 profiler.stop()
                 os.makedirs(os.path.join(work_dir, "profile"), exist_ok=True)
-                profiler.export_chrome_trace(
-                    os.path.join(work_dir, "profile", "trace.json"))
+                profiler.export_chrome_trace(os.path.join(
+                    work_dir, "profile", f"trace-rank{dist.rank}.json"
+                    if dist.active else "trace.json"))
                 profiler = None
                 log.info("profiler trace written to %s/profile", work_dir)
 
@@ -343,11 +399,9 @@ def main(argv=None) -> int:
                 delta, eta = cal_eta(t0, step + 1 - first_step,
                                      cfg.max_iters - first_step)
                 lr = float(current_lr(cfg.optim, step, cfg.max_iters))
-                losses = {k: meter.pop(k) for k in
-                          ("cls_loss", "ptc_loss", "seg_loss", "sim_loss",
-                           "reg_loss")}
-                total_loss = meter.pop("loss")   # waits for the window's steps
-                cls_score = meter.pop("cls_score")
+                # waits for the window's steps; summed over the ranks
+                window = reduce_window(meter, dist, METRIC_KEYS)
+                losses = {k: window[k] for k in METRIC_KEYS[:5]}
                 dt = (time.perf_counter() - step_t0) / cfg.log_iters
                 step_t0 = time.perf_counter()
                 waits = feeder.wait_seconds[waited:]
@@ -363,44 +417,54 @@ def main(argv=None) -> int:
                 jlog(event="train", step=step + 1, lr=lr,
                      phase=phase_of(cfg, step), s_per_iter=round(dt, 4),
                      feeder_wait_ms=round(wait_ms, 3),
-                     loss=round(total_loss, 6), cls_f1=round(cls_score, 4),
+                     loss=round(window["loss"], 6),
+                     cls_f1=round(window["cls_score"], 4),
                      **{k: round(v, 6) for k, v in losses.items()})
 
             if eval_now:
                 t_ck = time.perf_counter()
-                path = ckpt.save_state(ckpt_dir, state)
+                path = ckpt.save_state(ckpt_dir, state)   # every rank
                 ckpt_s = time.perf_counter() - t_ck
-                ckpt.export_weights(os.path.join(ckpt_dir, "weights.npz"),
-                                    state.model.state_dict())
-                export_s = time.perf_counter() - t_ck - ckpt_s
-                log.info("validating at iter %d ...", step + 1)
-                t_val = time.perf_counter()
-                was_training = state.model.training
-                state.model.eval()
-                res = validator.run(val_ds, log=log, progress_every=200)
-                state.model.train(was_training)
-                val_s = time.perf_counter() - t_val
-                log.info("val cls F1: %.4f / %.4f",
-                         res["cls_f1_1"], res["cls_f1_2"])
-                log.info("\n%s", res["table"])
-                jlog(event="val", step=step + 1,
-                     cls_f1_1=round(res["cls_f1_1"], 4),
-                     cls_f1_2=round(res["cls_f1_2"], 4),
-                     **{f"{k}_miou": round(res[f"{k}_miou"], 4)
-                        for k in ("cam_1", "cam_2", "cam_aux_1", "cam_aux_2",
-                                  "seg_1", "seg_2")},
-                     val_s=round(val_s, 3), ckpt_s=round(ckpt_s, 3),
-                     ckpt_mb=round(os.path.getsize(path) / 1e6, 1),
-                     export_s=round(export_s, 3))
+                weights = ckpt.full_model_state(state.model)
+                if main_rank:
+                    ckpt.export_weights(os.path.join(ckpt_dir, "weights.npz"),
+                                        weights)
+                    export_s = time.perf_counter() - t_ck - ckpt_s
+                    log.info("validating at iter %d ...", step + 1)
+                    t_val = time.perf_counter()
+                    model = validator.model
+                    if model is not state.model:
+                        model.load_state_dict(weights)
+                    was_training = model.training
+                    model.eval()
+                    res = validator.run(val_ds, log=log, progress_every=200)
+                    model.train(was_training)
+                    val_s = time.perf_counter() - t_val
+                    log.info("val cls F1: %.4f / %.4f",
+                             res["cls_f1_1"], res["cls_f1_2"])
+                    log.info("\n%s", res["table"])
+                    jlog(event="val", step=step + 1,
+                         cls_f1_1=round(res["cls_f1_1"], 4),
+                         cls_f1_2=round(res["cls_f1_2"], 4),
+                         **{f"{k}_miou": round(res[f"{k}_miou"], 4)
+                            for k in ("cam_1", "cam_2", "cam_aux_1",
+                                      "cam_aux_2", "seg_1", "seg_2")},
+                         val_s=round(val_s, 3), ckpt_s=round(ckpt_s, 3),
+                         ckpt_mb=round(os.path.getsize(path) / 1e6, 1),
+                         export_s=round(export_s, 3))
+                del weights
+                dist.barrier()   # the other ranks wait for the validation
                 step_t0 = time.perf_counter()  # validation is not step time
 
             step += 1
         stats = feeder.stats(skip=min(2, max(0, step - first_step - 1)))
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if on_card else None)
+        if dist.active and peak is not None:
+            log.info("rank %d peak memory %.3f GiB", dist.rank, peak)
         jlog(event="done", step=step, feeder_wait_ms=stats["wait_ms"],
              h2d_copy_ms=stats["copy_ms"],
-             h2d_ready_share=stats["ready_share"],
-             peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
-                       if on_card else None))
+             h2d_ready_share=stats["ready_share"], peak_gib=peak)
         log.info("done.")
         return 0
     finally:
