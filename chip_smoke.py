@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port (dupl_tpu_torch): the serving path,
 the pseudo-label path, the training step, the evaluation path, the four
-kernel-experiment tools, the training run and the recipe's COCO inputs
-(packed records, a DeiT checkpoint, COCO training and evaluation).
+kernel-experiment tools, the training run, the recipe's COCO inputs
+(packed records, a DeiT checkpoint, COCO training and evaluation),
+training across processes and the sealed serving artifacts.
 
     python3 chip_smoke.py
 
@@ -172,7 +173,19 @@ JAX.  Phases, each printing one result line:
    way; (c) ``torchrun --nproc_per_node 1 tools/train_torch.py --multihost
    --sync-debug`` on phase 22's tree, 5 steps with validation and a
    checkpoint at 4, then ``--resume`` to 7.  Step ms of every arm, peak
-   memory of every rank.
+   memory of every rank;
+25. the sealed artifacts (``dupl_tpu_torch/engine/export.py``), ViT-B/16 at
+   full width and depth, seeded weights, crop 448: (a) ``export_serving`` at
+   batch 8 (MSC 1.0/1.5/1.25 x flip, ensemble, fast CRF), ``save_artifact``,
+   then ``load_artifact`` in a fresh process (``sealed_child``) on phase
+   5's 16 images: labels equal to the live ``make_serving_fn``'s on at
+   least ``P25_AGREE`` of the pixels, K1 and K5 launched as live (72 and 1 a
+   dispatch); (b) ``export_pseudo_labeler`` at batch 16, one call within
+   the class budget and one past it: both outputs as (a), K1 / K3 / K4 / K5
+   72 / 1 / 10 / 1 a call; (c) one HTTP round of 8 requests through
+   ``tools/serve_torch.py --artifact``; (d) the live and sealed dispatch ms
+   (``utils/timing.py:dispatch_ms``), the artifacts' size and export, save
+   and load seconds, K1's and K2's host us through their ops.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -751,6 +764,257 @@ def phase24(dev, expected):
     return {name: {phase_of(cfg, r["step"]): r["launches"]
                    for r in runs[name]["recs"]}
             for name in ("data parallel", "fsdp")}
+
+
+# Phase 25: the sealed artifacts.  A sealed program runs the live one's
+# kernels through the same ops, so its labels are expected bit-equal to the
+# live labels on the same card; P25_AGREE is the least share accepted.
+# Launches of one call: P25_SERVING a serving dispatch of 8 (K1: 2 students
+# x 12 blocks x 3 scales), P25_LABELER a pseudo-label call of 16 (PERF.md
+# section 6, columns S and P).
+P25_AGREE = 0.999
+P25_SERVING = {"exp_attention": 72, "crf_apply": 1, "par_affinity": 0,
+               "par_propagate": 0}
+P25_LABELER = {"exp_attention": 72, "crf_apply": 1, "par_affinity": 1,
+               "par_propagate": 10}
+P25_ITERS = 5          # dispatches timed back to back (dispatch_ms)
+
+
+def p25_counters():
+    """The launch counters of the kernels a sealed program reaches."""
+    from dupl_tpu_torch.ops import attention, crf_cuda, par_cuda
+
+    return {"exp_attention": attention.exp_attention_cuda,
+            "crf_apply": crf_cuda.kernel_apply_cuda,
+            "par_affinity": par_cuda.affinity_cuda,
+            "par_propagate": par_cuda.propagate_cuda}
+
+
+def p25_calls(program, calls, dev):
+    """Run ``program`` on each argument tuple of ``calls`` (numpy arrays):
+    -> (outputs as numpy tuples, launches of each call, counted from 0)."""
+    import torch
+
+    counters = p25_counters()
+    outs, launches = [], []
+    for args in calls:
+        for c in counters.values():
+            c.launches = 0
+        out = program(*(torch.from_numpy(a).to(dev) for a in args))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches.append({k: c.launches for k, c in counters.items()})
+        out = out if isinstance(out, tuple) else (out,)
+        outs.append(tuple(o.cpu().numpy() for o in out))
+    return outs, launches
+
+
+def sealed_child(request: str) -> int:
+    """Phase 25's fresh process: load each artifact of the request with
+    ``load_artifact``, run its calls (launches counted per call), time the
+    serving program's dispatch, and write the outputs and a JSON record."""
+    import numpy as np
+    import torch
+
+    from dupl_tpu_torch.engine.export import load_artifact
+    from dupl_tpu_torch.utils.timing import dispatch_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as phase 1
+    torch.backends.cudnn.allow_tf32 = False
+    with open(request) as f:
+        jobs = json.load(f)
+    record = {}
+    for job in jobs:
+        dev = torch.device(job["device"])
+        t = time.perf_counter()
+        program = load_artifact(job["artifact"])[0].module()
+        load_s = time.perf_counter() - t
+        with np.load(job["inputs"]) as data:
+            calls = [tuple(data[f"{i}_{j}"] for j in range(job["nargs"]))
+                     for i in range(job["ncalls"])]
+        with torch.inference_mode():
+            outs, launches = p25_calls(program, calls, dev)
+            rec = {"load_s": load_s, "launches": launches}
+            if job["time"]:
+                x = tuple(torch.from_numpy(a).to(dev) for a in calls[0])
+                rec["dispatch_ms"] = dispatch_ms(lambda: program(*x), dev,
+                                                 P25_ITERS)
+        np.savez(job["outputs"], **{f"{i}_{j}": o for i, out in
+                                    enumerate(outs) for j, o in enumerate(out)})
+        record[job["name"]] = rec
+        del program
+        torch.cuda.empty_cache()
+    with open(request + ".out.json", "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def phase25(dev, bodies):
+    """Phase 25, the sealed artifacts, on ``voc_config()`` (ViT-B/16 at full
+    width and depth, seeded weights, crop 448): (a) ``export_serving`` at
+    batch 8 (ensemble, CRF), written with ``save_artifact`` and run in a
+    fresh process on phase 5's images, against the live ``make_serving_fn``;
+    (b) ``export_pseudo_labeler`` at batch 16, one call within the class
+    budget and one past it, against the live ``make_pseudo_label_fn``; (c)
+    one HTTP round of 8 requests through ``tools/serve_torch.py
+    --artifact``.  Returns the launches of a sealed call (serving, labeler)
+    and the line's record."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dupl_tpu_torch.config import voc_config
+    from dupl_tpu_torch.engine.export import (export_pseudo_labeler,
+                                              export_serving,
+                                              make_pseudo_label_fn,
+                                              make_serving_fn, save_artifact)
+    from dupl_tpu_torch.engine.profile import pseudo_label_inputs
+    from dupl_tpu_torch.models.convert import init_weights
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.utils.timing import dispatch_ms
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = voc_config()
+    model = DualStudent(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    # phase 5's request images, resized as InferenceSession.predict does
+    crop = cfg.data.crop_size
+    images = np.stack([np.asarray(Image.open(io.BytesIO(body)).convert(
+        "RGB").resize((crop, crop), Image.BILINEAR)) for body, _, _ in bodies])
+    serve_calls = [(images[:8],), (images[8:16],)]
+    img9, cls9, box9 = pseudo_label_inputs(16, crop, seed=1)
+    cls_past = cls9.copy()
+    cls_past[3, :12] = 1                  # past the class budget of 10
+    label_calls = [(img9, cls9, box9), (img9, cls_past, box9)]
+
+    kw = dict(scales=(1.0, 1.5, 1.25), merge="max", branch="ensemble",
+              crf=True)
+    serve_fn = make_serving_fn(cfg, model, **kw)
+    live_serve, live_serve_n = p25_calls(serve_fn, serve_calls, dev)
+    x8 = torch.from_numpy(images[:8]).to(dev)
+    live_ms = dispatch_ms(lambda: serve_fn(x8), dev, P25_ITERS)
+    del x8
+    pl_fn = make_pseudo_label_fn(cfg, model)
+    live_label, live_label_n = p25_calls(pl_fn, label_calls, dev)
+    for n_ in live_serve_n:
+        check(n_ == P25_SERVING, f"live serving launches {n_}")
+    for n_ in live_label_n:
+        check(n_ == P25_LABELER, f"live pseudo-label launches {n_}")
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for name, export_fn, bsz, calls in (
+                ("serving", lambda: export_serving(
+                    cfg, model, batch_size=8, device=dev, **kw), 8,
+                 serve_calls),
+                ("pseudo_label", lambda: export_pseudo_labeler(
+                    cfg, model, batch_size=16, device=dev), 16, label_calls)):
+            art = os.path.join(tmp, f"{name}.duplsrv")
+            t0 = time.perf_counter()
+            exported, meta = export_fn()
+            t1 = time.perf_counter()
+            save_artifact(art, exported, meta)
+            t2 = time.perf_counter()
+            del exported
+            check(meta["batch_size"] == bsz
+                  and meta["platforms"] == [dev.type],
+                  f"{name} artifact metadata {meta}")
+            rec[name] = {"export_s": t1 - t0, "save_s": t2 - t1,
+                         "mb": os.path.getsize(art) / 1e6}
+            inputs = os.path.join(tmp, f"{name}_in.npz")
+            np.savez(inputs, **{f"{i}_{j}": a for i, args in enumerate(calls)
+                                for j, a in enumerate(args)})
+            jobs.append({"name": name, "artifact": art, "inputs": inputs,
+                         "outputs": os.path.join(tmp, f"{name}_out.npz"),
+                         "nargs": len(calls[0]), "ncalls": len(calls),
+                         "time": name == "serving", "device": str(dev)})
+        gc.collect()
+        torch.cuda.empty_cache()
+        request = os.path.join(tmp, "request.json")
+        with open(request, "w") as f:
+            json.dump(jobs, f)
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.sealed_child(sys.argv[1]))", request],
+            cwd=repo, capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"the sealed programs' process failed:\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        with open(request + ".out.json") as f:
+            child = json.load(f)
+        for job, live, live_n in ((jobs[0], live_serve, live_serve_n),
+                                  (jobs[1], live_label, live_label_n)):
+            name = job["name"]
+            with np.load(job["outputs"]) as data:
+                sealed = [tuple(data[f"{i}_{j}"] for j in range(len(out)))
+                          for i, out in enumerate(live)]
+            shares = [float((s_ == l_).mean()) for s_out, l_out in
+                      zip(sealed, live) for s_, l_ in zip(s_out, l_out)]
+            check(all(s_.shape == l_.shape and s_.dtype == l_.dtype
+                      for s_out, l_out in zip(sealed, live)
+                      for s_, l_ in zip(s_out, l_out)),
+                  f"{name}: sealed outputs' shapes or types differ")
+            check(min(shares) >= P25_AGREE,
+                  f"{name}: sealed labels equal to live on {shares}")
+            check(child[name]["launches"] == live_n,
+                  f"{name}: sealed launches {child[name]['launches']}, live "
+                  f"{live_n}")
+            rec[name].update(shares=shares, load_s=child[name]["load_s"],
+                             launches=child[name]["launches"][0])
+        rec["serving"]["sealed_ms"] = child["serving"]["dispatch_ms"]
+        rec["serving"]["live_ms"] = live_ms
+
+        # (c) one HTTP round through the daemon serving the artifact
+        t0 = time.perf_counter()
+        log = open(os.path.join(tmp, "server.log"), "w+")
+        server = subprocess.Popen(
+            [sys.executable, os.path.join(repo, "tools", "serve_torch.py"),
+             "--artifact", jobs[0]["artifact"], "--port", "0",
+             "--device", dev.type],
+            stdout=subprocess.PIPE, stderr=log, text=True, cwd=repo)
+        try:
+            line = ""
+            while time.perf_counter() - t0 < 600:
+                line = server.stdout.readline()
+                if "serving on" in line or server.poll() is not None:
+                    break
+            log.seek(0)
+            check("serving on" in line, f"tools/serve_torch.py --artifact "
+                  f"never served: {log.read()[-3000:]}")
+            start_s = time.perf_counter() - t0
+            url = line.split("serving on ")[1].split()[0] + "/v1/segment"
+
+            def post(item):
+                body, ctype, hw = item
+                req = urllib.request.Request(url, data=body, method="POST",
+                                             headers={"Content-Type": ctype,
+                                                      "Accept": "application/x-npy"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    return r.status, np.load(io.BytesIO(r.read())), hw
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                answers = list(pool.map(post, bodies[:8]))
+            round_s = time.perf_counter() - t1
+            for status, lab, hw in answers:
+                check(status == 200 and lab.shape == hw
+                      and lab.dtype == np.uint8 and int(lab.max()) <= 20,
+                      f"sealed HTTP answer {status} {lab.shape} for {hw}")
+            server.terminate()
+            check(server.wait(timeout=60) == 0,
+                  f"tools/serve_torch.py exited {server.returncode}")
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait(timeout=30)
+            log.close()
+        rec["http"] = {"requests": len(answers), "start_s": start_s,
+                       "round_s": round_s}
+    return rec
 
 
 def main() -> int:
@@ -3479,6 +3743,34 @@ def main() -> int:
     # -- 24. data-parallel and fully-sharded training ---------------------------
     launches24 = phase24(dev, expected)
 
+    # -- 25. the sealed artifacts ------------------------------------------------
+    t25 = time.perf_counter()
+    rec25 = phase25(dev, bodies)
+    srv25, lab25, http25 = rec25["serving"], rec25["pseudo_label"], rec25["http"]
+    print(f"[sealed serving] export_serving, ViT-B/16 dual student, crop 448, "
+          f"batch 8, MSC 1.0/1.5/1.25 x flip, ensemble, fast CRF; "
+          f"load_artifact in a fresh process, phase 5's 16 images | labels "
+          f"equal to live {json.dumps(srv25['shares'])} (bound {P25_AGREE}) | "
+          f"launches a dispatch {json.dumps(srv25['launches'])} sealed, as "
+          f"live | dispatch ms live {srv25['live_ms']:.2f} sealed "
+          f"{srv25['sealed_ms']:.2f} (bench_serve_torch.py's method, "
+          f"{P25_ITERS} back to back) | artifact {srv25['mb']:.1f} MB, export "
+          f"{srv25['export_s']:.1f} s, save {srv25['save_s']:.1f} s, load "
+          f"{srv25['load_s']:.1f} s", flush=True)
+    print(f"[sealed pseudo-labels] export_pseudo_labeler, batch 16, both "
+          f"class-budget routes in one program (torch.cond) | within budget, "
+          f"past it: refined and CRF labels equal to live "
+          f"{json.dumps(lab25['shares'])} | launches a call "
+          f"{json.dumps(lab25['launches'])} sealed, as live | artifact "
+          f"{lab25['mb']:.1f} MB, export {lab25['export_s']:.1f} s, save "
+          f"{lab25['save_s']:.1f} s, load {lab25['load_s']:.1f} s", flush=True)
+    print(f"[sealed HTTP] tools/serve_torch.py --artifact: {http25['requests']} "
+          f"requests all 200 | up in {http25['start_s']:.1f} s, round "
+          f"{http25['round_s']:.2f} s", flush=True)
+    print(f"[ops host] host us a call through the op: K1 "
+          f"{json.dumps(k1['host_us'])} | K2 {json.dumps(k2['host_us'])} | "
+          f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -3665,6 +3957,10 @@ def main() -> int:
             for arm, by_phase in launches24.items():
                 e[f"launches_train_{arm.replace(' ', '_')}"] = {
                     ph: n_[e["name"]] for ph, n_ in by_phase.items()}
+    for e in kernels[:5]:   # K1, K3, K4, K5 in the sealed programs' calls
+        if e["name"] in P25_SERVING:
+            e["launches_sealed_serving"] = srv25["launches"][e["name"]]
+            e["launches_sealed_pseudo_label"] = lab25["launches"][e["name"]]
     check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
           "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,8 @@ application/x-npy``.  ``GET /healthz`` returns the session metadata, ``GET
 /metrics`` request and dispatch counters.  Requests are decoded on handler
 threads and micro-batched up to the session's batch size: one device
 program in flight, arrivals within ``max_delay_s`` ride the same dispatch.
+A session serves a live model (``from_weights``, ``from_model``) or a sealed
+``.duplsrv`` program (``from_artifact``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,48 @@ class InferenceSession:
         self.meta = dict(meta or {})
 
     # -- constructors ----------------------------------------------------------
+    @classmethod
+    def from_artifact(cls, path: str, *, device) -> "InferenceSession":
+        """Serve a sealed segmentation program (a ``.duplsrv`` file of
+        ``engine/export.py``) on ``device``, which must be the device it was
+        sealed for: a program is never moved."""
+        from dupl_tpu_torch.engine.export import load_artifact, read_meta
+
+        meta = read_meta(path)
+        if meta.get("kind", "segmentation") == "pseudo_labeler":
+            raise ValueError(
+                f"{path} is a pseudo_labeler artifact ((images, cls_label, "
+                "img_box) signature); the segmentation server cannot serve "
+                "it — export with engine.export.export_serving instead")
+        if not meta.get("bake_params", True):
+            raise ValueError(
+                f"{path} was exported with bake_params=False (a (params, "
+                "images) signature); call its module with the weights, or "
+                "re-export with the weights baked in")
+        device = torch.device(device)
+        sealed_for = meta["platforms"][0]
+        if device.type != sealed_for:
+            raise ValueError(
+                f"{path} was sealed for {sealed_for}, asked to serve on "
+                f"{device.type}: re-export it with tools/export_model_torch.py "
+                f"--device {device.type}")
+        n_dev = int(meta.get("num_devices", 1))
+        if device.type == "cuda" and n_dev > torch.cuda.device_count():
+            raise ValueError(
+                f"{path} was exported for {n_dev} devices (mesh="
+                f"{meta.get('mesh')}); this host has only "
+                f"{torch.cuda.device_count()} — re-export for this topology")
+        program = load_artifact(path)[0].module()
+
+        @torch.inference_mode()
+        def run(imgs: np.ndarray) -> np.ndarray:
+            return program(torch.from_numpy(imgs).to(device)).cpu().numpy()
+
+        meta = {**meta, "device": str(device)}
+        return cls(run, batch_size=meta["batch_size"],
+                   crop_size=meta["crop_size"],
+                   num_classes=meta["num_classes"], meta=meta)
+
     @classmethod
     def from_model(cls, cfg, model, *, device, batch_size: int = 8,
                    scales: Sequence[float] = (1.0, 1.5, 1.25),

@@ -71,13 +71,14 @@ def par_fn(cfg, imgs: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 def refine(cfg, cams: torch.Tensor, image01: torch.Tensor,
            cls_label: torch.Tensor, img_box, high_thre,
-           fits_budget: Optional[bool] = None) -> torch.Tensor:
+           fits_budget=None) -> torch.Tensor:
     """PAR-refined pseudo-labels per branch: cams (2, B, h, w, C_fg) ->
     labels (2, B, H, W).  Both students' CAMs, with both background planes,
     ride one PAR call, so the image-only affinity is computed once per
     image.  ``fits_budget``: ``cam_ops.fits_class_budget`` of ``cls_label``
     and ``cfg.par.class_budget``, taken before the CAMs were queued (None
-    takes it here)."""
+    takes it here), or its device form ``cam_ops.class_budget_predicate``
+    in a sealed program."""
     valid = cams * cls_label[None, :, None, None, :]
     return cam_ops.refine_cams_with_bkg(
         functools.partial(par_fn, cfg), image01, valid, cls_label,

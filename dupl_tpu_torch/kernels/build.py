@@ -60,12 +60,32 @@ def _nvcc() -> str:
                        "kernels of dupl_tpu_torch need the CUDA toolkit")
 
 
+# The kernels of the main path, each launched through the registered
+# ``torch.library`` op ``dupl::<name>`` of the same name as its source
+# (``ops/attention.py``, ``ops/crf_cuda.py``, ``ops/par_cuda.py``).
+OPS = ("exp_attention", "exp_attention_bwd", "flash_attention",
+       "flash_attention_bwd", "crf_apply", "par_affinity", "par_propagate")
+
+
 def _digest(src: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_digest(name: str) -> str:
+    """The hash that keys the build of ``csrc/<name>.cu``: its source, every
+    header under ``csrc/`` and the nvcc flags."""
+    return _digest(CSRC / f"{name}.cu")
+
+
+def digests() -> Dict[str, str]:
+    """``dupl::<name>`` -> :func:`source_digest` of its source, for every op
+    of :data:`OPS`.  A sealed program calls the ops by name, so an artifact
+    records these and is refused where the sources differ."""
+    return {f"dupl::{name}": source_digest(name) for name in OPS}
 
 
 def build(name: str, verbose: bool = False) -> Path:

@@ -26,6 +26,10 @@ The exp form is softmax without the max subtraction: logits are clamped at
 60 so exp never overflows fp32, which ViT attention logits never reach.  One
 run may therefore send some batches through the max-free kernel and others
 through the exact one, as the reference does.
+
+The four kernels are the registered ops ``dupl::exp_attention``,
+``dupl::exp_attention_bwd``, ``dupl::flash_attention`` and
+``dupl::flash_attention_bwd`` (``ops/library.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import ctypes
 import functools
 
 import torch
+
+from dupl_tpu_torch.ops import library
 
 _EXP_MIN_SEQ = 128
 _EXP_MAX_SEQ = 2048
@@ -111,12 +117,12 @@ def _entry():
     return fn
 
 
-def exp_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K1 on the current stream.  q (pre-scaled), k, v:
-    (B, N, H, D) bf16 on one CUDA device, D in {16, 32, 64, 80} ->
-    (B, N, H, D) bf16.  k and v may be strided views (e.g. column slices of
-    the qkv projection)."""
+def _exp_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """``dupl::exp_attention`` on CUDA tensors: launch kernel K1 on the
+    current stream.  q (pre-scaled), k, v: (B, N, H, D) bf16 on one CUDA
+    device, D in {16, 32, 64, 80} -> (B, N, H, D) bf16.  k and v may be
+    strided views (e.g. column slices of the qkv projection)."""
     from dupl_tpu_torch.kernels import build
 
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -142,9 +148,6 @@ def exp_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-exp_attention_cuda.launches = 0
-
-
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     """The C entry point of ``csrc/exp_attention_bwd.cu``, built on first
@@ -158,12 +161,13 @@ def _bwd_entry():
     return fn
 
 
-def exp_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           g: torch.Tensor):
-    """Launch kernel K2 on the current stream.  q (pre-scaled), k, v and the
-    output cotangent g: (B, N, H, D) bf16 on one CUDA device, D in
-    {16, 32, 64, 80}, each possibly a strided view -> (dq, dk, dv), each
-    (B, N, H, D) bf16 contiguous."""
+def _exp_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor):
+    """``dupl::exp_attention_bwd`` on CUDA tensors: launch kernel K2 on the
+    current stream.  q (pre-scaled), k, v and the output cotangent g:
+    (B, N, H, D) bf16 on one CUDA device, D in {16, 32, 64, 80}, each
+    possibly a strided view -> (dq, dk, dv), each (B, N, H, D) bf16
+    contiguous."""
     from dupl_tpu_torch.kernels import build
 
     if not (q.is_cuda and all(x.device == q.device for x in (k, v, g))):
@@ -203,9 +207,6 @@ def exp_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-exp_attention_bwd_cuda.launches = 0
-
-
 def _to_bhnd(x: torch.Tensor) -> torch.Tensor:
     b, n, h, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b * h, n, d)
@@ -216,30 +217,86 @@ def _from_bhnd(x: torch.Tensor, b: int) -> torch.Tensor:
     return x.reshape(b, bh // b, n, d).permute(0, 2, 1, 3)
 
 
+def _bnhd_like(q: torch.Tensor) -> torch.Tensor:
+    """A contiguous (B, N, H, D) bf16 result on ``q``'s device."""
+    return q.new_empty(q.shape, dtype=torch.bfloat16)
+
+
+def _exp_attention_twin(q, k, v):
+    out = exp_attention_ref(_to_bhnd(q), _to_bhnd(k), _to_bhnd(v))
+    return _from_bhnd(out.to(torch.bfloat16), q.shape[0]).contiguous()
+
+
+def _exp_attention_bwd_twin(q, k, v, g):
+    grads = exp_attention_bwd_ref(_to_bhnd(q), _to_bhnd(k), _to_bhnd(v),
+                                  _to_bhnd(g))
+    return tuple(_from_bhnd(x, q.shape[0]).contiguous() for x in grads)
+
+
+# K1 and K2 as the ops dupl::exp_attention and dupl::exp_attention_bwd, on
+# (B, N, H, D) bf16 operands with q pre-scaled.  CPU tensors take the plain
+# twins; CUDA tensors launch the kernels or raise.
+_K1 = library.register(
+    "exp_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
+    cuda=_exp_attention_kernel, cpu=_exp_attention_twin,
+    fake=lambda q, k, v: _bnhd_like(q))
+_K2 = library.register(
+    "exp_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor g) "
+    "-> (Tensor, Tensor, Tensor)",
+    cuda=_exp_attention_bwd_kernel, cpu=_exp_attention_bwd_twin,
+    fake=lambda q, k, v, g: tuple(_bnhd_like(q) for _ in range(3)))
+
+
+def _check_device(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
 class _ExpAttention(torch.autograd.Function):
-    """Kernel K1 forward, kernel K2 backward, on (B, N, H, D) bf16 operands
-    with q pre-scaled (the reference's ``custom_vjp``).  CPU tensors take
-    the two plain twins; CUDA tensors launch the kernels or raise."""
+    """K1 forward, K2 backward (the reference's ``custom_vjp``), both
+    through their ops."""
 
     @staticmethod
     def forward(ctx, qs, k, v):
+        _check_device(qs, "exp_attention")
         ctx.save_for_backward(qs, k, v)   # k, v: views of the qkv product
-        if qs.device.type == "cuda":
-            return exp_attention_cuda(qs, k, v)
-        if qs.device.type != "cpu":
-            raise ValueError(f"exp_attention: unsupported device {qs.device}")
-        out = exp_attention_ref(_to_bhnd(qs), _to_bhnd(k), _to_bhnd(v))
-        return _from_bhnd(out.to(torch.bfloat16), qs.shape[0])
+        return _K1(qs, k, v)
 
     @staticmethod
     def backward(ctx, g):
         qs, k, v = ctx.saved_tensors
-        g = g.to(torch.bfloat16)
-        if qs.device.type == "cuda":
-            return exp_attention_bwd_cuda(qs, k, v, g.contiguous())
-        grads = exp_attention_bwd_ref(_to_bhnd(qs), _to_bhnd(k), _to_bhnd(v),
-                                      _to_bhnd(g))
-        return tuple(_from_bhnd(x, qs.shape[0]) for x in grads)
+        return _K2(qs, k, v, g.to(torch.bfloat16).contiguous())
+
+
+def _require_cuda(kernel: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{kernel} kernel: operands must be on a CUDA "
+                         f"device, got {x.device}")
+
+
+def exp_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Kernel K1 on CUDA tensors, through ``dupl::exp_attention``; raises
+    for any other device.  ``exp_attention_cuda.launches`` counts K1's
+    launches by any route that reaches the op (a sealed program
+    included)."""
+    _require_cuda("exp_attention", q)
+    return _K1(q, k, v)
+
+
+exp_attention_cuda.launches = 0
+
+
+def exp_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           g: torch.Tensor):
+    """Kernel K2 on CUDA tensors, through ``dupl::exp_attention_bwd``;
+    raises for any other device.  Counts in
+    ``exp_attention_bwd_cuda.launches``."""
+    _require_cuda("exp_attention_bwd", q)
+    return _K2(q, k, v, g)
+
+
+exp_attention_bwd_cuda.launches = 0
 
 
 def exp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -341,9 +398,10 @@ def _flash_entry():
     return fn
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float):
-    """Launch kernel L1f on the current stream.  Unscaled q, k, v:
+def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float):
+    """``dupl::flash_attention`` on CUDA tensors: launch kernel L1f on the
+    current stream.  Unscaled q, k, v:
     (B, N, H, D) bf16 on one CUDA device, D in {16, 32, 64, 80}, each
     possibly a strided view -> (out (B, N, H, D) bf16 contiguous, lse
     (B, H, N) fp32).  Any N; the scale is applied to the scores in the
@@ -365,9 +423,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-flash_attention_cuda.launches = 0
-
-
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_entry():
     """The C entry point of ``csrc/flash_attention_bwd.cu``, built on first
@@ -382,10 +437,12 @@ def _flash_bwd_entry():
     return fn
 
 
-def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, out: torch.Tensor,
-                             lse: torch.Tensor, g: torch.Tensor, scale: float):
-    """Launch kernel L1b on the current stream.  Unscaled q, k, v, the
+def _flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, g: torch.Tensor,
+                                scale: float):
+    """``dupl::flash_attention_bwd`` on CUDA tensors: launch kernel L1b on
+    the current stream.  Unscaled q, k, v, the
     forward's out and the output cotangent g: (B, N, H, D) bf16 on one CUDA
     device, each possibly a strided view; lse: the forward's (B, H, N) fp32
     -> (dq, dk, dv), each (B, N, H, D) bf16 contiguous."""
@@ -421,29 +478,50 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-flash_attention_bwd_cuda.launches = 0
-
-
 def _to_bhn(x: torch.Tensor) -> torch.Tensor:
     """(B, N, H, D) -> (B, H, N, D), a view."""
     return x.permute(0, 2, 1, 3)
 
 
+def _flash_attention_twin(q, k, v, scale):
+    out, lse = flash_attention_ref(_to_bhn(q), _to_bhn(k), _to_bhn(v), scale)
+    return _to_bhn(out).contiguous(), lse.contiguous()
+
+
+def _flash_attention_bwd_twin(q, k, v, out, lse, g, scale):
+    grads = flash_attention_bwd_ref(*(_to_bhn(x) for x in (q, k, v, out)),
+                                    lse, _to_bhn(g), scale)
+    return tuple(_to_bhn(x).contiguous() for x in grads)
+
+
+def _flash_attention_fake(q, k, v, scale):
+    b, n, h, _ = q.shape
+    return _bnhd_like(q), q.new_empty((b, h, n), dtype=torch.float32)
+
+
+# L1f and L1b as the ops dupl::flash_attention and dupl::flash_attention_bwd,
+# on unscaled (B, N, H, D) bf16 operands.  CPU tensors take the plain twins;
+# CUDA tensors launch the kernels or raise.
+_L1F = library.register(
+    "flash_attention(Tensor q, Tensor k, Tensor v, float scale) "
+    "-> (Tensor, Tensor)",
+    cuda=_flash_attention_kernel, cpu=_flash_attention_twin,
+    fake=_flash_attention_fake)
+_L1B = library.register(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    "Tensor lse, Tensor g, float scale) -> (Tensor, Tensor, Tensor)",
+    cuda=_flash_attention_bwd_kernel, cpu=_flash_attention_bwd_twin,
+    fake=lambda q, k, v, out, lse, g, scale: tuple(_bnhd_like(q)
+                                                   for _ in range(3)))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Kernel L1f forward, kernel L1b backward, on unscaled (B, N, H, D)
-    bf16 operands.  CPU tensors take the two plain twins; CUDA tensors
-    launch the kernels or raise."""
+    """L1f forward, L1b backward, both through their ops."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cuda":
-            out, lse = flash_attention_cuda(q, k, v, scale)
-        elif q.device.type == "cpu":
-            out, lse = flash_attention_ref(_to_bhn(q), _to_bhn(k), _to_bhn(v),
-                                           scale)
-            out = _to_bhn(out).contiguous()
-        else:
-            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        _check_device(q, "flash_attention")
+        out, lse = _L1F(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)  # k, v: views of the qkv product
         ctx.scale = scale
         return out
@@ -451,13 +529,33 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        g = g.to(torch.bfloat16)
-        if q.device.type == "cuda":
-            return (*flash_attention_bwd_cuda(q, k, v, out, lse,
-                                              g.contiguous(), ctx.scale), None)
-        grads = flash_attention_bwd_ref(*(_to_bhn(x) for x in (q, k, v, out)),
-                                        lse, _to_bhn(g), ctx.scale)
-        return (*(_to_bhn(x) for x in grads), None)
+        return (*_L1B(q, k, v, out, lse, g.to(torch.bfloat16).contiguous(),
+                      ctx.scale), None)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float):
+    """Kernel L1f on CUDA tensors, through ``dupl::flash_attention``;
+    raises for any other device.  Counts in
+    ``flash_attention_cuda.launches``."""
+    _require_cuda("flash_attention", q)
+    return _L1F(q, k, v, float(scale))
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, g: torch.Tensor, scale: float):
+    """Kernel L1b on CUDA tensors, through ``dupl::flash_attention_bwd``;
+    raises for any other device.  Counts in
+    ``flash_attention_bwd_cuda.launches``."""
+    _require_cuda("flash_attention_bwd", q)
+    return _L1B(q, k, v, out, lse, g, float(scale))
+
+
+flash_attention_bwd_cuda.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -147,15 +147,24 @@ def multi_scale_cam_with_outputs(full_fn: Callable, cam_fn: Callable,
             out_keep)
 
 
+def class_budget_predicate(cls_label: torch.Tensor,
+                           class_budget: int) -> torch.Tensor:
+    """Whether every image's present classes, background included, fit in
+    ``class_budget`` slots: a bool tensor on ``cls_label``'s device, which a
+    sealed program branches on (``torch.cond``) without reading it on the
+    host."""
+    return ((cls_label > 0).sum(-1) < class_budget).all()
+
+
 def fits_class_budget(cls_label: torch.Tensor,
                       class_budget: Optional[int]) -> bool:
-    """Whether every image's present classes, background included, fit in
-    ``class_budget`` slots, so PAR can run on the compacted class axis.
-    Reads ``cls_label`` (B, C_fg) on the host: one device sync when it lies
-    on a card, so callers decide this before queueing any work."""
+    """:func:`class_budget_predicate` on the host (False without a budget):
+    whether PAR can run on the compacted class axis.  Reads ``cls_label``
+    (B, C_fg) on the host: one device sync when it lies on a card, so
+    callers decide this before queueing any work."""
     if class_budget is None:
         return False
-    return bool(((cls_label > 0).sum(-1) < class_budget).all())
+    return bool(class_budget_predicate(cls_label, class_budget))
 
 
 def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
@@ -164,7 +173,7 @@ def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
                          img_box: Optional[torch.Tensor],
                          ignore_index: int = 255, down_scale: int = 2,
                          class_budget: Optional[int] = None,
-                         fits_budget: Optional[bool] = None) -> torch.Tensor:
+                         fits_budget=None) -> torch.Tensor:
     """PAR-refined pseudo-labels with dual background planes (reference:
     utils/cam_helper.py:338-431).
 
@@ -186,7 +195,9 @@ def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
     stay 0.  If an image has more present classes than slots, the full axis
     runs instead.  ``fits_budget`` is :func:`fits_class_budget`'s answer,
     taken by the caller before it queued the CAMs; None reads ``cls_label``
-    here, which waits for the work already queued."""
+    here, which waits for the work already queued.  A tensor
+    (:func:`class_budget_predicate`) keeps both routes and chooses on the
+    device, by ``torch.cond``: the form a sealed program takes."""
     b, h, w, _ = images.shape
     hs, ws = h // down_scale, w // down_scale
     squeeze_view = cams.dim() == 4
@@ -232,9 +243,7 @@ def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
         lab = lab.permute(3, 0, 1, 2)                     # (2V, B, h, w)
         return lab[0::2], lab[1::2]
 
-    if fits_budget is None:
-        fits_budget = fits_class_budget(cls_label, class_budget)
-    if class_budget is not None and class_budget < nclass and fits_budget:
+    def compacted(probs, present):
         k = class_budget
         score = present.long() * (2 * nclass) - torch.arange(
             nclass, device=present.device)
@@ -248,9 +257,24 @@ def refine_cams_with_bkg(par_fn: Callable, images: torch.Tensor,
             return torch.gather(table, 2, slot.reshape(v, b, -1)).reshape(
                 slot.shape)
 
-        label_h, label_l = unmap(slot_h), unmap(slot_l)
+        return unmap(slot_h), unmap(slot_l)
+
+    def full(probs, present):
+        return plane_labels(probs)
+
+    if class_budget is None or class_budget >= nclass:
+        label_h, label_l = full(probs, present)
+    elif isinstance(fits_budget, torch.Tensor):
+        def dense(route):      # torch.cond wants one layout from both routes
+            return lambda *ops: tuple(x.contiguous() for x in route(*ops))
+
+        label_h, label_l = torch.cond(fits_budget, dense(compacted),
+                                      dense(full), (probs, present))
     else:
-        label_h, label_l = plane_labels(probs)
+        if fits_budget is None:
+            fits_budget = fits_class_budget(cls_label, class_budget)
+        route = compacted if fits_budget else full
+        label_h, label_l = route(probs, present)
 
     if img_box is not None:
         inside = image_ops.box_mask(img_box, h, w)[None]       # over views

@@ -2,9 +2,10 @@
 
 ``kernel_apply`` computes ``exp(min(basis @ coef, logc)) @ vals`` with the
 kernel entries and the values rounded to bf16 and fp32 accumulation: the
-full-resolution slice of the fast mean-field CRF.  CPU tensors run the plain
-twin (the reference's XLA tile loop, ``dupl_tpu/ops/crf.py:171-185``); CUDA
-tensors launch kernel K5 (``csrc/crf_apply.cu``).
+full-resolution slice of the fast mean-field CRF, as the registered op
+``dupl::crf_apply``: CPU tensors run the plain twin (the reference's XLA
+tile loop, ``dupl_tpu/ops/crf.py:171-185``); CUDA tensors launch kernel K5
+(``csrc/crf_apply.cu``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import ctypes
 import functools
 
 import torch
+
+from dupl_tpu_torch.ops import library
 
 _DIM = 11
 
@@ -53,11 +56,13 @@ def _values_bf16(vals: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(vb, (0, 8 - nv % 8)) if nv % 8 else vb
 
 
-def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
-                      logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K5 on the current stream; one launch covers the batch
-    and every value column (any V; up to 96 from one score and exp per
-    pixel and pivot)."""
+def _kernel_apply_kernel(basis: torch.Tensor, coef: torch.Tensor,
+                         logc: torch.Tensor, vals: torch.Tensor,
+                         block_rows: int) -> torch.Tensor:
+    """``dupl::crf_apply`` on CUDA tensors: launch kernel K5 on the current
+    stream; one launch covers the batch and every value column (any V; up
+    to 96 from one score and exp per pixel and pivot).  ``block_rows``
+    tiles the CPU twin only."""
     from dupl_tpu_torch.kernels import build
 
     dev = basis.device
@@ -93,6 +98,30 @@ def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
     return out
 
 
+def _kernel_apply_fake(basis, coef, logc, vals, block_rows):
+    return basis.new_empty((*basis.shape[:2], vals.shape[2]),
+                           dtype=torch.float32)
+
+
+# K5 as the op dupl::crf_apply (``ops/library.py``): the launcher above on
+# CUDA tensors, the plain twin on CPU tensors.
+_K5 = library.register(
+    "crf_apply(Tensor basis, Tensor coef, Tensor logc, Tensor vals, "
+    "int block_rows) -> Tensor",
+    cuda=_kernel_apply_kernel, cpu=kernel_apply_ref, fake=_kernel_apply_fake)
+
+
+def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,
+                      logc: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Kernel K5 on CUDA tensors, through ``dupl::crf_apply``; raises for
+    any other device.  ``kernel_apply_cuda.launches`` counts K5's launches
+    by any route that reaches the op (a sealed program included)."""
+    if not basis.is_cuda:
+        raise ValueError(f"crf kernel_apply: operands must be on a CUDA "
+                         f"device, got {basis.device}")
+    return _K5(basis, coef, logc, vals, 0)
+
+
 kernel_apply_cuda.launches = 0
 
 
@@ -102,7 +131,7 @@ def kernel_apply(basis: torch.Tensor, coef: torch.Tensor, logc: torch.Tensor,
     basis (B, N, 11), coef (B, 11, Ns), logc (B, Ns), vals (B, Ns, V) ->
     (B, N, V) float32.  ``block_rows`` tiles the CPU twin only."""
     if basis.device.type == "cpu":
-        return kernel_apply_ref(basis, coef, logc, vals, block_rows)
+        return _K5(basis, coef, logc, vals, block_rows)
     if basis.device.type != "cuda":
         raise ValueError(f"crf kernel_apply: unsupported device {basis.device}")
     return kernel_apply_cuda(basis, coef, logc, vals.float().contiguous())

@@ -20,15 +20,40 @@ IMAGENET_STD = (58.395, 57.12, 57.375)
 def _on_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``t`` (on the host) on ``device``.  A card gets it from pinned memory
     without blocking: a copy from pageable memory waits for all work queued
-    on the card, and would stall the first step that builds a constant."""
-    if device.type != "cuda":
+    on the card, and would stall the first step that builds a constant.
+    Under tracing (``torch.export``) ``t`` is a fake tensor, which has no
+    memory to pin: the copy is recorded as it is."""
+    if device.type != "cuda" or torch.compiler.is_compiling():
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _kept(make):
+    """``make`` cached by its arguments (at most 64 values).  Under tracing
+    (``torch.export``) a value already kept is returned, a real tensor that
+    the traced program records as a constant, but a new one is not kept:
+    made while tracing it is a fake tensor, which would reach every later
+    eager call."""
+    kept = {}
+
+    @functools.wraps(make)
+    def get(*args):
+        if args in kept:
+            return kept[args]
+        value = make(*args)
+        if not torch.compiler.is_compiling():
+            if len(kept) == 64:
+                kept.pop(next(iter(kept)))
+            kept[args] = value
+        return value
+
+    get.cache_clear = kept.clear
+    return get
+
+
 # Constants are put on a device once and kept, made outside inference mode
 # so that recorded ops may use them.
-@functools.lru_cache(maxsize=None)
+@_kept
 def _imagenet_stats(dtype: torch.dtype, device: torch.device):
     with torch.inference_mode(False):
         return (_on_device(torch.tensor(IMAGENET_MEAN, dtype=dtype), device),
@@ -96,7 +121,7 @@ def _bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
     return w
 
 
-@functools.lru_cache(maxsize=64)
+@_kept
 def _bicubic_weights_on(in_size: int, out_size: int, dtype: torch.dtype,
                         device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):

@@ -2,13 +2,15 @@
 ``dupl_tpu/ops/par_pallas.py``).
 
 * ``affinity``: the 48-tap RGB affinity of (B, H, W, 3) images as
-  (B, K, H, W) float32, the channels-first layout propagation reads.  CUDA
-  tensors launch kernel K3 (``csrc/par_affinity.cu``); CPU tensors run the
-  plain twin :func:`affinity_ref`, which follows ``affinity_pallas``.
+  (B, K, H, W) float32, the channels-first layout propagation reads, by the
+  registered op ``dupl::par_affinity``.  CUDA tensors launch kernel K3
+  (``csrc/par_affinity.cu``); CPU tensors run the plain twin
+  :func:`affinity_ref`, which follows ``affinity_pallas``.
 * ``propagate``: ``num_iter`` rounds of ``m <- sum_k shift_k(m) * aff_k``
-  with edge replication, masks (B, H, W, C), affinity (B, K, H, W).  CUDA
-  tensors launch kernel K4 (``csrc/par_propagate.cu``) once per round; CPU
-  tensors run :func:`propagate_ref`, which follows ``propagate_pallas``:
+  with edge replication, masks (B, H, W, C), affinity (B, K, H, W), by the
+  registered op ``dupl::par_propagate``.  CUDA tensors launch kernel K4
+  (``csrc/par_propagate.cu``) once per round; CPU tensors run the rounds of
+  :func:`propagate_ref`, which follows ``propagate_pallas``:
   fp32, or with ``compute_dtype="bfloat16"`` taps and affinities in bf16,
   products summed in bf16 within groups of 8 taps, group sums in fp32.
 """
@@ -21,7 +23,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from dupl_tpu_torch.ops.attention import _raw_stream
+from dupl_tpu_torch.ops.attention import _raw_stream, _require_cuda
+from dupl_tpu_torch.ops import library
 from dupl_tpu_torch.ops.image import shift_clamped
 from dupl_tpu_torch.ops.par import position_affinity, tap_offsets
 
@@ -85,10 +88,18 @@ def propagate_ref(masks: torch.Tensor, aff: torch.Tensor,
     bf16: each round rounds the mask and the affinity to bf16, rounds every
     product and partial sum within a group of 8 taps to bf16, and adds the
     group sums in fp32, as ``propagate_pallas``'s ``_kernel``."""
-    cdt = _compute_dtype(compute_dtype)
-    offs = tap_offsets(dilations)
     m = masks.float().permute(0, 3, 1, 2)                      # (B, C, H, W)
-    a = aff.to(cdt)
+    out = _propagate_bchw(m, aff.to(_compute_dtype(compute_dtype)), dilations,
+                          num_iter)
+    return out.permute(0, 2, 3, 1)
+
+
+def _propagate_bchw(m: torch.Tensor, a: torch.Tensor,
+                    dilations: Sequence[int], num_iter: int) -> torch.Tensor:
+    """:func:`propagate_ref`'s rounds on masks (B, C, H, W) float32 and the
+    affinity (B, K, H, W) in the compute type (float32 or bfloat16)."""
+    cdt = a.dtype
+    offs = tap_offsets(dilations)
     for _ in range(num_iter):
         cur = m.to(cdt)
         if cdt == torch.float32:
@@ -104,7 +115,7 @@ def propagate_ref(masks: torch.Tensor, aff: torch.Tensor,
                     acc = term if acc is None else acc + term
                 out = acc.float() if out is None else out + acc.float()
         m = out
-    return m.permute(0, 2, 3, 1)
+    return m
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,10 +155,11 @@ def _check_cuda(x: torch.Tensor, name: str, dtypes, what: str) -> None:
         raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def affinity_cuda(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),
-                  w1: float = 0.3, w2: float = 0.01) -> torch.Tensor:
-    """Launch kernel K3 on the current stream: (B, H, W, 3) float32
-    contiguous -> (B, K, H, W) float32."""
+def _affinity_kernel(imgs: torch.Tensor, dilations: Sequence[int],
+                     w1: float, w2: float) -> torch.Tensor:
+    """``dupl::par_affinity`` on CUDA tensors: launch kernel K3 on the
+    current stream: (B, H, W, 3) float32 contiguous -> (B, K, H, W)
+    float32."""
     from dupl_tpu_torch.kernels import build
 
     _check_cuda(imgs, "imgs", (torch.float32,), "par affinity")
@@ -168,15 +180,12 @@ def affinity_cuda(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12
     return out
 
 
-affinity_cuda.launches = 0
-
-
-def propagate_cuda(masks: torch.Tensor, aff: torch.Tensor,
-                   dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),
-                   num_iter: int = 10) -> torch.Tensor:
-    """Launch kernel K4 once per round on the current stream.  masks
-    (B, C, H, W) float32, aff (B, K, H, W) float32 (fp32 mode) or bfloat16
-    (bf16 mode), both contiguous -> (B, C, H, W) float32."""
+def _propagate_kernel(masks: torch.Tensor, aff: torch.Tensor,
+                      dilations: Sequence[int], num_iter: int) -> torch.Tensor:
+    """``dupl::par_propagate`` on CUDA tensors: launch kernel K4 once per
+    round on the current stream.  masks (B, C, H, W) float32, aff
+    (B, K, H, W) float32 (fp32 mode) or bfloat16 (bf16 mode), both
+    contiguous -> (B, C, H, W) float32."""
     from dupl_tpu_torch.kernels import build
 
     _check_cuda(masks, "masks", (torch.float32,), "par propagate")
@@ -211,6 +220,52 @@ def propagate_cuda(masks: torch.Tensor, aff: torch.Tensor,
     return src
 
 
+def _propagate_twin(masks, aff, dilations, num_iter):
+    out = _propagate_bchw(masks, aff, dilations, num_iter)
+    return out.clone() if out is masks else out.contiguous()
+
+
+def _affinity_fake(imgs, dilations, w1, w2):
+    b, h, w, _ = imgs.shape
+    return imgs.new_empty((b, 8 * len(dilations), h, w), dtype=torch.float32)
+
+
+# K3 and K4 as the ops dupl::par_affinity and dupl::par_propagate
+# (``ops/library.py``): the launchers above on CUDA tensors, the plain twins
+# on CPU tensors.  K4's compute type is its affinity operand's.
+_K3 = library.register(
+    "par_affinity(Tensor imgs, int[] dilations, float w1, float w2) -> Tensor",
+    cuda=_affinity_kernel, cpu=affinity_ref, fake=_affinity_fake)
+_K4 = library.register(
+    "par_propagate(Tensor masks, Tensor aff, int[] dilations, int num_iter) "
+    "-> Tensor",
+    cuda=_propagate_kernel, cpu=_propagate_twin,
+    fake=lambda masks, aff, dilations, num_iter: torch.empty_like(
+        masks, memory_format=torch.contiguous_format))
+
+
+def affinity_cuda(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),
+                  w1: float = 0.3, w2: float = 0.01) -> torch.Tensor:
+    """Kernel K3 on CUDA tensors, through ``dupl::par_affinity``; raises
+    for any other device.  ``affinity_cuda.launches`` counts K3's launches
+    by any route that reaches the op (a sealed program included)."""
+    _require_cuda("par affinity", imgs)
+    return _K3(imgs, list(dilations), float(w1), float(w2))
+
+
+affinity_cuda.launches = 0
+
+
+def propagate_cuda(masks: torch.Tensor, aff: torch.Tensor,
+                   dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),
+                   num_iter: int = 10) -> torch.Tensor:
+    """Kernel K4 on CUDA tensors, through ``dupl::par_propagate``; raises
+    for any other device.  Counts one launch a round in
+    ``propagate_cuda.launches``."""
+    _require_cuda("par propagate", masks)
+    return _K4(masks, aff, list(dilations), num_iter)
+
+
 propagate_cuda.launches = 0
 
 
@@ -218,10 +273,10 @@ def affinity(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12, 24)
              w1: float = 0.3, w2: float = 0.01) -> torch.Tensor:
     """(B, H, W, 3) images in [0, 1] -> (B, K, H, W) float32 affinity."""
     if imgs.device.type == "cpu":
-        return affinity_ref(imgs, dilations, w1, w2)
+        return _K3(imgs, list(dilations), float(w1), float(w2))
     if imgs.device.type != "cuda":
         raise ValueError(f"par affinity: unsupported device {imgs.device}")
-    return affinity_cuda(imgs.float().contiguous(), tuple(dilations), w1, w2)
+    return affinity_cuda(imgs.float().contiguous(), dilations, w1, w2)
 
 
 def propagate(masks: torch.Tensor, aff: torch.Tensor,
@@ -229,10 +284,9 @@ def propagate(masks: torch.Tensor, aff: torch.Tensor,
               num_iter: int = 10,
               compute_dtype: str = "float32") -> torch.Tensor:
     """masks (B, H, W, C), aff (B, K, H, W) -> (B, H, W, C) float32."""
-    if masks.device.type == "cpu":
-        return propagate_ref(masks, aff, dilations, num_iter, compute_dtype)
-    if masks.device.type != "cuda":
+    if masks.device.type not in ("cpu", "cuda"):
         raise ValueError(f"par propagate: unsupported device {masks.device}")
     m = masks.float().permute(0, 3, 1, 2).contiguous()
     a = aff.to(_compute_dtype(compute_dtype)).contiguous()
-    return propagate_cuda(m, a, tuple(dilations), num_iter).permute(0, 2, 3, 1)
+    run = _K4 if masks.device.type == "cpu" else propagate_cuda
+    return run(m, a, list(dilations), num_iter).permute(0, 2, 3, 1)

@@ -42,3 +42,22 @@ def card_line(device: torch.device) -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def dispatch_ms(call: Callable[[], object], device: torch.device,
+                iters: int = 10) -> float:
+    """Milliseconds a dispatch of ``call`` in steady state, as a serving
+    loop keeps the device fed: one untimed call, then ``iters`` calls
+    enqueued back to back and one synchronisation, on the host clock
+    (``tools/bench_serve_torch.py``'s method)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    call()
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        call()
+    sync()
+    return 1e3 * (time.perf_counter() - t) / iters

@@ -3,7 +3,9 @@ L1f (``csrc/flash_attention.cu``) of one or more checkouts in turn, beside
 ptxas's registers and spills and a digest of the machine code (SASS, from
 ``cuobjdump``) of every instantiation, so that a change to their shared
 header ``csrc/attention_fwd.cuh`` can be held to its parent's code and
-times on one card.
+times on one card; and the host time to enqueue one K1 and one K2
+(``csrc/exp_attention_bwd.cu``) call, so that a change to their launch
+path can be held to its parent's.
 
     python tools/attn_fwd_timing_torch.py [ROOT ...]
 
@@ -14,8 +16,11 @@ change, change, parent) to see the spread.  Shapes: K1 at ``chip_smoke.py``
 phase 3's (B 16, H 12, D 64; N 1765, 1226, 785), L1f at phase 14's (B 16,
 N 2117; B 2, N 5185), q, k, v column slices of one projection.  Times are
 medians of one call between two CUDA events and of rounds of back-to-back
-calls (~5 ms each), as ``chip_smoke.py``'s ``time_ms``.  Prints the card's
-name and power limit, one JSON line per ROOT, then a table.  Needs a card.
+calls (~5 ms each), as ``chip_smoke.py``'s ``time_ms``; host times
+(``host_us``: K1 at its three shapes, K2 at phase 11's B 4, N 785) are
+medians of 201 calls enqueued while a spin kernel keeps the card busy, as
+``chip_smoke.py``'s ``host_us`` takes 21.  Prints the card's name and power limit, one
+JSON line per ROOT, then a table.  Needs a card.
 """
 
 from __future__ import annotations
@@ -54,6 +59,24 @@ def _time_ms(fn, back_to_back=False, iters=10, warmup=2):
     return statistics.median(round_ms(reps) for _ in range(iters))
 
 
+def _host_us(fn, reps=201):
+    """Median host time (us) to enqueue one call while the device is busy."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)   # ~30 ms of device time
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(ts)
+
+
 def _sass_digests(lib) -> list:
     """A digest of each kernel's SASS in ``lib``, in file order (the names
     are left out: they carry the template arguments, which may be spelt
@@ -85,7 +108,8 @@ def measure(root: str) -> dict:
         return [qkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
                 for i in range(3)]
 
-    rec = {"root": root, "ptxas": {}, "sass": {}, "k1": {}, "l1f": {}}
+    rec = {"root": root, "ptxas": {}, "sass": {}, "k1": {}, "l1f": {},
+           "host_us": {}}
     for name in ("exp_attention", "flash_attention"):
         rec["ptxas"][name] = build.ptxas_usage(name)
         rec["sass"][name] = _sass_digests(build.build(name))
@@ -98,6 +122,11 @@ def measure(root: str) -> dict:
 
         rec["k1"][f"BH={12 * b},N={n}"] = [_time_ms(k1),
                                             _time_ms(k1, back_to_back=True)]
+        rec["host_us"][f"K1 BH={12 * b},N={n}"] = _host_us(k1)
+    q, k, v = views(4, 785)
+    qs, go = q * 0.125, torch.randn_like(q)
+    rec["host_us"]["K2 B=4,N=785,H=12,D=64"] = _host_us(
+        lambda: attention.exp_attention_bwd_cuda(qs, k, v, go))
     for b, n in L1F_SHAPES:
         q, k, v = views(b, n)
 
@@ -129,12 +158,15 @@ def main(argv=None) -> int:
             return proc.returncode
         recs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(recs[-1]), flush=True)
-    print("root | kernel shape: ms one call / back to back | registers "
-          "(spill stores, loads) per instantiation | SASS digests")
+    print("root | kernel shape: ms one call / back to back | host us a "
+          "call | registers (spill stores, loads) per instantiation | SASS "
+          "digests")
     for rec in recs:
         times = " | ".join(f"{kern} {shape}: {t[0]:.4f} / {t[1]:.4f}"
                            for kern in ("k1", "l1f")
                            for shape, t in rec[kern].items())
+        times += " | " + " ".join(f"{key} {us:.1f}"
+                                  for key, us in rec["host_us"].items())
         regs = " ".join(f"{r}({st},{ld})" for name in rec["ptxas"]
                         for _, r, st, ld in rec["ptxas"][name])
         sass = " ".join(d for name in rec["sass"] for d in rec["sass"][name])

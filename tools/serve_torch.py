@@ -1,14 +1,19 @@
 """Segmentation serving daemon on the PyTorch port (dupl_tpu_torch).
 
+    # from a sealed artifact (tools/export_model_torch.py):
+    python tools/serve_torch.py --artifact dupl_voc.duplsrv --port 8000
+    # or live from training weights:
     python tools/serve_torch.py --weights ckpt/weights.npz --dataset voc --port 8000
 
     curl -s -X POST --data-binary @image.jpg -H 'Content-Type: image/jpeg' \
         http://127.0.0.1:8000/v1/segment > pred.png
 
-Same HTTP contract and flags as ``tools/serve.py`` in live ``--weights``
-mode (a ``.npz`` written by the JAX package's ``checkpoint.export_weights``),
-plus ``--device`` (default ``cuda``).  Without a CUDA device the daemon
-refuses to start unless ``--device cpu`` is given.
+Same HTTP contract and flags as ``tools/serve.py``: ``--artifact`` serves a
+``.duplsrv`` of ``tools/export_model_torch.py`` (sealed for the device it
+serves on), ``--weights`` a ``.npz`` written by the JAX package's
+``checkpoint.export_weights`` live; plus ``--device`` (default ``cuda``).
+Without a CUDA device the daemon refuses to start unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -24,8 +29,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", required=True, help="weights .npz")
-    p.add_argument("--dataset", choices=["voc", "coco"], default="voc")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--artifact",
+                     help=".duplsrv file from tools/export_model_torch.py")
+    src.add_argument("--weights", help="weights .npz (live mode)")
+    p.add_argument("--dataset", choices=["voc", "coco"], default="voc",
+                   help="config for --weights live mode")
     p.add_argument("--backbone", default=None)
     p.add_argument("--branch", default="ensemble")
     p.add_argument("--batch-size", type=int, default=8)
@@ -49,14 +58,17 @@ def main():
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to serve on the "
                          "CPU's plain PyTorch paths")
-    cfg = voc_config() if args.dataset == "voc" else coco_config()
-    if args.backbone:
-        cfg = dc.replace(cfg, model=dc.replace(cfg.model,
-                                               backbone=args.backbone))
-    branch = args.branch if args.branch == "ensemble" else int(args.branch)
-    session = InferenceSession.from_weights(
-        cfg, args.weights, device=device, batch_size=args.batch_size,
-        branch=branch, merge="max" if args.dataset == "voc" else "sum")
+    if args.artifact:
+        session = InferenceSession.from_artifact(args.artifact, device=device)
+    else:
+        cfg = voc_config() if args.dataset == "voc" else coco_config()
+        if args.backbone:
+            cfg = dc.replace(cfg, model=dc.replace(cfg.model,
+                                                   backbone=args.backbone))
+        branch = args.branch if args.branch == "ensemble" else int(args.branch)
+        session = InferenceSession.from_weights(
+            cfg, args.weights, device=device, batch_size=args.batch_size,
+            branch=branch, merge="max" if args.dataset == "voc" else "sum")
 
     # build the kernels and warm up before accepting traffic, on the worker
     # thread that serves (cuBLAS and cuDNN create their handles per thread)
