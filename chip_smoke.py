@@ -2,7 +2,8 @@
 the pseudo-label path, the training step, the evaluation path, the four
 kernel-experiment tools, the training run, the recipe's COCO inputs
 (packed records, a DeiT checkpoint, COCO training and evaluation),
-training across processes and the sealed serving artifacts.
+training across processes, the sealed serving artifacts and tensor
+parallelism.
 
     python3 chip_smoke.py
 
@@ -185,7 +186,27 @@ JAX.  Phases, each printing one result line:
    72 / 1 / 10 / 1 a call; (c) one HTTP round of 8 requests through
    ``tools/serve_torch.py --artifact``; (d) the live and sealed dispatch ms
    (``utils/timing.py:dispatch_ms``), the artifacts' size and export, save
-   and load seconds, K1's and K2's host us through their ops.
+   and load seconds, K1's and K2's host us through their ops;
+26. tensor parallelism (``dupl_tpu_torch/parallel/tensor_parallel.py``) at
+   full width: (a) two spawned ranks sharing the card over gloo as one
+   model group (data 1 x model 2), each on the whole batch of 4 and its 6
+   of each block's 12 heads, phase 24's steps from phase 24's seeded
+   weights, each rank held on the gradient gathered to the one-device
+   layout to three references: the bare ``Trainer`` computing as the
+   model group does (``p26_split_model``, plain PyTorch: the fp32 partial
+   sums in rank order, in one process) at phase 24's bounds; the plain
+   bare run at the looser ``P26_BARE_*`` bounds (a sum's order moves bf16
+   results), which must catch the planted faults ``P26_FAULTS``, beside a
+   one-process order witness (the split on fp32 casts' products); each
+   phase's first step in fp32 against the bare ``Trainer`` in fp32 at the
+   looser bounds; ``tensor_parallel._mm_fp32``'s card branch against fp32
+   casts at the layers' shapes; K1-K4 launches a step as phase 12, no twin on a
+   CUDA tensor, the two ranks' logged metrics equal; K1 and K2 on each rank's own block-0 operands ((4, 785, 6, 64),
+   k and v strided at row stride 1152) against their twins at phases 3
+   and 11's bounds; (b) the run's checkpoint restored into the bare
+   ``Trainer`` equals its gathered weights bit for bit; (c) ms a step, peak
+   memory and parameter bytes of each rank beside the bare run's (a rank
+   holds half of the tensor-parallel leaves).
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -210,6 +231,35 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at |x| (elementwise)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(
+        x.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+def row_ulps(got, want):
+    """(max, mean) of |got - want| in bf16 ulps of each row's scale (max
+    |want| over the head dim)."""
+    want = want.float()
+    u = (got.float() - want).abs() / bf16_ulp(
+        want.abs().amax(-1, keepdim=True))
+    return u.max().item(), u.mean().item()
+
+
+def bwd_ulps(got, want):
+    """(max, mean) over dq, dk, dv ((B, N, H, D) each) of the row-ulp error
+    against the twin's (BH, N, D)."""
+    from dupl_tpu_torch.ops import attention
+
+    worst = mean = 0.0
+    for x, w in zip(got, want):
+        a_, m_ = row_ulps(attention._to_bhnd(x), w)
+        worst, mean = max(worst, a_), max(mean, m_)
+    return worst, mean
 
 
 def check(cond: bool, msg: str) -> None:
@@ -479,9 +529,9 @@ def p24_weights(cfg):
 
 
 def p24_run(trainer, state, d, step, batch):
-    """One step on this rank's slice of a global batch: its host ms to a
-    synchronize, the launches of K1-K4 in it, and the logged metrics
-    (summed over the ranks)."""
+    """One step on this rank's slice of a global batch (its data rank's):
+    its host ms to a synchronize, the launches of K1-K4 in it, and the
+    logged metrics (summed over the data ranks)."""
     import torch
 
     from dupl_tpu_torch.ops import attention, par_cuda
@@ -493,7 +543,7 @@ def p24_run(trainer, state, d, step, batch):
                 "exp_attention_bwd": attention.exp_attention_bwd_cuda,
                 "par_affinity": par_cuda.affinity_cuda,
                 "par_propagate": par_cuda.propagate_cuda}
-    b = len(batch["image"]) // d.world
+    b = len(batch["image"]) // d.n_data
     dev_batch = trainer.put({k: v[d.batch_slice(b)] for k, v in batch.items()})
     torch.cuda.synchronize()
     for f in counters.values():
@@ -510,55 +560,86 @@ def p24_run(trainer, state, d, step, batch):
 
 
 def p24_grad_gap(want, got):
-    """(cosine of the whole gradient, worst leaf's relative L2 gap)."""
+    """(cosine of the whole gradient, worst leaf's relative L2 gap, that
+    leaf's name)."""
     check(sorted(got) == sorted(want),
           "the gradients are not on the bare run's parameters")
-    dot = na = nb = leaf = 0.0
+    dot = na = nb = 0.0
+    leaf = (0.0, "")
     for n, w in want.items():
         g, w = got[n].double(), w.double()
         dot += float((g * w).sum())
         na += float(w.square().sum())
         nb += float(g.square().sum())
-        leaf = max(leaf, float((g - w).norm() / w.norm().clamp_min(1e-30)))
-    return dot / (na * nb) ** 0.5, leaf
+        leaf = max(leaf, (float((g - w).norm() / w.norm().clamp_min(1e-30)),
+                          n))
+    return dot / (na * nb) ** 0.5, *leaf
 
 
-def p24_arm(dev, cfg, weights, expected, d, fsdp=False, ref=None):
-    """The phase-24 steps on this rank: per phase a fresh state from
-    ``weights``, placed by ``shard_state`` (plain or ``fsdp``), and its
-    steps.  Returns the step records, the peak memory, the memory already
-    allocated before the arm, and the first step's full gradients of each
-    phase (``ref`` None) or their gaps to ``ref``'s."""
+def p24_arm(dev, cfg, weights, expected, d, fsdp=False, ref=None,
+            save_dir=None, prepare=None, per_phase=P24_STEPS_A_PHASE,
+            phases=None):
+    """The phase-24 steps on this rank: per phase (of ``phases``, all by
+    default) a fresh state from ``weights``, placed by ``shard_state``
+    (plain, ``fsdp``, or this rank's share under tensor parallelism), and
+    its first ``per_phase`` steps.  Returns the step
+    records, the peak memory, the memory already allocated before the arm,
+    the bytes of the rank's parameters (all, and of the tensor-parallel
+    leaves), and the first step's full gradients of each phase (``ref``
+    None) or their gaps to ``ref``'s.  ``save_dir``: after the last
+    phase's steps, ``save_state`` there (every rank) and return the
+    gathered weights on the host.  ``prepare``: called on each fresh model
+    before its steps."""
     import torch
 
+    from dupl_tpu_torch.engine import checkpoint as ckpt
     from dupl_tpu_torch.engine.train import Trainer, phase_of
     from dupl_tpu_torch.models.network import DualStudent
-    from dupl_tpu_torch.parallel.mesh import full_tensor, shard_state
+    from dupl_tpu_torch.parallel.mesh import shard_state
+    from dupl_tpu_torch.parallel.tensor_parallel import spec_of
 
     steps = p24_steps(cfg)
     batches = p24_batches(len(steps))
-    recs, grads, peak = [], {}, 0.0
+    recs, grads, peak, saved = [], {}, 0.0, None
     gc.collect()     # what earlier arms left (FSDP's units hold cycles)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev) / 2 ** 30
     for i in range(0, len(steps), P24_STEPS_A_PHASE):
+        if phases is not None and phase_of(cfg, steps[i]) not in phases:
+            continue
+        last = i + per_phase
         with torch.device("meta"):       # no host init: the weights follow
             model = DualStudent(cfg.model)
         model = model.to_empty(device=dev)
         model.load_state_dict(weights)
+        if prepare is not None:
+            prepare(model)
         trainer = Trainer(cfg, model=model, device=dev, dist=d)
         state = shard_state(trainer.init_state(init=False), d, fsdp=fsdp)
+        param_bytes = {"all": 0, "tp_leaves": 0}
+        for n, p in state.model.named_parameters():
+            t = p.to_local() if hasattr(p, "to_local") else p
+            nb = t.numel() * t.element_size()
+            param_bytes["all"] += nb
+            param_bytes["tp_leaves"] += nb if spec_of(n) else 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        recs.append(p24_run(trainer, state, d, steps[i], batches[i]))
-        g = {n: full_tensor(p.grad).float().cpu()
-             for n, p in state.model.named_parameters() if p.grad is not None}
+        recs.append(p24_run(trainer, state, d, steps[i], batches[i])
+                    | {"first": True})
+        g = {n: t.float().cpu() for n, t in ckpt.full_state(
+            {n: p.grad for n, p in state.model.named_parameters()
+             if p.grad is not None}, state.model).items()}
         phase = phase_of(cfg, steps[i])
         grads[phase] = g if ref is None else p24_grad_gap(ref[phase], g)
         del g
-        for j in range(i + 1, i + P24_STEPS_A_PHASE):
-            recs.append(p24_run(trainer, state, d, steps[j], batches[j]))
+        for j in range(i + 1, last):
+            recs.append(p24_run(trainer, state, d, steps[j], batches[j])
+                        | {"first": False})
         peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        if save_dir and i + P24_STEPS_A_PHASE == len(steps):
+            ckpt.save_state(save_dir, state)
+            saved = {k: v.cpu() for k, v in
+                     ckpt.full_model_state(state.model).items()}
         del trainer, state, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -569,30 +650,39 @@ def p24_arm(dev, cfg, weights, expected, d, fsdp=False, ref=None):
               f"expected {expected[phase]}")
         check(all(math.isfinite(v) for v in r["metrics"].values()),
               f"step {r['step']}: non-finite metrics {r['metrics']}")
-    return {"recs": recs, "peak_gib": peak, "base_gib": base, "grads": grads}
+    return {"recs": recs, "peak_gib": peak, "base_gib": base, "grads": grads,
+            "param_bytes": param_bytes, "saved": saved}
 
 
 def p24_gaps(ref, run):
     """An arm against the bare run ``ref``: the largest relative gap of a
     logged loss term over the first and over the later steps of the
-    phases, and the smallest gradient cosine and worst leaf gap of the
-    first steps."""
+    phases (None where the arm ran no later step), and the smallest
+    gradient cosine and worst leaf gap of the first steps."""
+    want = {r["step"]: r["metrics"] for r in ref["recs"]}
+
     def loss(first):
-        return max(abs(a["metrics"][k] - b["metrics"][k])
-                   / max(1.0, abs(a["metrics"][k]))
-                   for i, (a, b) in enumerate(zip(ref["recs"], run["recs"]))
-                   if (i % P24_STEPS_A_PHASE == 0) == first
-                   for k in P24_LOSSES)
+        return max((abs(want[r["step"]][k] - r["metrics"][k])
+                    / max(1.0, abs(want[r["step"]][k]))
+                    for r in run["recs"] if r["first"] == first
+                    for k in P24_LOSSES), default=None)
     return {"first_loss_rel": loss(True), "later_loss_rel": loss(False),
-            "grad_cos": min(c for c, _ in run["grads"].values()),
-            "grad_leaf_rel": max(lf for _, lf in run["grads"].values())}
+            "grad_cos": min(g[0] for g in run["grads"].values()),
+            "grad_leaf_rel": max(g[1] for g in run["grads"].values())}
 
 
-def p24_within(g):
-    return (g["first_loss_rel"] <= P24_FIRST_REL
-            and g["later_loss_rel"] <= P24_LATER_REL
-            and g["grad_cos"] >= P24_GRAD_COS
-            and g["grad_leaf_rel"] <= P24_LEAF_REL)
+def p24_within(g, first=P24_FIRST_REL, later=P24_LATER_REL,
+               cos=P24_GRAD_COS, leaf=P24_LEAF_REL):
+    """``p24_gaps``' reading within the bounds (phase 24's by default)."""
+    return (g["first_loss_rel"] <= first
+            and (g["later_loss_rel"] is None or g["later_loss_rel"] <= later)
+            and g["grad_cos"] >= cos and g["grad_leaf_rel"] <= leaf)
+
+
+def p24_fmt(g):
+    """``p24_gaps``' reading for a log line."""
+    return json.dumps({k: None if v is None else float(f"{v:.4g}")
+                       for k, v in g.items()})
 
 
 def p24_gloo_rank(rank, world, port, results, ref_path, expected):
@@ -626,7 +716,9 @@ def phase24(dev, expected):
     ``p24_steps`` at full width through a process group of one over NCCL,
     plain and FSDP, against the bare Trainer; (b) two ranks sharing the card
     over gloo at batch 2 each against one process at batch 4; (c) the
-    training tool under ``torchrun``.  Returns (a)'s launches per phase."""
+    training tool under ``torchrun``.  Returns (a)'s launches per phase,
+    the bare run and the seeded weights (phase 26 holds its ranks to
+    them)."""
     import os
     import tempfile
 
@@ -665,9 +757,6 @@ def phase24(dev, expected):
                 r["ms"] for r in run["recs"][i + 1:i + P24_STEPS_A_PHASE]), 1)
             for i in range(0, len(steps), P24_STEPS_A_PHASE)})
 
-    def rounded(g):
-        return json.dumps({k: float(f"{v:.4g}") for k, v in g.items()})
-
     print(f"[data parallel, NCCL world 1] production_config('voc'), "
           f"ViT-B/16 dual student, crop 448, batch 4, steps {steps} (each "
           f"phase's from the seeded weights) | ms a step: " + "; ".join(
@@ -681,7 +770,7 @@ def phase24(dev, expected):
           f"{P24_FIRST_REL}, later steps' {P24_LATER_REL}, first steps' "
           f"gradient cosine {P24_GRAD_COS} and worst leaf {P24_LEAF_REL}): "
           + "; ".join(
-              f"{n} {rounded(g)}" for n, g in gaps.items())
+              f"{n} {p24_fmt(g)}" for n, g in gaps.items())
           + " | K1-K4 launches a step as phase 12 in every arm", flush=True)
     for name in ("data parallel", "fsdp"):
         check(p24_within(gaps[name]), f"{name} at NCCL world 1 against the "
@@ -701,7 +790,7 @@ def phase24(dev, expected):
               f"{later_ms(bare)} | peak GiB a rank [of it allocated before "
               f"the steps] {[[round(r['peak_gib'], 3), round(r['base_gib'], 3)] for r in ranks]} | "
               f"against the bare Trainer (bounds as above) "
-              f"{rounded(ranks[0]['gaps'])} | K1-K4 launches a step as phase "
+              f"{p24_fmt(ranks[0]['gaps'])} | K1-K4 launches a step as phase "
               f"12 on both ranks | FSDP over gloo on CUDA tensors is not run "
               f"(its ranks died with SIGSEGV in a trial under torch 2.11): "
               f"FSDP's multi-rank check stays on the CPU tests", flush=True)
@@ -761,9 +850,9 @@ def phase24(dev, expected):
               f"end to end | s/it {[r['s_per_iter'] for r in train]} | val "
               f"{val[0]['val_s']} s, checkpoint {val[0]['ckpt_s']} s | peak "
               f"GiB {[r['peak_gib'] for r in done]}", flush=True)
-    return {name: {phase_of(cfg, r["step"]): r["launches"]
-                   for r in runs[name]["recs"]}
-            for name in ("data parallel", "fsdp")}
+    return ({name: {phase_of(cfg, r["step"]): r["launches"]
+                    for r in runs[name]["recs"]}
+             for name in ("data parallel", "fsdp")}, bare, weights)
 
 
 # Phase 25: the sealed artifacts.  A sealed program runs the live one's
@@ -1017,6 +1106,519 @@ def phase25(dev, bodies):
     return rec
 
 
+# Phase 26: tensor parallelism.  Two ranks share card 0 over gloo as one
+# model group (data 1 x model 2; NCCL refuses two ranks on one card), each on
+# the whole batch of 4 and its 6 of each block's 12 heads.  In bf16 the model
+# group's sums run in another order than the one-device layers', and a
+# flipped rounding grows through the blocks: any change of an fp32 sum's last
+# bit (even fp32 casts before a product in place of the 16-bit product
+# accumulated in fp32) moves the first step's loss terms by up to ~1e-3 and a
+# norm weight's gradient by 8-11%.  Three references hold the ranks: (1) the
+# bare Trainer computing as the model group does, products and sums as its
+# ranks' (``p26_split_model``, plain PyTorch), at phase 24's bounds; (2) the
+# plain bare run of phase 24 at the looser P26_BARE_* bounds, set between
+# what sound runs read there (first-step loss terms 1.43e-3, gradient cosine
+# 0.9986, worst leaf 9.8%; in fp32 3.95e-4, 0.9996, 4.8%) and what planted
+# faults read (``P26_FAULTS``, run each time: the bounds must catch them;
+# loss 4.5e-2, cosine 0.50, leaf 230%; cosine 0.82, leaf 96%); beside it a
+# one-process order witness (``p26_split_model(fp32_casts=True)``, no
+# collective) reads the size of the ranks' gap; (3) each phase's first step
+# in fp32 (``p26_fp32``) against the bare Trainer in fp32, at (2)'s bounds.
+# The ranks' fp32-accumulated 16-bit products (``tensor_parallel._mm_fp32``,
+# whose branch for 16-bit CUDA tensors only the card runs) are held to fp32
+# casts' products at the layers' shapes (``P26_MM_REL`` of the sum of the
+# terms' magnitudes).  K1 and K2 are then held to their twins on a rank's own
+# block-0 operands at phases 3 and 11's bounds (row ulps: K1 1 at the maximum
+# and 1e-3 on average, K2 2 and 0.01).
+P26_N_MODEL = 2
+P26_BARE_FIRST_REL, P26_BARE_LATER_REL = 1e-2, 5e-2
+P26_BARE_GRAD_COS, P26_BARE_LEAF_REL = 0.99, 0.3
+P26_FAULTS = ("forward", "backward")
+P26_MM_REL = 1e-5
+K1_ULPS, K2_ULPS = (1.0, 1e-3), (2.0, 0.01)
+
+
+def p26_fp32(cfg):
+    """``cfg`` with every product and residual stream in fp32."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32", stream_dtype="float32",
+        cam_stream_dtype="float32"))
+
+
+def p26_split_model(model, n=P26_N_MODEL, fault=None, fp32_casts=False):
+    """Make a plain ``DualStudent`` compute as a model group of ``n`` ranks
+    does, in one process: each column-parallel layer (qkv by head, fc1,
+    conv6) as ``n`` products on the shares of its weight, its input
+    gradient as the fp32 sum of the shares' partials rounded once; each
+    row-parallel layer (proj, fc2, conv7) as the fp32 sum of the shares'
+    partial products, rounded once; sums in rank order.  Plain PyTorch of
+    its own (``torch.chunk`` shares; a 16-bit linear partial accumulated
+    in fp32 by ``torch.mm(out_dtype=float32)``, as the ranks' are, or with
+    ``fp32_casts`` as the product of the fp32 casts; convolutions' partials
+    on fp32 casts): of the port's tensor parallelism it reads only the
+    layout (``tensor_parallel.spec_of`` / ``role_of``: which layer splits
+    along which dim, in how many blocks), not its arithmetic.  ``fault``
+    plants one, to show what the bounds catch: "forward" keeps only the
+    first share's partial product of each row-parallel layer (its forward
+    sum left out), "backward" only the first share's partial input
+    gradient of each column-parallel layer (its backward sum left out).
+    Overrides the layers' forward; returns ``model``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dupl_tpu_torch.parallel.tensor_parallel import role_of, spec_of
+
+    def mm32(a, b):
+        """``a @ b`` of two 2-d tensors of one dtype, in fp32."""
+        if fp32_casts or a.dtype == torch.float32:
+            return a.float() @ b.float()
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    def shares(t, dim, blocks=1):
+        """The ranks' shares of ``t`` along ``dim``: the r-th of ``n`` equal
+        parts of each of its ``blocks`` equal blocks."""
+        parts = [b.chunk(n, dim) for b in t.chunk(blocks, dim)]
+        return [torch.cat([p[r] for p in parts], dim) for r in range(n)]
+
+    def joined(ys, dim, blocks=1):
+        """The full tensor from the ranks' shares (``shares``' inverse)."""
+        per = [y.chunk(blocks, dim) for y in ys]
+        return torch.cat([per[r][b] for b in range(blocks)
+                          for r in range(n)], dim)
+
+    def summed(parts, dropped):
+        """fp32 partials summed in rank order; the first alone where the
+        planted fault leaves the sum out."""
+        if dropped:
+            return parts[0]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    class SplitColumn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, conv, blocks):
+            xc = x.to(w.dtype)
+            ctx.save_for_backward(xc, w)
+            ctx.conv, ctx.blocks, ctx.x_dtype = conv, blocks, x.dtype
+            ys = [F.conv2d(xc, wr, **conv) if conv else F.linear(xc, wr)
+                  for wr in shares(w, 0, blocks)]
+            return joined(ys, 1 if conv else -1, blocks)
+
+        @staticmethod
+        def backward(ctx, g):
+            xc, w = ctx.saved_tensors
+            conv, blocks = ctx.conv, ctx.blocks
+            gs = shares(g, 1 if conv else -1, blocks)
+            ws = shares(w, 0, blocks)
+            if conv:
+                parts = [torch.nn.grad.conv2d_input(
+                    xc.shape, wr.float(), gr.float(), **conv)
+                    for gr, wr in zip(gs, ws)]
+                gw = [torch.nn.grad.conv2d_weight(xc, wr.shape, gr, **conv)
+                      for gr, wr in zip(gs, ws)]
+            else:
+                parts = [mm32(flat(gr), wr).reshape(xc.shape)
+                         for gr, wr in zip(gs, ws)]
+                gw = [flat(gr).t() @ flat(xc) for gr in gs]
+            gx = summed(parts, fault == "backward")
+            return (gx.to(w.dtype).to(ctx.x_dtype), joined(gw, 0, blocks),
+                    None, None)
+
+    class SplitRow(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, conv):
+            ctx.save_for_backward(x, w)
+            ctx.conv = conv
+            xs, ws = shares(x, 1 if conv else -1), shares(w, 1)
+            parts = [F.conv2d(xr.float(), wr.float(), **conv) if conv else
+                     mm32(flat(xr), wr.t()) for xr, wr in zip(xs, ws)]
+            y = summed(parts, fault == "forward")
+            if not conv:
+                y = y.reshape(*x.shape[:-1], w.shape[0])
+            return y.to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            conv = ctx.conv
+            xs, ws = shares(x, 1 if conv else -1), shares(w, 1)
+            if conv:
+                gx = [torch.nn.grad.conv2d_input(xr.shape, wr, g, **conv)
+                      for xr, wr in zip(xs, ws)]
+                gw = [torch.nn.grad.conv2d_weight(xr, wr.shape, g, **conv)
+                      for xr, wr in zip(xs, ws)]
+                return joined(gx, 1), joined(gw, 1), None
+            gx = [(flat(g) @ wr).reshape(xr.shape) for xr, wr in zip(xs, ws)]
+            gw = [flat(g).t() @ flat(xr) for xr in xs]
+            return joined(gx, -1), joined(gw, 1), None
+
+    def split(x, w, conv, role, blocks):
+        if role == "column":
+            return SplitColumn.apply(x, w, conv, blocks)
+        return SplitRow.apply(x.to(w.dtype), w, conv)
+
+    def linear(m, role, blocks):
+        def forward(x):
+            y = split(x, m.weight.to(m.compute_dtype), None, role, blocks)
+            return y + m.bias.to(y.dtype)
+        m.forward = forward
+
+    def decoder(m, layers):
+        plain = m._conv
+
+        def conv_(conv, x):
+            if conv not in layers:
+                return plain(conv, x)
+            kw = {"padding": conv.padding, "dilation": conv.dilation}
+            return split(x, conv.weight.to(m.compute_dtype), kw,
+                         *layers[conv])
+        m._conv = conv_
+
+    convs = {}
+    for name, m in model.named_modules():
+        role = role_of(name)
+        if role is None:
+            continue
+        blocks = spec_of(name + ".weight")[1]
+        if isinstance(m, torch.nn.Conv2d):
+            convs.setdefault(name.rsplit(".", 1)[0], {})[m] = (role, blocks)
+        else:
+            linear(m, role, blocks)
+    for name, layers in convs.items():
+        decoder(model.get_submodule(name), layers)
+    return model
+
+
+def p26_mm_check(dev):
+    """``tensor_parallel._mm_fp32`` on bf16 CUDA tensors (its branch that
+    only the card runs) against the product of their fp32 casts, at the
+    shapes of a rank's linear partials in a training step (4 x 785 tokens,
+    ViT-B/16 at TP 2): per product the largest |difference| over the sum of
+    the terms' magnitudes (``|a| @ |b|``)."""
+    import torch
+
+    from dupl_tpu_torch.parallel import tensor_parallel
+
+    m, c, n = 4 * 785, 768, P26_N_MODEL
+    shapes = {"proj": c // n, "fc2": 4 * c // n, "qkv input gradient":
+              3 * c // n, "fc1 input gradient": 4 * c // n}   # inner dims
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {}
+    for name, k in shapes.items():
+        a = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+        b = torch.randn(k, c, device=dev, generator=gen).bfloat16()
+        got = tensor_parallel._mm_fp32(a, b)
+        check(got.dtype == torch.float32, f"_mm_fp32 gave {got.dtype}")
+        want = a.float() @ b.float()
+        out[name] = float(((got - want).abs()
+                           / (a.float().abs() @ b.float().abs())).max())
+    return out
+
+
+def p26_kernels(grabbed):
+    """K1 and K2 on a rank's own operands (its block-0 q, k and v of the
+    first differentiated pass, k and v strided views of its local qkv, and
+    the cotangent autograd handed K2 there) against their twins: row-ulp
+    errors, the largest absolute error, and the operands' shape and row
+    stride."""
+    import torch
+
+    from dupl_tpu_torch.ops import attention
+
+    q, k, v, g = (grabbed[x] for x in "qkvg")
+    check(not k.is_contiguous() and not v.is_contiguous(),
+          "phase 26: k and v should be strided views of the local qkv")
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=torch.bfloat16).item()
+    qs = q.to(torch.bfloat16) * scale        # as attention.exp_attention
+    ops = tuple(attention._to_bhnd(x) for x in (qs, k, v))
+    got = attention.exp_attention_cuda(qs, k, v)
+    want = attention.exp_attention_ref(*ops).to(torch.bfloat16)
+    k1 = row_ulps(attention._to_bhnd(got), want)
+    k1_err = (attention._to_bhnd(got).float() - want.float()).abs().max()
+    gb = g.to(torch.bfloat16).contiguous()
+    got2 = attention.exp_attention_bwd_cuda(qs, k, v, gb)
+    want2 = attention.exp_attention_bwd_ref(*ops, attention._to_bhnd(gb))
+    k2 = bwd_ulps(got2, want2)
+    k2_err = max((attention._to_bhnd(x).float() - w.float()).abs().max()
+                 for x, w in zip(got2, want2))
+    torch.cuda.synchronize()
+    return {"shape": list(q.shape), "row_stride": k.stride(1),
+            "k1_ulps": list(k1), "k2_ulps": list(k2),
+            "k1_err": float(k1_err), "k2_err": float(k2_err)}
+
+
+def p26_rank(rank, world, port, results, ref_path, expected, ckpt_dir):
+    """A rank of phase 26: one of the model group's two ranks on card 0,
+    reducing over gloo (which copies CUDA tensors through the host): phase
+    24's steps in bf16, then each phase's first step in fp32."""
+    import torch
+
+    from dupl_tpu_torch.engine.train import production_config
+    from dupl_tpu_torch.models import vit
+    from dupl_tpu_torch.ops import attention, par_cuda
+    from dupl_tpu_torch.parallel.mesh import init_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    d = init_group(rank, world, dev, backend="gloo",
+                   init_method=f"tcp://127.0.0.1:{port}", n_model=P26_N_MODEL)
+    plain = vit.dot_attention
+    grabbed, twin_calls = {}, []
+    shape = (4, 785, 12 // P26_N_MODEL, 64)
+
+    def grab(q, k, v, *, scale):
+        out = plain(q, k, v, scale=scale)
+        if not grabbed and tuple(q.shape) == shape and out.requires_grad:
+            grabbed.update(q=q.detach(), k=k.detach(), v=v.detach())
+            out.register_hook(lambda g: grabbed.setdefault("g", g.detach()))
+        return out
+
+    twins = [(attention, "exp_attention_ref"),
+             (attention, "exp_attention_bwd_ref"),
+             (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref")]
+    originals = [(m, n, getattr(m, n)) for m, n in twins]
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                twin_calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    try:
+        cfg = production_config("voc")
+        ref = torch.load(ref_path, weights_only=False)
+        vit.dot_attention = grab
+        for m, n, fn in originals:
+            setattr(m, n, counting(n, fn))
+        try:
+            run = p24_arm(dev, cfg, ref["weights"], expected, d,
+                          save_dir=ckpt_dir)
+            run32 = p24_arm(dev, p26_fp32(cfg), ref["weights"], expected, d,
+                            ref=ref["bare32"]["grads"], per_phase=1)
+        finally:
+            vit.dot_attention = plain
+            for m, n, fn in originals:
+                setattr(m, n, fn)
+        check(not twin_calls, f"rank {rank}: plain twins ran on CUDA "
+              f"tensors: {twin_calls}")
+        check(len(grabbed) == 4, f"rank {rank}: no block-0 operands of "
+              f"shape {shape} with a cotangent")
+        kern = p26_kernels(grabbed)
+        if rank == 0:     # through a file: a queue would share 0.7 GB
+            torch.save(run["saved"], ckpt_dir + ".gathered.pt")
+        gaps, grad_gaps = {}, {}
+        for name in ("split", "bare"):    # the references (phase26)
+            grad_gaps[name] = {ph: p24_grad_gap(ref[name]["grads"][ph], g)
+                               for ph, g in run["grads"].items()}
+            gaps[name] = p24_gaps(ref[name], {"recs": run["recs"],
+                                              "grads": grad_gaps[name]})
+        gaps["bare32"] = p24_gaps(ref["bare32"], run32)
+        grad_gaps["bare32"] = run32["grads"]
+        results.put((rank, {
+            "gaps": gaps, "recs": run["recs"], "recs32": run32["recs"],
+            "grad_gaps": grad_gaps, "peak_gib": run["peak_gib"],
+            "base_gib": run["base_gib"], "param_bytes": run["param_bytes"],
+            "kernels": kern}))
+    finally:
+        d.close()
+
+
+def phase26(dev, expected, bare, weights):
+    """Phase 26, tensor parallelism at full width on the one card: (a) two
+    ranks as one model group over gloo, phase 24's steps, each held to the
+    bare Trainer computing as the model group does (``p26_split_model``,
+    one process) at phase 24's bounds and to the plain bare run ``bare``
+    (phase 24's, from ``weights``) at the ``P26_BARE_*`` bounds, which must
+    catch each of ``P26_FAULTS``, beside the order witness; each phase's
+    first step in fp32 against the bare Trainer in fp32 at those bounds;
+    ``_mm_fp32``'s card branch against fp32 casts; K1 and K2 on each rank's
+    own operands; (b) the run's checkpoint restored into the bare Trainer
+    equals its gathered weights bit for bit; (c) ms a step, peak memory
+    and parameter bytes beside the bare run's.  Returns a rank's launches
+    per phase and K1's and K2's largest errors."""
+    import functools
+    import os
+    import tempfile
+
+    import torch
+
+    from dupl_tpu_torch.engine import checkpoint as ckpt
+    from dupl_tpu_torch.engine.train import Trainer, phase_of, production_config
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.parallel.dryrun import spawn_ranks
+    from dupl_tpu_torch.parallel.mesh import Dist
+
+    cfg = production_config("voc")
+    t26 = time.perf_counter()
+    mm = p26_mm_check(dev)
+    split = p24_arm(dev, cfg, weights, expected, Dist(),
+                    prepare=p26_split_model)
+    split_gaps = {ph: p24_grad_gap(bare["grads"][ph], g)
+                  for ph, g in split["grads"].items()}
+
+    def one_step(**split_kw):
+        """The full phase's first step of the split model against the
+        plain bare run."""
+        return p24_gaps(bare, p24_arm(
+            dev, cfg, weights, expected, Dist(), ref=bare["grads"],
+            per_phase=1, phases=("full",), prepare=functools.partial(
+                p26_split_model, **split_kw)))
+    witness = one_step(fp32_casts=True)
+    faults = {f: one_step(fault=f) for f in P26_FAULTS}
+    bare32 = p24_arm(dev, p26_fp32(cfg), weights, expected, Dist(),
+                     per_phase=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save({name: {"recs": run["recs"], "grads": run["grads"]}
+                    for name, run in (("bare", bare), ("split", split),
+                                      ("bare32", bare32))}
+                   | {"weights": weights}, ref_path)
+        del split["grads"], bare32["grads"]
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ranks = spawn_ranks(p26_rank, P26_N_MODEL,
+                            (ref_path, expected, ckpt_dir), timeout=900)
+        # (b) the TP run's checkpoint in the bare Trainer, on the card
+        with torch.device("meta"):
+            model = DualStudent(cfg.model)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(weights)
+        state = Trainer(cfg, model=model, device=dev).init_state(init=False)
+        state = ckpt.restore_state(ckpt_dir, state)
+        restored = state.model.state_dict()
+        saved = torch.load(ckpt_dir + ".gathered.pt", weights_only=True)
+        check(restored.keys() == saved.keys() and all(
+            torch.equal(restored[k].cpu(), v) for k, v in saved.items()),
+            "phase 26: the TP checkpoint restored into the bare Trainer "
+            "differs from the TP run's gathered weights")
+        step_restored = state.step
+        del model, state, restored, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    share = [res["param_bytes"]["tp_leaves"] / bare["param_bytes"]["tp_leaves"]
+             for res in ranks]
+    steps = p24_steps(cfg)
+
+    def ms(run):
+        return [round(r["ms"], 1) for r in run["recs"]]
+
+    def later_ms(run):
+        return json.dumps({
+            phase_of(cfg, steps[i]): round(statistics.median(
+                r["ms"] for r in run["recs"][i + 1:i + P24_STEPS_A_PHASE]), 1)
+            for i in range(0, len(steps), P24_STEPS_A_PHASE)})
+
+    def terms(run):
+        """Each step's loss terms, for the record."""
+        return [{k: round(r["metrics"][k], 5) for k in P24_LOSSES}
+                for r in run["recs"]]
+
+    gib = 2 ** 30
+    print(f"[tensor parallel, 2 ranks over gloo on one card] "
+          f"production_config('voc'), ViT-B/16 dual student, crop 448, data "
+          f"1 x model {P26_N_MODEL} (6 of 12 heads a rank), the whole batch "
+          f"of 4 on each rank, steps {steps} | ms a step: rank 0 "
+          f"{ms(ranks[0])}, rank 1 {ms(ranks[1])}, bare {ms(bare)} | median "
+          f"of the later steps: rank 0 {later_ms(ranks[0])}, bare "
+          f"{later_ms(bare)} | peak GiB [of it allocated before the steps] "
+          f"ranks {[[round(x['peak_gib'], 3), round(x['base_gib'], 3)] for x in ranks]}, "
+          f"bare {[round(bare['peak_gib'], 3), round(bare['base_gib'], 3)]} "
+          f"| parameter GiB a rank: all "
+          f"{[round(x['param_bytes']['all'] / gib, 4) for x in ranks]}, "
+          f"tensor-parallel leaves "
+          f"{[round(x['param_bytes']['tp_leaves'] / gib, 4) for x in ranks]}"
+          f" (bare {round(bare['param_bytes']['all'] / gib, 4)} and "
+          f"{round(bare['param_bytes']['tp_leaves'] / gib, 4)}; share "
+          f"{share}) | K1-K4 launches a step as phase 12 on both ranks, no "
+          f"twin on a CUDA tensor, the ranks' logged metrics equal", flush=True)
+
+    def per_phase(g):
+        return json.dumps({ph: [round(x[0], 6), round(x[1], 5), x[2]]
+                           for ph, x in g.items()})
+
+    def by_rank(name):
+        return "; ".join(f"rank {r} {p24_fmt(x['gaps'][name])}"
+                         for r, x in enumerate(ranks))
+
+    print(f"[tensor parallel against one process] on the gradient gathered "
+          f"to the one-device layout | (1) against the bare Trainer "
+          f"computing as the model group does (p26_split_model; bounds as "
+          f"phase 24: first steps' loss terms {P24_FIRST_REL}, later steps' "
+          f"{P24_LATER_REL}, gradient cosine {P24_GRAD_COS}, worst leaf "
+          f"{P24_LEAF_REL}): {by_rank('split')} | (2) against the plain bare "
+          f"run (phase 24's; bounds {P26_BARE_FIRST_REL}, "
+          f"{P26_BARE_LATER_REL}, {P26_BARE_GRAD_COS}, {P26_BARE_LEAF_REL}): "
+          f"{by_rank('bare')}; the one-process split against it "
+          f"{p24_fmt(p24_gaps(bare, {'recs': split['recs'], 'grads': split_gaps}))}"
+          f"; the full phase's first step against it of the order witness "
+          f"(the split on fp32 casts' products) {p24_fmt(witness)} and of "
+          f"the planted faults (outside the bounds): " + "; ".join(
+              f"{f} sum left out {p24_fmt(g)}" for f, g in faults.items())
+          + f" | (3) fp32, each phase's first step, against the bare Trainer "
+          f"in fp32 (bounds as (2)): {by_rank('bare32')} | _mm_fp32 on bf16 "
+          f"against fp32 casts, largest |difference| over the terms' "
+          f"magnitudes (bound {P26_MM_REL}): {json.dumps(mm)} | per phase "
+          f"(cosine, worst leaf, its name): rank 0 against the split "
+          f"{per_phase(ranks[0]['grad_gaps']['split'])}, against the bare "
+          f"{per_phase(ranks[0]['grad_gaps']['bare'])}, fp32 "
+          f"{per_phase(ranks[0]['grad_gaps']['bare32'])}; split against bare "
+          f"{per_phase(split_gaps)} | loss terms a step: bare "
+          f"{json.dumps(terms(bare))}; split {json.dumps(terms(split))}; "
+          f"rank 0 {json.dumps(terms(ranks[0]))}", flush=True)
+    print(f"[tensor parallel kernels] K1 and K2 on each rank's own block-0 "
+          f"operands, (B, N, H, D) {ranks[0]['kernels']['shape']}, k and v "
+          f"at row stride {ranks[0]['kernels']['row_stride']} | " + "; ".join(
+              f"rank {r}: K1 row ulps {x['kernels']['k1_ulps']} (bounds "
+              f"{list(K1_ULPS)}), max_abs_err {x['kernels']['k1_err']:.4g}; "
+              f"K2 {x['kernels']['k2_ulps']} (bounds {list(K2_ULPS)}), "
+              f"max_abs_err {x['kernels']['k2_err']:.4g}"
+              for r, x in enumerate(ranks))
+          + f" | checkpoint of step {step_restored} restored into the bare "
+          f"Trainer equals the gathered weights bit for bit | phase 26 took "
+          f"{time.perf_counter() - t26:.1f} s", flush=True)
+    loose = dict(first=P26_BARE_FIRST_REL, later=P26_BARE_LATER_REL,
+                 cos=P26_BARE_GRAD_COS, leaf=P26_BARE_LEAF_REL)
+    for f, g in faults.items():
+        check(not p24_within(g, **loose), f"phase 26: the bounds against the "
+              f"plain bare run miss the planted fault '{f}': {g}")
+    check(p24_within(witness, **loose), f"phase 26: the order witness "
+          f"against the plain bare run: {witness}")
+    check(all(v <= P26_MM_REL for v in mm.values()),
+          f"phase 26: _mm_fp32 against fp32 casts: {mm}")
+    for r, res in enumerate(ranks):
+        for name, bounds in (("split", {}), ("bare", loose),
+                             ("bare32", loose)):
+            check(p24_within(res["gaps"][name], **bounds),
+                  f"TP rank {r} against {name}: {res['gaps'][name]}")
+        kern = res["kernels"]
+        check(kern["k1_ulps"][0] <= K1_ULPS[0]
+              and kern["k1_ulps"][1] <= K1_ULPS[1],
+              f"TP rank {r}: K1 on its own operands {kern}")
+        check(kern["k2_ulps"][0] <= K2_ULPS[0]
+              and kern["k2_ulps"][1] <= K2_ULPS[1],
+              f"TP rank {r}: K2 on its own operands {kern}")
+    check(all(a["metrics"] == b["metrics"] for key in ("recs", "recs32")
+              for a, b in zip(ranks[0][key], ranks[1][key])),
+          "phase 26: the two ranks of the model group logged different "
+          "metrics (their replicated activations differ)")
+    check(all(abs(x - 1 / P26_N_MODEL) < 1e-9 for x in share),
+          f"phase 26: a rank's share of the tensor-parallel leaves' bytes "
+          f"{share}")
+    return ({phase_of(cfg, r["step"]): r["launches"]
+             for r in ranks[0]["recs"]},
+            max(x["kernels"]["k1_err"] for x in ranks),
+            max(x["kernels"]["k2_err"] for x in ranks))
+
+
 def main() -> int:
     import torch
 
@@ -1104,10 +1706,6 @@ def main() -> int:
         del graph
         return ms
 
-    def bf16_ulp(x):
-        return torch.exp2(torch.floor(torch.log2(
-            x.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
-
     # NVIDIA's published peaks of one H100 SXM: dense bf16 on the tensor
     # cores, fp32 outside them, device memory.
     peak_flops = {"bf16": 989e12, "fp32": 67e12}
@@ -1152,14 +1750,6 @@ def main() -> int:
             ts.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         return 1e6 * statistics.median(ts)
-
-    def row_ulps(got, want):
-        """(max, mean) of |got - want| in bf16 ulps of each row's scale (max
-        |want| over the head dim)."""
-        want = want.float()
-        u = (got.float() - want).abs() / bf16_ulp(
-            want.abs().amax(-1, keepdim=True))
-        return u.max().item(), u.mean().item()
 
     def qkvg(b, n, h, d, mult):
         """q (scaled by mult / sqrt(d), bf16), k, v as column slices of one
@@ -1741,14 +2331,6 @@ def main() -> int:
     # same operands must give the same bits.  Then the edges of the 64-row
     # tiles and 128-row blocks (N 127-129, 255-257, 895-897) for every head
     # dim.
-    def bwd_ulps(got, want):
-        """(max, mean) over dq, dk, dv of the row-ulp error."""
-        worst = mean = 0.0
-        for x, w in zip(got, want):
-            a_, m_ = row_ulps(attention._to_bhnd(x), w)
-            worst, mean = max(worst, a_), max(mean, m_)
-        return worst, mean
-
     k2 = {"err": 0.0, "ulps": {}, "wrong": {}, "edges": {}, "ms": {},
           "ms_back_to_back": {}, "host_us": {}, "plain_ms": {},
           "library_ms": {}}
@@ -3741,7 +4323,7 @@ def main() -> int:
               for r_ in rows23), flush=True)
 
     # -- 24. data-parallel and fully-sharded training ---------------------------
-    launches24 = phase24(dev, expected)
+    launches24, bare24, weights24 = phase24(dev, expected)
 
     # -- 25. the sealed artifacts ------------------------------------------------
     t25 = time.perf_counter()
@@ -3770,6 +4352,10 @@ def main() -> int:
     print(f"[ops host] host us a call through the op: K1 "
           f"{json.dumps(k1['host_us'])} | K2 {json.dumps(k2['host_us'])} | "
           f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
+
+    # -- 26. tensor parallelism ----------------------------------------------------
+    launches26, k1_err26, k2_err26 = phase26(dev, expected, bare24, weights24)
+    del bare24, weights24
 
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
@@ -3850,7 +4436,8 @@ def main() -> int:
               launches_pseudo_label=pl_launches["exp_attention"],
               launches_eval=eval_launches["exp_attention"],
               launches_coco_eval=ev_r["launches"]["exp_attention"],
-              launches_train=per_phase("exp_attention")),
+              launches_train=per_phase("exp_attention"),
+              max_abs_err_tensor_parallel=k1_err26),
         entry("exp_attention_bwd", "exp_attention_bwd.cu",
               "dupl_tpu/ops/attention.py:164",
               train12["full"]["launches"]["exp_attention_bwd"], k2["err"],
@@ -3861,7 +4448,8 @@ def main() -> int:
               ms_back_to_back_by_shape=k2["ms_back_to_back"],
               host_us_by_shape=k2["host_us"],
               library_ms_by_shape=k2["library_ms"],
-              launches_train=per_phase("exp_attention_bwd")),
+              launches_train=per_phase("exp_attention_bwd"),
+              max_abs_err_tensor_parallel=k2_err26),
         entry("crf_apply", "crf_apply.cu", "dupl_tpu/ops/crf_pallas.py:30",
               launches["crf_apply"], k5["err"], k5["ms"][k5_key],
               k5["plain_ms"][k5_key], None,
@@ -3957,6 +4545,8 @@ def main() -> int:
             for arm, by_phase in launches24.items():
                 e[f"launches_train_{arm.replace(' ', '_')}"] = {
                     ph: n_[e["name"]] for ph, n_ in by_phase.items()}
+            e["launches_train_tensor_parallel"] = {
+                ph: n_[e["name"]] for ph, n_ in launches26.items()}
     for e in kernels[:5]:   # K1, K3, K4, K5 in the sealed programs' calls
         if e["name"] in P25_SERVING:
             e["launches_sealed_serving"] = srv25["launches"][e["name"]]

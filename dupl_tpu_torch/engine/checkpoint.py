@@ -11,11 +11,13 @@ killed save never leaves a half-written ``step_<n>.pt``.  The weights-only
 export for the evaluation tools is a flat ``.npz`` in the JAX package's key
 layout, which both packages load.
 
-A file has one layout whatever the world size that wrote it: under FSDP
-``save_state`` gathers the full weights and moments from every rank (a
+A file has one layout whatever the grid of ranks that wrote it: under FSDP
+and tensor parallelism ``save_state`` gathers the full weights and moments
+from every rank (over the data ranks, then over the model group; a
 collective: every rank calls it) and rank 0 alone writes;
-``restore_state`` loads the file into a plain or a sharded state.  So a run
-saved at one world size, sharded or not, resumes at another.
+``restore_state`` loads the file into a plain or a sharded state, each rank
+slicing its share.  So a run saved at one grid, sharded or not, resumes at
+another.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.distributed as dist
 
 from dupl_tpu_torch.engine.train import TrainState
 from dupl_tpu_torch.models.convert import state_dict_to_jax
+from dupl_tpu_torch.parallel import tensor_parallel
 from dupl_tpu_torch.parallel.mesh import full_tensor, shard_like
 
 _PREFIX, _SUFFIX = "step_", ".pt"
@@ -54,18 +57,38 @@ def _writes() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def full_state(tensors, model: torch.nn.Module):
+    """Tensors of ``model``'s parameters keyed by name (weights, gradients,
+    moments) in the one-device layout: gathered over FSDP's data ranks,
+    then over the model group (a collective when ``model`` is sharded:
+    every rank calls it)."""
+    return tensor_parallel.gather_model_state(
+        {k: full_tensor(v) for k, v in tensors.items()},
+        getattr(model, "tp", None))
+
+
 def full_model_state(model: torch.nn.Module):
     """The model's state dict with every sharded tensor gathered (a
-    collective under FSDP: every rank calls it)."""
-    return {k: full_tensor(v) for k, v in model.state_dict().items()}
+    collective under FSDP and tensor parallelism: every rank calls it)."""
+    return full_state(model.state_dict(), model)
 
 
-def full_optimizer_state(optimizer):
+def _param_names(optimizer):
+    """The names of the optimizer's parameters, in its state dict's
+    index order."""
+    return [n for g in optimizer.param_groups for n in g["names"]]
+
+
+def full_optimizer_state(optimizer, model: torch.nn.Module):
     """The optimizer's state dict with the moments gathered, in the layout
-    of one process (a collective under FSDP)."""
+    of one process (a collective under FSDP and tensor parallelism)."""
     sd = optimizer.state_dict()
-    sd["state"] = {i: {k: full_tensor(v) for k, v in st.items()}
-                   for i, st in sorted(sd["state"].items())}
+    names = _param_names(optimizer)
+    state = {}
+    for i, st in sorted(sd["state"].items()):
+        state[i] = dict(st, **{k: full_state({names[i]: st[k]}, model)[
+            names[i]] for k in ("exp_avg", "exp_avg_sq")})
+    sd["state"] = state
     return sd
 
 
@@ -78,7 +101,8 @@ def save_state(ckpt_dir: str, state: TrainState, *, keep: int = 3) -> str:
         raise ValueError(f"keep must be >= 1, got {keep}")
     path = _path(ckpt_dir, int(state.step))
     payload = {"model": full_model_state(state.model),
-               "optimizer": full_optimizer_state(state.optimizer),
+               "optimizer": full_optimizer_state(state.optimizer,
+                                                 state.model),
                "step": int(state.step),
                "rng": state.rng.get_state()}
     if not _writes():
@@ -110,22 +134,29 @@ def restore_state(ckpt_dir: str, state: TrainState,
                   step: Optional[int] = None) -> TrainState:
     """Load a saved step (default: the latest) into ``state`` in place (a
     freshly initialised state of the same recipe, on its device, plain or
-    sharded: each rank takes its shards of the file's tensors) and return
-    it."""
+    sharded by ``mesh.shard_state``: each rank takes its shares of the
+    file's tensors) and return it."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     device = next(state.model.parameters()).device
     payload = torch.load(_path(ckpt_dir, step), map_location=device,
                          weights_only=True)
+    tp = getattr(state.model, "tp", None)
+
+    def share(name, ref, full):
+        return shard_like(ref, tensor_parallel.shard_like_model(name, full,
+                                                                tp))
+
     own = state.model.state_dict()
-    state.model.load_state_dict({k: shard_like(own[k], v) if k in own else v
+    state.model.load_state_dict({k: share(k, own[k], v) if k in own else v
                                  for k, v in payload["model"].items()})
     opt = payload["optimizer"]
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    names = _param_names(state.optimizer)
     for i, st in opt["state"].items():
         for k in ("exp_avg", "exp_avg_sq"):
-            st[k] = shard_like(params[i], st[k])
+            st[k] = share(names[i], params[i], st[k])
     state.optimizer.load_state_dict(opt)
     state.step = int(payload["step"])
     state.rng.set_state(payload["rng"].cpu())

@@ -26,15 +26,19 @@ gate is a ``where``; metrics come back as 0-d tensors.  The one host-side
 decision, whether the batch fits PAR's class budget, is taken from the
 batch's host copy by :meth:`Trainer.put` before anything is queued.
 
-Under data parallelism (``dist``, ``parallel/mesh.py``) each rank holds its
-slice of the global batch and computes its share of the global batch's loss:
-every count-normalised term is its local sum over the global count (the
-counts of a step summed over the ranks in one collective) and every batch
-mean its local sum over the global batch size, as the JAX package computes
-them over its one global array.  After ``backward()`` the ranks' gradients
-are summed (``parallel/data_parallel.py``), or reduce-scattered by FSDP, so
-every rank applies the gradient of the global loss.  Without a process group
-the step is the one-device step, bit for bit.
+Under data parallelism (``dist``, ``parallel/mesh.py``) each data rank
+holds its slice of the global batch and computes its share of the global
+batch's loss: every count-normalised term is its local sum over the global
+count (the counts of a step summed over the data ranks in one collective)
+and every batch mean its local sum over the global batch size, as the JAX
+package computes them over its one global array.  After ``backward()`` the
+data ranks' gradients are summed (``parallel/data_parallel.py``), or
+reduce-scattered by FSDP, so every rank applies the gradient of the global
+loss.  Under tensor parallelism (``parallel/tensor_parallel.py``) the ranks
+of one model group hold the same samples, run the CAM fusion, PAR, the GMM
+and the losses on the same replicated activations, and each differentiates
+its share of the sharded layers.  Without a process group the step is the
+one-device step, bit for bit.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from dupl_tpu_torch.ops import image as image_ops
 from dupl_tpu_torch.ops import losses as loss_ops
 from dupl_tpu_torch.ops import par as par_ops
 from dupl_tpu_torch.ops import schedule as schedule_ops
-from dupl_tpu_torch.parallel import data_parallel
+from dupl_tpu_torch.parallel import data_parallel, tensor_parallel
 from dupl_tpu_torch.parallel.mesh import Dist, is_sharded
 
 
@@ -326,9 +330,10 @@ class Trainer:
         """The step's :class:`Norms`.  A data-parallel rank takes the global
         counts of the PTC pairs of ``aff_masks``, of the seg labels (in the
         order of the ``seg_loss`` calls) and of the consistency term's
-        ``reg_masks``, in one collective on the device."""
+        ``reg_masks``, in one collective on the device.  One data rank (one
+        process, or one model group) normalises as one process."""
         d = self.dist
-        if not d.active:
+        if not d.active or d.n_data == 1:
             return Norms()
         counts = [c for a in aff_masks for c in loss_ops.ptc_counts(a)]
         counts += [c for lab in seg_labels
@@ -337,7 +342,7 @@ class Trainer:
         g = iter(d.sum_counts(counts))
         ptc = tuple((next(g), next(g)) for _ in aff_masks)
         seg = tuple((next(g), next(g)) for _ in seg_labels) or (None, None)
-        return Norms(batch_size * d.world, d.unit, ptc, seg,
+        return Norms(batch_size * d.n_data, d.unit, ptc, seg,
                      tuple(g) or (None, None))
 
     @staticmethod
@@ -517,12 +522,13 @@ class Trainer:
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Phase-dispatched (grads, metrics) without applying an update:
         ``loss.backward()`` into the parameters' ``.grad`` (cleared first),
-        summed over the ranks, returned by parameter name (this rank's
-        shards under FSDP); a parameter outside the phase's graph (the
-        decoder in warm-up) has no entry.  ``aug_ops``: the strong
-        view's (aug_n, global B) op indices, of which a rank takes its own
-        columns; drawn from ``state.rng`` when None (every rank draws the
-        global batch's, so the ranks' generators stay in step)."""
+        summed over the data ranks, returned by parameter name (this rank's
+        shards under FSDP and tensor parallelism); a parameter outside the
+        phase's graph (the decoder in warm-up) has no entry.  ``aug_ops``:
+        the strong view's (aug_n, global B) op indices, of which a rank
+        takes the columns of its data rank; drawn from ``state.rng`` when
+        None (every rank draws the global batch's, so the ranks' generators
+        stay in step and a model group's ranks use the same columns)."""
         step = state.step if step is None else step
         batch = self.put(batch)
         phase = phase_of(self.cfg, step)
@@ -530,7 +536,7 @@ class Trainer:
             b = batch["image"].shape[0]
             if aug_ops is None:
                 aug_ops = augment_ops.draw_ops(
-                    state.rng, self.cfg.aug_n, b * self.dist.world,
+                    state.rng, self.cfg.aug_n, b * self.dist.n_data,
                     device=self.device)
             aug_ops = aug_ops[:, self.dist.batch_slice(b)]
         loss_fn = {
@@ -553,6 +559,7 @@ class Trainer:
                 self._checked_phases.add(phase)
             if not is_sharded(state.model):   # FSDP has reduce-scattered
                 data_parallel.reduce_gradients(params, self.dist)
+            tensor_parallel.sync_replicated_gradients(state.model, self.dist)
         grads = {n: p.grad for n, p in state.model.named_parameters()
                  if p.grad is not None}
         return grads, metrics

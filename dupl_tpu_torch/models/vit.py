@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dupl_tpu_torch.ops.attention import dot_attention
 from dupl_tpu_torch.ops.image import resize_bicubic
+from dupl_tpu_torch.parallel import tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +54,13 @@ VIT_CONFIGS = {
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype``: input and weight cast,
-    the product rounded to that dtype, then the bias added in it."""
+    the product rounded to that dtype, then the bias added in it.  ``tp``
+    and ``tp_role`` (``parallel/tensor_parallel.py``) make it column- or
+    row-parallel on this rank's share; a row-parallel product is summed
+    over the model group before the bias."""
+
+    tp = None
+    tp_role = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16):
@@ -62,7 +69,11 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = F.linear(x.to(cd), self.weight.to(cd))
+        if self.tp is None:
+            y = F.linear(x.to(cd), self.weight.to(cd))
+        else:
+            y = tensor_parallel.parallel_linear(x, self.weight.to(cd),
+                                                self.tp, self.tp_role)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -94,6 +105,12 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
+    """``tp``: qkv column-parallel by head, proj row-parallel
+    (``parallel/tensor_parallel.py``); the rank runs its ``num_heads /
+    n_model`` heads, at the full model's head dim and scale."""
+
+    tp = None
+
     def __init__(self, dim: int, num_heads: int, compute_dtype: torch.dtype):
         super().__init__()
         self.num_heads = num_heads
@@ -102,11 +119,13 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        hd = c // self.num_heads
+        b, n, _ = x.shape
+        heads = self.num_heads // (1 if self.tp is None else self.tp.n_model)
         qkv = self.qkv(x)
+        c = qkv.shape[-1] // 3
+        hd = c // heads
         # contiguous column ranges, viewed as (B, N, H, D) without copies
-        q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, self.num_heads, hd)
+        q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, heads, hd)
                    .to(self.compute_dtype) for i in range(3))
         x = dot_attention(q, k, v, scale=hd ** -0.5)
         return self.proj(x.reshape(b, n, c))

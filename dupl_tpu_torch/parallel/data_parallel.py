@@ -49,8 +49,12 @@ def _buckets(grads: List[torch.Tensor]) -> Iterable[List[torch.Tensor]]:
 
 @torch.no_grad()
 def reduce_gradients(params: Sequence[torch.nn.Parameter], d: Dist) -> None:
-    """Sum over the ranks, in place, the ``.grad`` of every parameter that
-    has one, in flat buckets; one process: nothing."""
+    """Sum over the data ranks, in place, the ``.grad`` of every parameter
+    that has one, in flat buckets; one process: nothing.  Under tensor
+    parallelism a sharded leaf's gradient is already whole on its rank and
+    a replicated leaf's the same on every rank of a model group
+    (``tensor_parallel.sync_replicated_gradients``), so the data group is
+    all that sums."""
     if not d.active:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -73,8 +77,9 @@ def grad_set_digest(params: Sequence[torch.nn.Parameter]) -> int:
 @torch.no_grad()
 def check_same_grad_set(params: Sequence[torch.nn.Parameter], d: Dist,
                         device) -> None:
-    """Fail unless every rank has a gradient on the same parameters (the
-    buckets of :func:`reduce_gradients` would not line up).  The digest is
+    """Fail unless every rank of the world has a gradient on the same
+    parameters (the buckets of :func:`reduce_gradients` would not line
+    up).  The digest is
     compared on the device, and a mismatch fails a device-side assert, so
     the host does not wait for the step."""
     if not d.active:
@@ -92,9 +97,10 @@ def reduce_window(meter, d: Dist, keys: Sequence[str]) -> Dict[str, float]:
     """Pop a log window's metrics from ``meter``: the mean of each of
     ``keys`` over the window's steps, as one process at the global batch
     logs them.  One process: ``meter.pop`` of each key.  A data-parallel
-    rank: the means of the loss shares summed over the ranks, and
+    rank: the means of the loss shares summed over the data ranks, and
     ``cls_score`` the window's mean of each step's F1 from its counts summed
-    over the ranks; one collective, read on the host."""
+    over them (every rank of a model group holds the same shares); one
+    collective, read on the host."""
     if not d.active:
         return {k: meter.pop(k) for k in keys}
     means = [k for k in keys if k != "cls_score"]

@@ -5,11 +5,13 @@ template of tests/test_multihost.py.
 
 Two ranks at batch 2 each train as one process at batch 4 through warm-up,
 seg and full, plain and with ``fsdp`` (the moments of a rank are its share
-of each leaf); warm-up leaves the decoder untouched under both; a
+of each leaf); warm-up leaves the decoder untouched under both and under
+tensor parallelism; a
 checkpoint written at one world size resumes at the other bit for bit; one
 full step of two ranks gives the JAX package's gradients of the global
-batch; the training tool under two ranks writes one run's files, and a
-signal to one rank stops them all at the same step.
+batch; the training tool under two ranks writes one run's files, also as
+one model group (``--model-parallel 2``), and a signal to one rank stops
+them all at the same step.
 """
 
 import dataclasses
@@ -132,14 +134,18 @@ def test_fsdp_two_ranks_equal_one_process(start, one_process):
             assert want == [m.size // 2] * 2
 
 
-@pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
-def test_warmup_leaves_the_decoder_untouched(start, fsdp, tmp_path):
-    """Two warm-up steps across two ranks: the decoder's weights are the
-    initial ones and it has no moments and no count; every other trained
-    parameter has count 2.  Under FSDP the step-2 checkpoint then resumes
-    in one process bit for bit (weights, moments, counts, generator)."""
+@pytest.mark.parametrize("fsdp,n_model", [(False, 1), (True, 1), (False, 2)],
+                         ids=["dp", "fsdp", "tp"])
+def test_warmup_leaves_the_decoder_untouched(start, fsdp, n_model, tmp_path):
+    """Two warm-up steps across two ranks (data parallel, FSDP, or one
+    model group of two): the decoder's weights are the initial ones and it
+    has no moments and no count, its sharded convs included; every other
+    trained parameter has count 2.  Under FSDP and tensor parallelism the
+    step-2 checkpoint then resumes in one process bit for bit (weights,
+    moments, counts, generator)."""
     weights = start[2]
     ranks = dryrun.run_spawned(2, _job(weights, range(2), fsdp=fsdp,
+                                       n_model=n_model,
                                        save_dir=str(tmp_path)))
     for r in ranks:
         for name, w in r["weights"].items():
@@ -149,7 +155,7 @@ def test_warmup_leaves_the_decoder_untouched(start, fsdp, tmp_path):
             else:
                 assert not np.array_equal(w, weights[name]), name
                 assert r["moments"][name][0] == 2, name
-    if fsdp:
+    if fsdp or n_model > 1:
         resumed = dryrun.run_rank(_job(weights, [], resume_dir=str(tmp_path)),
                                   Dist())
         _assert_same_state(ranks[0], resumed)
@@ -335,6 +341,12 @@ def test_training_tool_under_two_ranks(tmp_path):
     argv = _tool_argv(tmp_path, "--max-iters", "3", "--eval-iters", "3",
                       "--log-iters", "1")
     outs = _finish(_start_ranks(argv, tmp_path))
+    _assert_one_run(tmp_path, outs)
+    log = next((tmp_path / "run").glob("*/train.log")).read_text()
+    assert "global batch 2" in log
+
+
+def _assert_one_run(tmp_path, outs):
     work = tmp_path / "run"
     runs = os.listdir(work)
     assert len(runs) == 1
@@ -346,8 +358,40 @@ def test_training_tool_under_two_ranks(tmp_path):
                                                        "weights.npz"]
     log = (run / "train.log").read_text()
     assert log.count("validating at iter") == 1
-    assert "rank 0 of 2" in log and "global batch 2" in log
+    assert "rank 0 of 2" in log
     assert "validating" not in outs[1] and "rank 1 of 2" in outs[1]
+    return run
+
+
+def test_training_tool_under_two_ranks_model_parallel(tmp_path):
+    """``--model-parallel 2`` under two ranks: one model group that trains
+    the recipe's global batch of 1 together, rank 0 validates a plain copy
+    with the gathered weights (the other rank joins the gather and waits),
+    and the checkpoint and ``weights.npz`` hold the one-device layout,
+    which a one-process model loads."""
+    from dupl_tpu_torch.engine import checkpoint as ckpt
+    from dupl_tpu_torch.models.network import DualStudent
+
+    argv = _tool_argv(tmp_path, "--max-iters", "3", "--eval-iters", "3",
+                      "--log-iters", "1", "--model-parallel", "2")
+    run = _assert_one_run(tmp_path, _finish(_start_ranks(argv, tmp_path)))
+    log = (run / "train.log").read_text()
+    assert "model rank 0 of 2" in log and "global batch 1" in log
+    recs = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs if r["event"] == "train"] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in recs if r["event"] == "train")
+    assert [r["step"] for r in recs if r["event"] == "val"] == [3]
+    cfg = _cfg(tconfig)
+    payload = torch.load(run / "checkpoints" / "step_3.pt",
+                         weights_only=True)
+    model = DualStudent(cfg.model)
+    model.load_state_dict(payload["model"])          # the one-device shapes
+    exported = load_weights(str(run / "checkpoints" / "weights.npz"))
+    full = ckpt.full_model_state(model)
+    assert exported.keys() == full.keys()
+    for k, v in exported.items():
+        assert torch.equal(v, full[k]), k
 
 
 def test_sigterm_on_one_rank_stops_every_rank(tmp_path):

@@ -4,7 +4,7 @@ process's ``Dist`` is the identity and its step the bare trainer's, bit for
 bit, also through a process group of one; the losses of a batch split in
 two, with the halves' counts summed, add up to the JAX package's loss of the
 whole batch, value and gradient; a rank's strong-view ops are its columns of
-the global batch's draw; tensor parallelism is still refused.  The ranks
+the global batch's draw; a model-parallel size must divide the world.  The ranks
 themselves run in tests/test_torch_multiproc.py."""
 
 import dataclasses
@@ -226,13 +226,31 @@ def test_gradient_buckets_and_set_digest():
     assert len({empty, one, data_parallel.grad_set_digest(params)}) == 3
 
 
-def test_model_parallel_is_still_refused():
+def test_model_parallel_must_divide_the_world(tmp_path, monkeypatch):
+    """``--model-parallel`` runs the data x model grid under torchrun; one
+    that does not divide the world exits with a message before any
+    rendezvous (here one process, and three ranks at 2), with or without
+    ``--fsdp`` and ``--multihost``."""
     spec = importlib.util.spec_from_file_location(
         "_train_torch", ROOT / "tools" / "train_torch.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    for flags in (["--model-parallel", "2"],
-                  ["--model-parallel", "4", "--fsdp", "--multihost"]):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            tool.refuse_unported(tool.parse_args(flags))
-    tool.refuse_unported(tool.parse_args(["--fsdp", "--multihost"]))
+    assert not hasattr(tool, "refuse_unported")
+    assert tool.parse_args(["--model-parallel", "2"]).model_parallel == 2
+    base = ["--device", "cpu", "--data-folder", str(tmp_path),
+            "--work-dir", str(tmp_path / "w")]
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="does not divide the 1 ranks"):
+        tool.main(base + ["--model-parallel", "2"])
+    for k, v in dict(WORLD_SIZE="3", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match="does not divide the 3 ranks"):
+        tool.main(base + ["--model-parallel", "2", "--fsdp", "--multihost"])
+    assert not (tmp_path / "w").exists()
+    # the grid's order is make_mesh's: the model axis innermost
+    d = Dist(rank=5, world=8, n_model=2)
+    assert (d.n_data, d.data_rank, d.model_rank, d.unit) == (4, 2, 1, 0.0)
+    assert d.batch_slice(3) == slice(6, 9)
+    assert Dist(rank=1, world=8, n_model=2).unit == 1.0

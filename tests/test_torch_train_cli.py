@@ -226,19 +226,20 @@ def test_cli_resume_equals_the_straight_run(straight, tree, tmp_path):
 @pytest.mark.parametrize("flags,error,message", [
     (("--train-records", "x.duplrec"), SystemExit, "go together"),
     (("--val-records", "x.duplrec"), SystemExit, "go together"),
-    (("--model-parallel", "2"), NotImplementedError, "not ported yet"),
-    (("--fsdp", "--model-parallel", "2"), NotImplementedError,
-     "tensor parallelism"),
+    (("--model-parallel", "2"), SystemExit, "does not divide the 1 ranks"),
+    (("--fsdp", "--model-parallel", "2"), SystemExit,
+     "--model-parallel 2: model-parallel size 2"),
     (("--multihost",), SystemExit, "torchrun's environment"),
     (("--no-data",), SystemExit, "either --data-folder")],
     ids=["flags1", "flags2", "flags3", "flags4", "flags5", "no_data"])
 def test_cli_refuses_what_is_not_ported(tree, tmp_path, flags, error,
                                         message):
-    """What is not ported (tensor parallelism, with or without ``--fsdp``),
-    and what the JAX tool refuses as well: one record flag without the
-    other, ``--multihost`` outside a cluster's environment (here torchrun's),
-    and no input at all (``--no-data`` stands for leaving out
-    ``--data-folder``).  Nothing is written."""
+    """What the tool refuses, as the JAX tool does: a model-parallel size
+    that does not divide the world (one process here, with or without
+    ``--fsdp``), one record flag without the other, ``--multihost`` outside
+    a cluster's environment (here torchrun's), and no input at all
+    (``--no-data`` stands for leaving out ``--data-folder``).  Nothing is
+    written."""
     if flags == ("--no-data",):
         argv = _argv(tree, tmp_path)
         i = argv.index("--data-folder")

@@ -9,12 +9,20 @@ One process a device (``--device``, a CUDA card unless told ``cpu``).  Under
 the recipe's global batch together: each rank loads its slice of every
 global batch and the gradients are summed over the ranks
 (``dupl_tpu_torch/parallel``); ``--fsdp`` also shards the parameters and the
-Adam moments over the ranks.  Rank 0 alone writes the run's files and
-validates, while the others wait::
+Adam moments over the ranks.  ``--model-parallel N`` groups N neighbouring
+ranks into a model group (tensor parallelism,
+``dupl_tpu_torch/parallel/tensor_parallel.py``): its ranks hold the same
+samples and each its share of every student's heads, MLP hidden units and
+decoder channels, so the world is a grid of world / N data ranks x N, and
+``--fsdp`` shards each rank's share over the data ranks; N must divide the
+world (NCCL on a node with that many cards; the CPU tests run it over
+gloo).  Rank 0 alone writes the run's files, with every tensor gathered to
+the one-device layout, and validates, while the others wait::
 
     torchrun --nproc_per_node 8 tools/train_torch.py --data-folder VOC2012 ...
+    torchrun --nproc_per_node 8 tools/train_torch.py --model-parallel 2 ...
     torchrun --nnodes 2 --nproc_per_node 8 --rdzv-endpoint HOST:29500 \
-        tools/train_torch.py --multihost [--fsdp] ...
+        tools/train_torch.py --multihost [--fsdp] [--model-parallel 2] ...
 
 The loop: a ``PrefetchLoader`` decodes and augments batches on worker threads, a
 ``DeviceFeeder`` stages them on the device ahead of the step,
@@ -36,9 +44,7 @@ Writes under the run directory: ``train.log``, ``metrics.jsonl`` (one JSON
 line per log, validation and end-of-run event), ``checkpoints/step_<n>.pt``
 and ``checkpoints/weights.npz``.
 
-Not ported yet, and refused: ``--model-parallel`` above 1 (tensor
-parallelism is the next slice of the port); TensorBoard output and the MFU
-line are not written.
+Not ported yet: TensorBoard output and the MFU line are not written.
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ def parse_args(argv=None):
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--samples-per-device", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="above 1: not ported yet (tensor parallelism)")
+                   help="ranks a model group (tensor parallelism, under "
+                        "torchrun); must divide the world size")
     p.add_argument("--fsdp", action="store_true",
                    help="shard parameters and Adam moments over the ranks "
                         "(under torchrun; one process has nothing to shard)")
@@ -121,14 +128,6 @@ def parse_args(argv=None):
                         "boundary under torch.cuda.set_sync_debug_mode"
                         "('error'): a host sync inside such a step raises")
     return p.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel above 1: not ported yet (tensor parallelism is "
-            "the next slice of the port; data parallel and --fsdp run under "
-            "torchrun)")
 
 
 def check_inputs(args) -> None:
@@ -209,13 +208,17 @@ def read_metrics(path: str):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    refuse_unported(args)
     check_inputs(args)
 
     from dupl_tpu_torch.parallel.mesh import init_from_env
     from dupl_tpu_torch.utils.device import cli_device
 
-    dist, device = init_from_env(cli_device(args.device), args.multihost)
+    device = cli_device(args.device)
+    try:
+        dist, device = init_from_env(device, args.multihost,
+                                     n_model=args.model_parallel)
+    except ValueError as e:      # --model-parallel does not divide the world
+        raise SystemExit(f"--model-parallel {args.model_parallel}: {e}")
     try:
         return _train(args, dist, device)
     finally:
@@ -278,16 +281,19 @@ def _train(args, dist, device) -> int:
     # data ---------------------------------------------------------------
     train_ds, val_ds = build_datasets(args, cfg, list_folder)
     if args.samples_per_device is None:
-        # pin the recipe's global batch over the ranks
-        cfg, warn = resolve_samples_per_device(cfg, dist.world)
+        # pin the recipe's global batch over the data ranks
+        cfg, warn = resolve_samples_per_device(cfg, dist.n_data)
         if warn:
             log.warning("%s", warn)
     batch_size = cfg.samples_per_device
-    log.info("rank %d of %d (%s%s); batch %d a rank, global batch %d",
-             dist.rank, dist.world, device, ", fsdp" if args.fsdp else "",
-             batch_size, batch_size * dist.world)
-    if args.fsdp and not dist.active:
-        log.warning("--fsdp: one process, nothing to shard")
+    fsdp = args.fsdp and dist.n_data > 1
+    log.info("rank %d of %d (%s%s); data rank %d of %d, model rank %d of "
+             "%d; batch %d a data rank, global batch %d", dist.rank,
+             dist.world, device, ", fsdp" if fsdp else "",
+             dist.data_rank, dist.n_data, dist.model_rank, dist.n_model,
+             batch_size, batch_size * dist.n_data)
+    if args.fsdp and not fsdp:
+        log.warning("--fsdp: one data rank, nothing to shard")
 
     # model/state --------------------------------------------------------
     trainer = Trainer(cfg, device=device, dist=dist)
@@ -299,8 +305,9 @@ def _train(args, dist, device) -> int:
                                    len(state.model.branch1.encoder.blocks))
         install_pretrained_encoder(state.model, enc)
         log.info("loaded pretrained encoder from %s", args.pretrained)
-    # rank 0's weights on every rank; with --fsdp, shard them
-    state = shard_state(state, dist, fsdp=args.fsdp)
+    # rank 0's weights on every rank; each its share under
+    # --model-parallel; with --fsdp, sharded over the data ranks
+    state = shard_state(state, dist, fsdp=fsdp)
     if resumed:
         state = ckpt.restore_state(ckpt_dir, state)
         log.info("resumed from step %d", state.step)
@@ -315,11 +322,11 @@ def _train(args, dist, device) -> int:
 
     # The loader is built AFTER the restore, so a resumed run fast-forwards
     # the deterministic index stream to the restored step: batch k is a pure
-    # function of (seed, k).  Rank r loads positions [r B, (r + 1) B) of
-    # every global batch.
+    # function of (seed, k).  Data rank r loads positions [r B, (r + 1) B) of
+    # every global batch; the ranks of a model group load the same.
     loader = PrefetchLoader(train_ds, batch_size, seed=cfg.seed,
                             num_workers=args.num_workers,
-                            shard=dist.rank, num_shards=dist.world,
+                            shard=dist.data_rank, num_shards=dist.n_data,
                             start_step=state.step)
     budget = cfg.par.class_budget
     feeder = DeviceFeeder(
@@ -331,8 +338,8 @@ def _train(args, dist, device) -> int:
     if main_rank:
         # a sharded model's forward is a collective: rank 0 validates a
         # plain copy that takes the gathered weights
-        eval_model = (DualStudent(cfg.model).to(device) if args.fsdp
-                      and dist.active else trainer.model)
+        eval_model = (DualStudent(cfg.model).to(device)
+                      if fsdp or dist.n_model > 1 else trainer.model)
         validator = Validator(cfg, eval_model,
                               transfer_dtype=args.val_transfer_dtype)
     meter = AverageMeter()
