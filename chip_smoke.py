@@ -2,8 +2,8 @@
 the pseudo-label path, the training step, the evaluation path, the four
 kernel-experiment tools, the training run, the recipe's COCO inputs
 (packed records, a DeiT checkpoint, COCO training and evaluation),
-training across processes, the sealed serving artifacts and tensor
-parallelism.
+training across processes, the sealed serving artifacts, tensor
+parallelism and the run operations (CAM grids, FLOP counts, MFU).
 
     python3 chip_smoke.py
 
@@ -149,17 +149,17 @@ JAX.  Phases, each printing one result line:
    batch 4, 6 steps through ``seg_static`` and ``full``, validation and
    weight export at 6: both students' encoders equal the ``.pth`` bit for
    bit before step 0, finite losses every step, the launches of K1-K4 a
-   step as in phase 13b, no twin on a CUDA tensor; the run four times,
-   fed from the shards, the tree, the tree and the shards (s/it beside
-   s/it); (c) ``tools/eval_seg_torch.py
+   step as in phase 13b, no twin on a CUDA tensor; the run twice, fed
+   from the shards and from the tree (s/it beside s/it); (c)
+   ``tools/eval_seg_torch.py
    --dataset coco --records`` on (b)'s ``weights.npz``, batch 8, device CRF
    (fixed crop, scales 1.0 / 1.25 / 1.5 x flip summed at the decoder grid,
    the full mean-field CRF: 1 + 10 K5 applies a batch at V 1 and V 81):
    K1 72 a forward, K5 11 a CRF batch, K5 against its twin on a batch's
    own V 81 operands within phase 4's bounds, histograms that sum to the
-   labelled pixels and equal those of the same run from the tree; an
-   untimed warm-up run from the tree, then timed runs from the shards, the
-   tree, the tree and the shards; (d)
+   labelled pixels and equal those of the same run from the tree; one run
+   from the shards (it takes the first calls at these shapes), then one
+   from the tree; (d)
    ``tools/crf_width_probe_torch.py``: the fast CRF at B 16, 448^2, C 21 /
    32 / 81, ``pos_w`` 1 and 0, one K5 launch a call;
 24. data-parallel and fully-sharded training (``dupl_tpu_torch/parallel``)
@@ -206,7 +206,22 @@ JAX.  Phases, each printing one result line:
    and 11's bounds; (b) the run's checkpoint restored into the bare
    ``Trainer`` equals its gathered weights bit for bit; (c) ms a step, peak
    memory and parameter bytes of each rank beside the bare run's (a rank
-   holds half of the tensor-parallel leaves).
+   holds half of the tensor-parallel leaves);
+27. the run operations at full width: (a) ``utils/tb.cam_grids``, the
+   training run's CAM-grid pass (``production_config("voc")``, seeded
+   weights, a uint8 batch of 4 at crop 448): three uint8 grids of (896,
+   896, 3), K1 launched 72 times and nothing else (one no-grad multi-scale
+   CAM pass of both students), its CAMs bit-equal to
+   ``Trainer._multi_scale_cams`` on the same inputs, its grids equal to
+   ``cam_overlay_grid`` recomputed on the host, and whether ``TbWriter``
+   finds a backend on the machine; (b) ``utils/flops.count_flops`` of one
+   ``train_step`` a phase at crop 448, batch 1, and of phase 17's warm-up
+   ``grad_step`` at crop 768, at depth 2, full width: the card route (K1 /
+   K2, and L1f / L1b at 768, by their ops' flop formulas) and the CPU route
+   (exact softmax attention) must count the same FLOPs; (c)
+   ``tools/bench_train_torch.py --phase {warmup,seg,full} --iters 3`` at
+   full depth: FLOPs a step, TF an image, ms a step and MFU beside the
+   card's name and power limit.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -1619,6 +1634,216 @@ def phase26(dev, expected, bare, weights):
             max(x["kernels"]["k2_err"] for x in ranks))
 
 
+def shallow(model, depth):
+    """The first ``depth`` blocks of each student's encoder."""
+    import dataclasses
+
+    for i in range(2):
+        enc = model.student(i).encoder
+        enc.blocks = enc.blocks[:depth]
+        enc.spec = dataclasses.replace(enc.spec, depth=depth)
+    return model
+
+
+# Phase 27: the run operations.  (a) The training run's CAM-grid pass at a
+# log boundary: one no-grad multi-scale CAM pass of both students, scales
+# 1.0 / 0.5 / 1.5 each with its flip in one batch of 2B, 12 blocks: K1 72
+# times (785, 197 and 1765 tokens), nothing else.
+P27_GRID_LAUNCHES = {"exp_attention": 72, "exp_attention_bwd": 0,
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "par_affinity": 0, "par_propagate": 0}
+
+
+def phase27(dev, smi, flops768):
+    """The run operations of ``tools/train_torch.py`` and
+    ``tools/bench_train_torch.py`` at full width: (a) ``utils/tb.cam_grids``
+    on a uint8 batch of 4 at crop 448; (b) ``utils/flops.count_flops`` of
+    one step a phase (crop 448, batch 1), at depth 2, on the card and on
+    the CPU, and ``flops768``, phase 17's counts of its warm-up
+    ``grad_step`` at crop 768 on both sides (side -> (FLOPs, launches)):
+    the counts must be equal; (c) the train bench's MFU line of each phase
+    at full depth.  Returns K1's launches in (a)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import bench_train_torch
+
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.engine.train import (Trainer, phase_start,
+                                             production_config)
+    from dupl_tpu_torch.models.convert import init_weights
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.ops import attention, augment, crf_cuda, par_cuda
+    from dupl_tpu_torch.ops import image as image_ops
+    from dupl_tpu_torch.utils import flops as flops_utils
+    from dupl_tpu_torch.utils.tb import (TbWriter, cam_grids,
+                                         cam_overlay_grid, image_grid)
+
+    counters = {"exp_attention": attention.exp_attention_cuda,
+                "exp_attention_bwd": attention.exp_attention_bwd_cuda,
+                "flash_attention": attention.flash_attention_cuda,
+                "flash_attention_bwd": attention.flash_attention_bwd_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    # A plain twin must never see a CUDA tensor: count such calls.
+    twin_calls = []
+    twins = [(attention, "exp_attention_ref"),
+             (attention, "exp_attention_bwd_ref"),
+             (attention, "flash_attention_ref"),
+             (attention, "flash_attention_bwd_ref"),
+             (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
+             (crf_cuda, "kernel_apply_ref")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                twin_calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod, name, fn in originals:
+        setattr(mod, name, counting(name, fn))
+    try:
+        # -- (a) the CAM grids ---------------------------------------------------
+        cfg = production_config("voc")
+        trainer = Trainer(cfg, device=dev)
+        trainer.init_state()
+        b27 = synthetic_batch(4, crop=448, num_fg=cfg.model.num_fg, seed=27)
+        mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+        std = np.asarray((0.229, 0.224, 0.225), np.float32)
+        u8 = np.clip(np.round((b27["image"] * std + mean) * 255), 0,
+                     255).astype(np.uint8)       # the run's uint8 wire
+        images = torch.from_numpy(u8).to(dev)
+        cls_label = b27["cls_label"]
+        seen = []
+        multi_scale_cams = trainer._multi_scale_cams
+
+        def keeping(x):
+            seen.append(multi_scale_cams(x))
+            return seen[-1]
+
+        trainer._multi_scale_cams = keeping
+        try:
+            cam_grids(trainer, images, cls_label)         # the first call builds
+            torch.cuda.synchronize()
+            zero()
+            seen.clear()
+            t = time.perf_counter()
+            grids = cam_grids(trainer, images, cls_label)
+            grid_ms = 1e3 * (time.perf_counter() - t)
+            grid_launches = read()
+        finally:
+            del trainer._multi_scale_cams
+        check(grid_launches == P27_GRID_LAUNCHES,
+              f"cam_grids: launches {grid_launches}, expected "
+              f"{P27_GRID_LAUNCHES}")
+        check(sorted(grids) == ["CAM/cams_1", "CAM/cams_2", "CAM/inputs"]
+              and all(g.dtype == np.uint8 and g.shape == (896, 896, 3)
+                      for g in grids.values()),
+              f"cam_grids: {[(k, g.dtype, g.shape) for k, g in grids.items()]}")
+        norm, images01 = image_ops.prepare_inputs(images)
+        want = multi_scale_cams(norm)[0]
+        check(len(seen) == 1 and torch.equal(seen[0][0], want),
+              "cam_grids: its CAMs differ from Trainer._multi_scale_cams on "
+              "the same inputs")
+        cams = want.float().cpu().numpy() * cls_label[None, :, None, None, :]
+        host01 = images01.float().cpu().numpy()
+        check(np.array_equal(grids["CAM/inputs"], image_grid(host01))
+              and all(np.array_equal(grids[f"CAM/cams_{i + 1}"],
+                                     cam_overlay_grid(host01, cams[i]))
+                      for i in range(2)),
+              "cam_grids: a grid differs from cam_overlay_grid on the host")
+        with tempfile.TemporaryDirectory() as tmp:
+            tb = TbWriter(tmp)
+            tb_enabled = tb.enabled
+            tb.close()
+        print(f"[CAM grids] utils/tb.cam_grids, ViT-B/16 dual student, crop "
+              f"448, a uint8 batch of 4 | grids "
+              f"{json.dumps({k: [str(g.dtype), *g.shape] for k, g in grids.items()})} "
+              f"| launches {json.dumps(grid_launches)} (one no-grad "
+              f"multi-scale CAM pass of both students) | CAMs bit-equal to "
+              f"Trainer._multi_scale_cams, grids equal to cam_overlay_grid "
+              f"on the host | {grid_ms:.1f} ms | TbWriter enabled on this "
+              f"machine: {tb_enabled}", flush=True)
+        del trainer, seen, want
+        torch.cuda.empty_cache()
+
+        # -- (b) FLOPs: the card route against the CPU route -------------------------
+        model = DualStudent(cfg.model)
+        init_weights(model, torch.Generator().manual_seed(27))
+        shallow(model, 2)
+        aug = augment.draw_ops(torch.Generator().manual_seed(27), cfg.aug_n, 1)
+        batch = synthetic_batch(1, crop=448, num_fg=cfg.model.num_fg,
+                                seed=27)
+        counts = {}
+        for phase in ("warmup", "seg", "full"):
+            key = f"train_step {phase} crop 448"
+            counts[key] = {}
+            for side in ("card", "cpu"):
+                d = dev if side == "card" else torch.device("cpu")
+                tr = Trainer(cfg, model=copy.deepcopy(model), device=d)
+                st = tr.init_state(init=False)
+                step = phase_start(cfg, phase)
+                st.step = st.optimizer.global_step = step
+                zero()
+                n = flops_utils.count_flops(tr.train_step, st, batch,
+                                            step=step, aug_ops=aug.to(d))
+                counts[key][side] = (n, read())
+                del tr, st
+        counts["grad_step warmup crop 768 (phase 17)"] = flops768
+        for key, sides in counts.items():
+            (n_card, l_card), (n_cpu, l_cpu) = sides["card"], sides["cpu"]
+            kernels = (("flash_attention", "flash_attention_bwd")
+                       if "768" in key
+                       else ("exp_attention", "exp_attention_bwd"))
+            check(all(l_card[k] > 0 for k in kernels)
+                  and not any(l_cpu.values()),
+                  f"{key}: launches card {l_card}, cpu {l_cpu}")
+            check(n_card == n_cpu and n_card > 0,
+                  f"{key}: count_flops on the card {n_card} != on the CPU "
+                  f"{n_cpu}")
+        torch.cuda.empty_cache()
+        print(f"[FLOPs card vs cpu] utils/flops.count_flops, depth 2, full "
+              f"width, batch 1, the same weights and strong-view draws | "
+              + " | ".join(f"{k}: {v['card'][0]:.6e} on both (card launches "
+                           f"{json.dumps({n_: c for n_, c in v['card'][1].items() if c})})"
+                           for k, v in counts.items()), flush=True)
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    # -- (c) the MFU line of the train bench, full depth ---------------------------
+    rows = {}
+    for phase in ("warmup", "seg", "full"):
+        rows[phase] = bench_train_torch.run(["--phase", phase, "--iters", "3"])
+        check(rows[phase] is not None and rows[phase]["mfu"] is not None
+              and rows[phase]["flops_per_step"] > 0,
+              f"bench_train_torch --phase {phase}: {rows[phase]}")
+        torch.cuda.empty_cache()
+    print(f"[MFU] tools/bench_train_torch.py --iters 3, ViT-B/16, batch 4, "
+          f"crop 448 | {smi} | " + " | ".join(
+              f"{ph}: {r['flops_per_step']:.6e} FLOPs a step, "
+              f"{r['tf_per_img']:.4f} TF/img, {r['ms_per_step']:.1f} ms/step, "
+              f"mfu {r['mfu']:.4f}" for ph, r in rows.items()), flush=True)
+    return grid_launches["exp_attention"]
+
+
 def main() -> int:
     import torch
 
@@ -1632,6 +1857,7 @@ def main() -> int:
 
     from dupl_tpu_torch.kernels import build
     from dupl_tpu_torch.ops import attention, crf, crf_cuda, par_cuda
+    from dupl_tpu_torch.utils import flops as flops_utils
 
     dev = torch.device("cuda:0")
 
@@ -1706,10 +1932,17 @@ def main() -> int:
         del graph
         return ms
 
-    # NVIDIA's published peaks of one H100 SXM: dense bf16 on the tensor
-    # cores, fp32 outside them, device memory.
-    peak_flops = {"bf16": 989e12, "fp32": 67e12}
-    hbm_bytes_per_s = 3.35e12
+    # NVIDIA's published peaks of the card (utils/flops.py's table): dense
+    # bf16 on the tensor cores, fp32 outside them, fp32 and special-function
+    # instructions, device memory; the SXM part's for a card not in it.
+    rates = flops_utils.device_rates(torch.cuda.get_device_name(0))
+    if rates is None:
+        print(f"[device] {torch.cuda.get_device_name(0)} is not in "
+              f"utils/flops.py's table: bounds from the H100 SXM's peaks",
+              flush=True)
+        rates = flops_utils.H100_SXM
+    peak_flops = {k: rates[k] for k in ("bf16", "fp32", "sfu", "fp32_instr")}
+    hbm_bytes_per_s = rates["hbm_bytes_per_s"]
 
     def bound_ms(flops, kind, nbytes):
         """The least time the card could take: (ms, what bounds it)."""
@@ -3349,20 +3582,12 @@ def main() -> int:
     MARGIN_ULPS = 8
     import dataclasses
 
-    def shallow(model_, depth):
-        """The first ``depth`` blocks of each student's encoder."""
-        for i in range(2):
-            enc = model_.student(i).encoder
-            enc.blocks = enc.blocks[:depth]
-            enc.spec = dataclasses.replace(enc.spec, depth=depth)
-        return model_
-
     smodel = DualStudent(tcfg17.model)
     init_weights(smodel, torch.Generator().manual_seed(17))
     shallow(smodel, 2)
     img17 = np.asarray(Image.open(io.BytesIO(bodies[13][0])).convert("RGB"))
     check(img17.shape == (500, 500, 3), f"image of {img17.shape}")
-    labels17, logits17, grads_cc = {}, {}, {}
+    labels17, logits17, grads_cc, flops17 = {}, {}, {}, {}
     for side in ("card", "cpu"):
         m_ = copy.deepcopy(smodel).to(dev if side == "card" else "cpu").eval()
         x17, _ = image_ops.prepare_inputs(
@@ -3386,8 +3611,14 @@ def main() -> int:
               f"{side} msc launches at depth 2: {msc_launches}")
         tr_ = Trainer(tcfg17, model=m_.train(), device=next(
             m_.parameters()).device)
-        g_, mt_ = tr_.grad_step(tr_.init_state(init=False), batch17,
-                                step=step17)
+        # the step's FLOPs on each route, held equal in phase 27 (b)
+        for f in counters17.values():
+            f.launches = 0
+        out17 = []
+        n17 = flops_utils.count_flops(lambda: out17.append(tr_.grad_step(
+            tr_.init_state(init=False), batch17, step=step17)))
+        flops17[side] = (n17, {k_: f.launches for k_, f in counters17.items()})
+        g_, mt_ = out17.pop()
         grads_cc[side] = ({k_: v_.float().cpu() for k_, v_ in g_.items()},
                           mt_["loss"].item())
         del m_, tr_, g_
@@ -3462,8 +3693,6 @@ def main() -> int:
     from dupl_tpu_torch.ops import experiments
 
     torch.cuda.empty_cache()
-    peak_flops["sfu"] = peak_flops["fp32"] / 2 / 8   # 16 of 128 lanes an SM
-    peak_flops["fp32_instr"] = peak_flops["fp32"] / 2
     exp_counters = {"exp_attention_ones": experiments.exp_attention_ones_cuda,
                     "exp_attention_bnhd": experiments.exp_attention_bnhd_cuda,
                     "crf_apply_bf16": experiments.kernel_apply_bf16_cuda,
@@ -3937,10 +4166,10 @@ def main() -> int:
     # (seg_static 0-2, full 3-5), validation and weight export at 6: both
     # students' encoders equal the .pth's tensors before step 0, finite
     # losses at every step, K1-K4 launches a step as phase 13b counts them,
-    # no twin on a CUDA tensor; four runs, the feeds alternating (s/it
-    # beside s/it).  (c) tools/eval_seg_torch.py --dataset coco on (b)'s
-    # weights.npz from the val shards and from the tree (a warm-up, then
-    # alternating), batch 8, device CRF:
+    # no twin on a CUDA tensor; two runs, from the shards and from the tree
+    # (s/it beside s/it).  (c) tools/eval_seg_torch.py --dataset coco on
+    # (b)'s weights.npz from the val shards, then from the tree, batch 8,
+    # device CRF:
     # the COCO protocol (fixed crop 448, scales 1.0 / 1.25 / 1.5 x flip
     # summed at the decoder grid), the full mean-field CRF (1 + 10 K5 applies
     # a batch: V 1 for the degree, V 81 a round); the launches of K1 and K5
@@ -4059,11 +4288,10 @@ def main() -> int:
                 "records": ["--train-records", globs23["train"],
                             "--val-records", globs23["val_part"]],
                 "tree": ["--data-folder", root23, "--list-folder", lists23]}
-            # the feeds alternate (records, tree, tree, records), so that
-            # neither takes every first call at the COCO shapes
+            # one run a feed (phase 13b has taken the first calls at the
+            # COCO training shapes)
             train23 = {"records": [], "tree": []}
-            for i23, feed in enumerate(("records", "tree", "tree",
-                                        "records")):
+            for i23, feed in enumerate(("records", "tree")):
                 more = feeds23[feed]
                 del steps23[:], starts23[:]
                 work = os.path.join(tmp23, f"run{i23}_{feed}")
@@ -4112,7 +4340,7 @@ def main() -> int:
                   f"--pretrained, ViT-B/16, crop 448, batch 4, 6 steps "
                   f"(seg_static 3, full 3), validation and export at 6 | "
                   f"encoders equal the .pth before step 0 | launches a step "
-                  f"as phase 13b | runs records, tree, tree, records | "
+                  f"as phase 13b | runs records, tree | "
                   + " | ".join(
                       f"{feed}: " + " / ".join(
                           f"{v_['run_s']:.1f} s" for v_ in runs_) + ", "
@@ -4163,15 +4391,14 @@ def main() -> int:
             eval_mod.SegEvaluator.msc_logits = counted_msc23
             eval_mod.resize_logits_host = timed_resize23
             crf_cuda.kernel_apply = keeping_apply23
-            # a warm-up run from the tree, whose time is not kept, takes
-            # the first calls at the COCO shapes; the timed runs alternate
+            # one run a feed; the first takes the first calls at the COCO
+            # evaluation's shapes (a warm-up run took 1-3 s more than a
+            # later run, and the 1200 s limit has no room for it)
             eval_feeds23 = {"tree": ["--data-folder", root23,
                                      "--list-folder", lists23],
                             "records": ["--records", globs23["val_part"]]}
             eval23 = {"records": [], "tree": []}
-            warm23 = None
-            for i23, feed in enumerate(("tree", "records", "tree", "tree",
-                                        "records")):
+            for feed in ("records", "tree"):
                 more = eval_feeds23[feed]
                 del forwards23[:], widths23[:]
                 resize_s[0] = 0.0
@@ -4211,18 +4438,16 @@ def main() -> int:
                       f"{feed}: evaluation scores")
                 run_ = {"res": res, "s": eval_s, "launches": launches23,
                         "resize_s": resize_s[0]}
-                if i23 == 0:
-                    warm23 = run_
-                else:
-                    eval23[feed].append(run_)
+                eval23[feed].append(run_)
             eval_mod.SegEvaluator.msc_logits = plain_msc23
             eval_mod.resize_logits_host = plain_resize23
             crf_cuda.kernel_apply = plain_apply23
             for k_ in ("hist_1", "hist_2", "crf_hist"):
-                for run_ in eval23["tree"] + eval23["records"]:
-                    check(np.array_equal(warm23["res"][k_], run_["res"][k_]),
-                          f"{k_}: a run's histogram differs from the first "
-                          f"tree run's by {np.abs(warm23['res'][k_] - run_['res'][k_]).sum() / 2:.0f} pixels")
+                first = eval23["records"][0]
+                for run_ in eval23["tree"]:
+                    check(np.array_equal(first["res"][k_], run_["res"][k_]),
+                          f"{k_}: the tree run's histogram differs from the "
+                          f"records run's by {np.abs(first['res'][k_] - run_['res'][k_]).sum() / 2:.0f} pixels")
     finally:
         train_mod.Trainer.train_step = plain_step
         eval_mod.SegEvaluator.msc_logits = plain_msc23
@@ -4281,8 +4506,8 @@ def main() -> int:
           f"run's weights.npz, 16 val_part images, batch 8, fixed crop 448, "
           f"scales 1.0/1.25/1.5 x flip summed at the decoder grid, full CRF "
           f"(K5 V 1 + {ccfg23.crf.iter_max} x V {nc23} a batch) | a "
-          f"warm-up from the tree ({warm23['s']:.3f} s, not kept), then "
-          f"records, tree, tree, records | records {rates23(eval23['records'])}"
+          f"run from the records (the first calls at these shapes), then "
+          f"from the tree | records {rates23(eval23['records'])}"
           f"; tree {rates23(eval23['tree'])} | launches of a run "
           f"{json.dumps(ev_r['launches'])} (a "
           f"forward: K1 72; K5 {1 + ccfg23.crf.iter_max} a CRF batch) | "
@@ -4356,6 +4581,12 @@ def main() -> int:
     # -- 26. tensor parallelism ----------------------------------------------------
     launches26, k1_err26, k2_err26 = phase26(dev, expected, bare24, weights24)
     del bare24, weights24
+
+    # -- 27. the run operations: CAM grids, FLOP counts, the MFU line -------------
+    t27 = time.perf_counter()
+    grid_launches27 = phase27(dev, smi, flops17)
+    print(f"[run operations] phase 27 took {time.perf_counter() - t27:.1f} s",
+          flush=True)
 
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
@@ -4437,7 +4668,8 @@ def main() -> int:
               launches_eval=eval_launches["exp_attention"],
               launches_coco_eval=ev_r["launches"]["exp_attention"],
               launches_train=per_phase("exp_attention"),
-              max_abs_err_tensor_parallel=k1_err26),
+              max_abs_err_tensor_parallel=k1_err26,
+              launches_cam_grids=grid_launches27),
         entry("exp_attention_bwd", "exp_attention_bwd.cu",
               "dupl_tpu/ops/attention.py:164",
               train12["full"]["launches"]["exp_attention_bwd"], k2["err"],

@@ -4,7 +4,7 @@ in the evaluation of one native-resolution batch, on one card.
     python -m dupl_tpu_torch.engine.profile
         [--path pseudo_label|train|serve|eval]
         [--batch N] [--crop 448] [--phase full] [--image-size 375 500]
-        [--out build/profile]
+        [--transfer-dtype uint8|float32] [--out build/profile]
 
 ``--path pseudo_label`` (the default, batch 16) builds ``voc_config()``'s
 ViT-B/16 dual student from seed 0 and feeds ``make_pseudo_label_fn`` the
@@ -43,7 +43,10 @@ that one batch: both passes, each recomputing the forward.  It prints the
 same wall, host CPU, traced and kernel figures for the run, and the stages:
 JPEG and PNG decode on the host, the copy to the device, the forward of each
 scale, the argmax and the copy of the uint8 labels, the padded mean-field
-CRF, and the histograms on the host.
+CRF, and the histograms on the host.  ``--transfer-dtype float32`` reads
+the images in the reference's wire format (host-normalised float32, four
+times the bytes of the default uint8) to weigh the copy to the device
+(the question of the JAX package's ``tools/val_feed_experiment.py``).
 
 The trace goes to ``<out>/<path>_trace.json`` (open it in Perfetto), and the
 last line of the output is a JSON summary.
@@ -225,7 +228,7 @@ def profile_eval(args, trace_path: str) -> None:
     root, lists = write_synthetic_voc(
         os.path.join(args.out, f"eval_tree_{size[0]}x{size[1]}"),
         [size] * args.batch, seed=0)
-    ds = VocSegDataset(root, lists, "val", transfer_dtype="uint8")
+    ds = VocSegDataset(root, lists, "val", transfer_dtype=args.transfer_dtype)
     scales = (1.0, 1.5, 1.25)
     ev = SegEvaluator(cfg, model, scales=scales, merge="max",
                       input_mode="native")
@@ -281,6 +284,7 @@ def profile_eval(args, trace_path: str) -> None:
     wall = summary["wall_ms_median_of_5"]
     summary = {"device": torch.cuda.get_device_name(0), "path": "eval",
                "batch": args.batch, "image_size": list(size),
+               "transfer_dtype": args.transfer_dtype,
                "tokens_per_scale": [
                    (int(size[0] * sc) // 16) * (int(size[1] * sc) // 16) + 1
                    for sc in scales],
@@ -438,6 +442,9 @@ def main(argv=None) -> int:
     ap.add_argument("--image-size", type=int, nargs=2, default=(375, 500),
                     metavar=("H", "W"),
                     help="the images of --path eval (height, width)")
+    ap.add_argument("--transfer-dtype", default="uint8",
+                    choices=("uint8", "float32"),
+                    help="the image wire format of --path eval")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args(argv)
     if args.batch is None:

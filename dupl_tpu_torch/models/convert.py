@@ -7,7 +7,8 @@ by flax parameter path, every leaf branch-stacked on a leading axis of 2
 :func:`state_dict_from_jax` maps that onto ``DualStudent.state_dict()``
 names (``branch1.encoder.blocks.0.attn.qkv.weight`` -> (3D, D)), and
 :func:`state_dict_to_jax` maps it back: Dense
-kernels are transposed, conv kernels go HWIO -> OIHW, the Dense classifiers
+kernels are transposed, conv kernels go HWIO -> OIHW (a decoder conv's
+bias, ``ASPP``'s, as it is), the Dense classifiers
 become (C-1, D, 1, 1) 1x1 convs, LayerNorm ``scale`` becomes ``weight``.
 
 The mapping is a pure relayout, so it carries any tree shaped like the
@@ -51,6 +52,8 @@ def _student_entry(path: str, leaf: np.ndarray):
                     f"{prefix}.bias", leaf)
     if parts[0] == "decoder" and parts[-1] == "kernel":
         return f"decoder.{parts[1]}.weight", leaf.transpose(3, 2, 0, 1)
+    if parts[0] == "decoder" and parts[-1] == "bias":    # ASPP's convs
+        return f"decoder.{parts[1]}.bias", leaf
     if parts[0] in ("classifier", "aux_classifier") and parts[-1] == "kernel":
         return f"{parts[0]}.weight", leaf.T[:, :, None, None]
     raise KeyError(f"unmapped JAX parameter path: params/{path}")
@@ -97,6 +100,8 @@ def _jax_entry(name: str, leaf: np.ndarray):
                     f"{prefix}/bias", leaf)
     if parts[0] == "decoder" and last == "weight":
         return f"decoder/{parts[1]}/kernel", leaf.transpose(2, 3, 1, 0)
+    if parts[0] == "decoder" and last == "bias":
+        return f"decoder/{parts[1]}/bias", leaf
     if parts[0] in ("classifier", "aux_classifier") and last == "weight":
         return f"{parts[0]}/kernel", leaf[:, :, 0, 0].T
     raise KeyError(f"unmapped DualStudent parameter name: {name}")

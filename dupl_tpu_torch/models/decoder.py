@@ -1,6 +1,11 @@
-"""Segmentation decoder (counterpart of ``dupl_tpu/models/decoder.py``)."""
+"""Segmentation decoders (counterpart of ``dupl_tpu/models/decoder.py``;
+reference: model/decoder/conv_head.py): ``LargeFOV``, the recipes'
+decoder, and ``ASPP``, part of the reference's API and wired into no
+recipe."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -43,3 +48,30 @@ class LargeFOV(nn.Module):
         x = F.relu(self._conv(self.conv7, x))
         x = self._conv(self.conv8, x)
         return x.permute(0, 2, 3, 1).float()
+
+
+class ASPP(nn.Module):
+    """The sum of parallel biased 3x3 atrous convs ``c0``, ``c1``, ...,
+    one a rate (reference: conv_head.py:43-58).  NHWC in, float32 NHWC out;
+    the convs and their sum run in ``compute_dtype``."""
+
+    def __init__(self, in_planes: int, out_planes: int,
+                 atrous_rates: Sequence[int] = (6, 12, 18, 24),
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        for i, rate in enumerate(atrous_rates):
+            self.add_module(f"c{i}", nn.Conv2d(in_planes, out_planes, 3,
+                                               padding=rate, dilation=rate))
+        self.n_rates = len(atrous_rates)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = x.permute(0, 3, 1, 2).to(cd)
+        out = None
+        for i in range(self.n_rates):
+            conv = getattr(self, f"c{i}")
+            y = F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd),
+                         padding=conv.padding, dilation=conv.dilation)
+            out = y if out is None else out + y
+        return out.permute(0, 2, 3, 1).float()

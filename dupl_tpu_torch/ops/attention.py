@@ -233,18 +233,30 @@ def _exp_attention_bwd_twin(q, k, v, g):
     return tuple(_from_bhnd(x, q.shape[0]).contiguous() for x in grads)
 
 
+def _attention_flops(q_shape, backward: bool = False) -> int:
+    """The flop formula of the four attention ops: model FLOPs of exact
+    softmax attention on (B, N, H, D) operands, as ``FlopCounterMode``
+    counts :func:`softmax_attention` (two products of 2 N^2 D FLOPs a head)
+    and its autograd backward (four).  The kernels' own recomputation of
+    the scores in the backward is not counted."""
+    b, n, h, d = q_shape
+    return (8 if backward else 4) * b * h * n * n * d
+
+
 # K1 and K2 as the ops dupl::exp_attention and dupl::exp_attention_bwd, on
 # (B, N, H, D) bf16 operands with q pre-scaled.  CPU tensors take the plain
 # twins; CUDA tensors launch the kernels or raise.
 _K1 = library.register(
     "exp_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
     cuda=_exp_attention_kernel, cpu=_exp_attention_twin,
-    fake=lambda q, k, v: _bnhd_like(q))
+    fake=lambda q, k, v: _bnhd_like(q),
+    flops=lambda q, k, v: _attention_flops(q))
 _K2 = library.register(
     "exp_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor g) "
     "-> (Tensor, Tensor, Tensor)",
     cuda=_exp_attention_bwd_kernel, cpu=_exp_attention_bwd_twin,
-    fake=lambda q, k, v, g: tuple(_bnhd_like(q) for _ in range(3)))
+    fake=lambda q, k, v, g: tuple(_bnhd_like(q) for _ in range(3)),
+    flops=lambda q, k, v, g: _attention_flops(q, backward=True))
 
 
 def _check_device(x: torch.Tensor, what: str) -> None:
@@ -506,13 +518,16 @@ _L1F = library.register(
     "flash_attention(Tensor q, Tensor k, Tensor v, float scale) "
     "-> (Tensor, Tensor)",
     cuda=_flash_attention_kernel, cpu=_flash_attention_twin,
-    fake=_flash_attention_fake)
+    fake=_flash_attention_fake,
+    flops=lambda q, k, v, scale: _attention_flops(q))
 _L1B = library.register(
     "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
     "Tensor lse, Tensor g, float scale) -> (Tensor, Tensor, Tensor)",
     cuda=_flash_attention_bwd_kernel, cpu=_flash_attention_bwd_twin,
     fake=lambda q, k, v, out, lse, g, scale: tuple(_bnhd_like(q)
-                                                   for _ in range(3)))
+                                                   for _ in range(3)),
+    flops=lambda q, k, v, out, lse, g, scale: _attention_flops(
+        q, backward=True))
 
 
 class _FlashAttention(torch.autograd.Function):

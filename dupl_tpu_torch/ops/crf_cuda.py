@@ -103,12 +103,21 @@ def _kernel_apply_fake(basis, coef, logc, vals, block_rows):
                            dtype=torch.float32)
 
 
+def _kernel_apply_flops(basis, coef, logc, vals, block_rows):
+    """What ``FlopCounterMode`` counts for the twin: its two products, the
+    (N, 11) x (11, Ns) score and the (N, Ns) x (Ns, V) value product."""
+    b, n, d = basis
+    ns, nv = vals[1], vals[2]
+    return 2 * b * n * ns * (d + nv)
+
+
 # K5 as the op dupl::crf_apply (``ops/library.py``): the launcher above on
 # CUDA tensors, the plain twin on CPU tensors.
 _K5 = library.register(
     "crf_apply(Tensor basis, Tensor coef, Tensor logc, Tensor vals, "
     "int block_rows) -> Tensor",
-    cuda=_kernel_apply_kernel, cpu=kernel_apply_ref, fake=_kernel_apply_fake)
+    cuda=_kernel_apply_kernel, cpu=kernel_apply_ref, fake=_kernel_apply_fake,
+    flops=_kernel_apply_flops)
 
 
 def kernel_apply_cuda(basis: torch.Tensor, coef: torch.Tensor,

@@ -232,16 +232,20 @@ def _affinity_fake(imgs, dilations, w1, w2):
 
 # K3 and K4 as the ops dupl::par_affinity and dupl::par_propagate
 # (``ops/library.py``): the launchers above on CUDA tensors, the plain twins
-# on CPU tensors.  K4's compute type is its affinity operand's.
+# on CPU tensors.  K4's compute type is its affinity operand's.  Their flop
+# formulas are 0: the twins run no matmul, einsum or convolution, so
+# ``FlopCounterMode`` counts nothing for them.
 _K3 = library.register(
     "par_affinity(Tensor imgs, int[] dilations, float w1, float w2) -> Tensor",
-    cuda=_affinity_kernel, cpu=affinity_ref, fake=_affinity_fake)
+    cuda=_affinity_kernel, cpu=affinity_ref, fake=_affinity_fake,
+    flops=lambda imgs, dilations, w1, w2: 0)
 _K4 = library.register(
     "par_propagate(Tensor masks, Tensor aff, int[] dilations, int num_iter) "
     "-> Tensor",
     cuda=_propagate_kernel, cpu=_propagate_twin,
     fake=lambda masks, aff, dilations, num_iter: torch.empty_like(
-        masks, memory_format=torch.contiguous_format))
+        masks, memory_format=torch.contiguous_format),
+    flops=lambda masks, aff, dilations, num_iter: 0)
 
 
 def affinity_cuda(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),

@@ -121,7 +121,9 @@ def test_library_name_follows_the_sources():
 def test_port_never_imports_jax():
     """Every module of dupl_tpu_torch, imported in a fresh interpreter,
     leaves behind no module of jax, flax or optax, none of the JAX package
-    (``dupl_tpu``), and no copy of its config loaded by file path."""
+    (``dupl_tpu``), no copy of its config loaded by file path, and no
+    matplotlib (the card's machine may lack it; ``utils/tb.py`` imports a
+    TensorBoard backend only when a writer is built)."""
     names = sorted(m.name for m in pkgutil.walk_packages(
         dupl_tpu_torch.__path__, "dupl_tpu_torch."))
     for expected in ("dupl_tpu_torch.ops.par_cuda", "dupl_tpu_torch.config",
@@ -142,12 +144,15 @@ def test_port_never_imports_jax():
                      "dupl_tpu_torch.utils.timing",
                      "dupl_tpu_torch.parallel.mesh",
                      "dupl_tpu_torch.parallel.data_parallel",
-                     "dupl_tpu_torch.parallel.dryrun"):
+                     "dupl_tpu_torch.parallel.dryrun",
+                     "dupl_tpu_torch.utils.tb", "dupl_tpu_torch.utils.flops",
+                     "dupl_tpu_torch.utils.colormap"):
         assert expected in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
-            "bad = ('jax', 'jaxlib', 'flax', 'optax', 'dupl_tpu')\n"
+            "bad = ('jax', 'jaxlib', 'flax', 'optax', 'dupl_tpu',\n"
+            "       'matplotlib')\n"
             "print(sorted(m for m in sys.modules\n"
             "             if m in bad or m.startswith(tuple(b + '.' for b in bad))\n"
             "             or m == 'dupl_tpu_torch._reference_config'))")
@@ -173,6 +178,7 @@ def test_port_never_imports_jax():
                                     "tools/gen_cls_labels_torch.py",
                                     "tools/bench_records_torch.py",
                                     "tools/crf_width_probe_torch.py",
+                                    "tools/convert_test_seg_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
     """The port's scripts import nothing of jax, flax, optax, the JAX
@@ -187,7 +193,22 @@ def test_port_scripts_name_no_jax_module(script):
             mods.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             mods.add(node.module)
-    bad = ("jax", "jaxlib", "flax", "optax", "dupl_tpu")
+    bad = ("jax", "jaxlib", "flax", "optax", "dupl_tpu", "matplotlib")
     assert not [m for m in mods if m.split(".")[0] in bad], mods
     assert not [m for m in mods if "make_fake" in m], mods
     assert "spec_from_file_location" not in (root / script).read_text()
+
+
+@pytest.mark.parametrize("script", ["tools/repro_voc_torch.sh",
+                                    "tools/repro_coco_torch.sh"])
+def test_port_shell_scripts_run_only_port_tools(script):
+    """A _torch shell script runs no Python tool without ``_torch`` and
+    imports nothing of the JAX package in its inline Python."""
+    import re
+    root = Path(dupl_tpu_torch.__file__).parents[1]
+    text = (root / script).read_text()
+    tools = re.findall(r"tools/(\w+)\.py", text)
+    assert tools and all(t.endswith("_torch") for t in tools), tools
+    assert not re.search(r"\b(jax|flax|dupl_tpu)(\.|\b)(?!_torch)", text
+                         .replace("dupl_tpu_torch", "")), script
+    assert "JAX_PLATFORMS" not in text

@@ -19,26 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-# The breakpoints (x, y) of matplotlib's "jet" per channel: each channel is
-# a clipped linear ramp up and a clipped linear ramp down.
-_JET = {
-    "red": ((0.0, 0.0), (0.35, 0.0), (0.66, 1.0), (0.89, 1.0), (1.0, 0.5)),
-    "green": ((0.0, 0.0), (0.125, 0.0), (0.375, 1.0), (0.64, 1.0),
-              (0.91, 0.0), (1.0, 0.0)),
-    "blue": ((0.0, 0.5), (0.11, 1.0), (0.34, 1.0), (0.65, 0.0), (1.0, 0.0)),
-}
-
-
-def jet(x: np.ndarray) -> np.ndarray:
-    """The jet colormap of values in [0, 1] -> (..., 3) floats in [0, 1],
-    computed here (no plotting library needed): the piecewise-linear ramps
-    sampled into a 256-entry table that ``floor(256 x)`` indexes, as
-    ``matplotlib.cm.jet`` does."""
-    grid = np.linspace(0.0, 1.0, 256)
-    lut = np.stack([np.interp(grid, *zip(*_JET[c]))
-                    for c in ("red", "green", "blue")], axis=-1)
-    idx = np.clip((np.asarray(x, np.float64) * 256).astype(np.int64), 0, 255)
-    return lut[idx]
+from dupl_tpu_torch.utils.colormap import jet
 
 
 def jet_overlay(image: np.ndarray, cam_max: np.ndarray) -> np.ndarray:

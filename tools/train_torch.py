@@ -41,10 +41,13 @@ byte for byte.  ``--pretrained`` starts both students' encoders from a DeiT /
 timm ``.pth``; a ``--resume`` that finds a checkpoint wins over it.
 
 Writes under the run directory: ``train.log``, ``metrics.jsonl`` (one JSON
-line per log, validation and end-of-run event), ``checkpoints/step_<n>.pt``
-and ``checkpoints/weights.npz``.
-
-Not ported yet: TensorBoard output and the MFU line are not written.
+line per log, validation and end-of-run event), ``checkpoints/step_<n>.pt``,
+``checkpoints/weights.npz`` and, where ``torch.utils.tensorboard`` or
+``tensorboardX`` imports, TensorBoard events under ``tb/`` (rank 0): the
+JAX tool's tags at its steps (``Loss/*``, ``train/cls_f1``, ``lr``,
+``perf/s_per_iter`` and the CAM grids ``CAM/{inputs,cams_1,cams_2}`` at
+every log boundary, the grids only in a run of one process; ``val/*_miou``
+at every validation).
 """
 
 from __future__ import annotations
@@ -242,6 +245,7 @@ def _train(args, dist, device) -> int:
                                                      reduce_window)
     from dupl_tpu_torch.parallel.mesh import shard_state
     from dupl_tpu_torch.utils.logging import AverageMeter, cal_eta, setup_logger
+    from dupl_tpu_torch.utils.tb import TbWriter, cam_grids
 
     on_card = device.type == "cuda"
     main_rank = dist.is_main
@@ -343,6 +347,7 @@ def _train(args, dist, device) -> int:
         validator = Validator(cfg, eval_model,
                               transfer_dtype=args.val_transfer_dtype)
     meter = AverageMeter()
+    tb = TbWriter(os.path.join(work_dir, "tb") if main_rank else None)
     t0 = datetime.datetime.now()
     step_t0 = time.perf_counter()
     waited = 0          # feeder waits already reported at a log boundary
@@ -421,12 +426,24 @@ def _train(args, dist, device) -> int:
                     step + 1, delta, eta, lr, phase_of(cfg, step), dt, wait_ms,
                     losses["cls_loss"], losses["ptc_loss"], losses["seg_loss"],
                     losses["sim_loss"], losses["reg_loss"])
+                for k, v in losses.items():
+                    tb.scalar(f"Loss/{k}", v, step + 1)
+                tb.scalar("Loss/total", window["loss"], step + 1)
+                tb.scalar("train/cls_f1", window["cls_score"], step + 1)
+                tb.scalar("lr", lr, step + 1)
+                tb.scalar("perf/s_per_iter", dt, step + 1)
                 jlog(event="train", step=step + 1, lr=lr,
                      phase=phase_of(cfg, step), s_per_iter=round(dt, 4),
                      feeder_wait_ms=round(wait_ms, 3),
                      loss=round(window["loss"], 6),
                      cls_f1=round(window["cls_score"], 4),
                      **{k: round(v, 6) for k, v in losses.items()})
+                if tb.enabled and dist.world == 1:
+                    # the grids' CAM pass on one process only: a sharded
+                    # model's forward is a collective
+                    for tag, grid in cam_grids(trainer, dev_batch["image"],
+                                               batch["cls_label"]).items():
+                        tb.image(tag, grid, step + 1)
 
             if eval_now:
                 t_ck = time.perf_counter()
@@ -450,6 +467,9 @@ def _train(args, dist, device) -> int:
                     log.info("val cls F1: %.4f / %.4f",
                              res["cls_f1_1"], res["cls_f1_2"])
                     log.info("\n%s", res["table"])
+                    for k in ("cam_1", "cam_2", "cam_aux_1", "cam_aux_2",
+                              "seg_1", "seg_2"):
+                        tb.scalar(f"val/{k}_miou", res[f"{k}_miou"], step + 1)
                     jlog(event="val", step=step + 1,
                          cls_f1_1=round(res["cls_f1_1"], 4),
                          cls_f1_2=round(res["cls_f1_2"], 4),
@@ -476,6 +496,7 @@ def _train(args, dist, device) -> int:
         return 0
     finally:
         feeder.stop()  # also stops the underlying PrefetchLoader
+        tb.close()
         if profiler is not None:
             profiler.stop()
         for s, handler in previous.items():
