@@ -3,7 +3,8 @@ the pseudo-label path, the training step, the evaluation path, the four
 kernel-experiment tools, the training run, the recipe's COCO inputs
 (packed records, a DeiT checkpoint, COCO training and evaluation),
 training across processes, the sealed serving artifacts, tensor
-parallelism and the run operations (CAM grids, FLOP counts, MFU).
+parallelism, the run operations (CAM grids, FLOP counts, MFU) and a whole
+training run held to the CPU's in lockstep.
 
     python3 chip_smoke.py
 
@@ -163,7 +164,8 @@ JAX.  Phases, each printing one result line:
    ``tools/crf_width_probe_torch.py``: the fast CRF at B 16, 448^2, C 21 /
    32 / 81, ``pos_w`` 1 and 0, one K5 launch a call;
 24. data-parallel and fully-sharded training (``dupl_tpu_torch/parallel``)
-   at full width (``production_config("voc")``, ViT-B/16, crop 448, batch
+   at full width on the first ``P24_DEPTH`` (4) of ViT-B/16's 12 blocks
+   (as phases 25 and 26; ``production_config("voc")``, crop 448, batch
    4), three steps at the start of each phase, each phase's from the same
    seeded weights and a fresh optimizer: (a) the bare ``Trainer``,
    then a process group of one over NCCL, plain and FSDP, and the bare
@@ -176,7 +178,7 @@ JAX.  Phases, each printing one result line:
    checkpoint at 4, then ``--resume`` to 7.  Step ms of every arm, peak
    memory of every rank;
 25. the sealed artifacts (``dupl_tpu_torch/engine/export.py``), ViT-B/16 at
-   full width and depth, seeded weights, crop 448: (a) ``export_serving`` at
+   full width and depth ``P24_DEPTH``, seeded weights, crop 448: (a) ``export_serving`` at
    batch 8 (MSC 1.0/1.5/1.25 x flip, ensemble, fast CRF), ``save_artifact``,
    then ``load_artifact`` in a fresh process (``sealed_child``) on phase
    5's 16 images: labels equal to the live ``make_serving_fn``'s on at
@@ -188,7 +190,7 @@ JAX.  Phases, each printing one result line:
    (``utils/timing.py:dispatch_ms``), the artifacts' size and export, save
    and load seconds, K1's and K2's host us through their ops;
 26. tensor parallelism (``dupl_tpu_torch/parallel/tensor_parallel.py``) at
-   full width: (a) two spawned ranks sharing the card over gloo as one
+   full width and depth ``P24_DEPTH``: (a) two spawned ranks sharing the card over gloo as one
    model group (data 1 x model 2), each on the whole batch of 4 and its 6
    of each block's 12 heads, phase 24's steps from phase 24's seeded
    weights, each rank held on the gradient gathered to the one-device
@@ -221,7 +223,19 @@ JAX.  Phases, each printing one result line:
    (exact softmax attention) must count the same FLOPs; (c)
    ``tools/bench_train_torch.py --phase {warmup,seg,full} --iters 3`` at
    full depth: FLOPs a step, TF an image, ms a step and MFU beside the
-   card's name and power limit.
+   card's name and power limit;
+28. the co-run on the card: the port's ``Trainer`` on ``corun_config``
+   and a ``write_corun_tree`` tree (32 train JPEGs), on the card and on
+   the CPU from the same seeded weights, batches and strong-view op
+   indices, in lockstep: (a) 60 steps at crop 64 through warm-up, seg and
+   full (K3 and K4 launch; K1 and K2 do not, every sequence being under
+   ``_EXP_MIN_SEQ`` tokens); (b) 12 steps at crop 192 (145 and 325 tokens:
+   K1-K4 launch, the CPU side routing ``models/vit.py``'s attention through
+   ``exp_attention``'s twins from the same threshold); each arm's per-step
+   gap, first step past ``P28_FIRST`` and phase means held to its bounds
+   in ``P28_ARMS``, K1-K4 launches a step as ``p28_expected`` counts them,
+   no twin on a CUDA tensor, and the GMM filter skipped on the card for two
+   steps from the first full step, which must break the bounds.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -235,6 +249,7 @@ Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import io
 import json
@@ -496,6 +511,129 @@ def par_affinity_wrong(img, kind, dilations=(1, 2, 4, 8, 12, 24), w1=0.3,
     return e / e.sum(dim=1, keepdim=True) + pos[None, :, None, None]
 
 
+# The co-run: a whole training run at a tiny size, the port held step by
+# step to the JAX package on the CPU (tests/test_torch_corun*.py) and the
+# card to the CPU (phase 28).  Its settings and its tree live here, where
+# both packages' tests and the card's run read them and nothing imports JAX.
+CORUN_FG = 20          # VOC's foreground classes
+
+
+def corun_config(mod, n_steps, crop=64, **over):
+    """The co-run's recipe from either package's config module ``mod``
+    (``dupl_tpu.config`` or ``dupl_tpu_torch.config``) for a run of
+    ``n_steps``: ViT ``test_tiny_patch16`` in float32 (no bf16 CAM stream),
+    crop ``crop``, batch 2; the warm-up of the learning rate over the first
+    twelfth of the run (from a tenth of the rate), the seg phase from a fifth
+    and the full phase from two fifths of it; a consistency threshold and
+    GMM gates low enough that at random-ish weights every full step has
+    consistency pixels and the GMM marks noise; two PAR rounds; CAMs merged
+    at half size.  ``over`` replaces any field."""
+    import dataclasses
+
+    base = mod.voc_config()
+    kw = dict(
+        model=dataclasses.replace(base.model, backbone="test_tiny_patch16",
+                                  compute_dtype="float32",
+                                  cam_stream_dtype=None),
+        data=dataclasses.replace(base.data, crop_size=crop),
+        optim=mod.OptimConfig(lr=1e-4, warmup_iters=max(1, n_steps // 12),
+                              warmup_ratio=0.1),
+        par=dataclasses.replace(base.par, num_iter=2),
+        gmm=mod.GmmConfig(min_pixels=10, valid_thre=0.05),
+        cam_iters=n_steps // 5, gmm_iters=2 * n_steps // 5,
+        max_iters=n_steps, reg_conf_thre=0.02, cam_merge_downscale=2,
+        samples_per_device=2)
+    kw.update(over)
+    return mod.voc_config(**kw)
+
+
+def corun_colours(num_fg=CORUN_FG):
+    """The co-run tree's colour of each foreground class, (num_fg + 1, 3)
+    uint8 (row 0, the background, is unused): hues round the wheel, two
+    brightness levels, the same for every seed."""
+    import colorsys
+
+    import numpy as np
+
+    out = np.zeros((num_fg + 1, 3), np.uint8)
+    for c in range(1, num_fg + 1):
+        rgb = colorsys.hsv_to_rgb((c - 1) / num_fg, 0.85,
+                                  0.95 if c % 2 else 0.6)
+        out[c] = np.round(255 * np.asarray(rgb))
+    return out
+
+
+def _corun_scene(rs, h, w, colours):
+    """Two objects of random classes, one in each half of the image, on a
+    grey textured background: each class its own colour and stripe
+    texture, noise on every pixel, four ignore pixels.  (uint8 image, uint8
+    mask)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    img = np.full((h, w, 3), rs.randint(70, 180), np.float32)
+    img += 12 * np.sin(xx / rs.uniform(3, 9) + yy / rs.uniform(3, 9))[..., None]
+    mask = np.zeros((h, w), np.uint8)
+    half = w // 2
+    for i in range(2):
+        c = rs.randint(1, len(colours))
+        y0 = rs.randint(0, h // 4)
+        y1 = y0 + rs.randint(h // 2, h - y0 + 1)
+        x0 = i * half + rs.randint(0, half // 4)
+        x1 = x0 + rs.randint(half // 2, (i + 1) * half - x0 + 1)
+        angle = np.pi * c / len(colours)
+        stripes = np.sin((xx * np.cos(angle) + yy * np.sin(angle))
+                         / (1.5 + 0.25 * (c % 5)))
+        obj = colours[c][None, None].astype(np.float32) + 25 * stripes[..., None]
+        img[y0:y1, x0:x1] = obj[y0:y1, x0:x1]
+        mask[y0:y1, x0:x1] = c
+    mask[0, :4] = 255
+    img = np.clip(img + rs.randint(-8, 9, img.shape), 0, 255).astype(np.uint8)
+    return img, mask
+
+
+def write_corun_tree(root, n_train=32, n_val=16, seed=0, num_fg=CORUN_FG):
+    """A VOC-layout tree whose labels can be learned: every foreground class
+    has the colour of ``corun_colours`` and a texture of its own.  JPEGs
+    under ``JPEGImages``, masks under ``SegmentationClassAug``, the lists
+    ``lists/train_aug.txt`` and ``lists/val.txt`` and
+    ``lists/cls_labels_onehot.npy``, as both packages' ``VocClsDataset`` and
+    ``VocSegDataset`` read them; sides of 64-100 pixels.  Returns (root,
+    list folder)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    colours = corun_colours(num_fg)
+    img_dir = os.path.join(root, "JPEGImages")
+    seg_dir = os.path.join(root, "SegmentationClassAug")
+    lists = os.path.join(root, "lists")
+    for d in (img_dir, seg_dir, lists):
+        os.makedirs(d, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    labels, i = {}, 0
+    for split, n in (("train_aug", n_train), ("val", n_val)):
+        names = []
+        for _ in range(n):
+            name = f"2007_{i:06d}"
+            i += 1
+            img, mask = _corun_scene(rs, rs.randint(64, 101),
+                                     rs.randint(64, 101), colours)
+            Image.fromarray(img).save(os.path.join(img_dir, name + ".jpg"),
+                                      quality=95)
+            Image.fromarray(mask).save(os.path.join(seg_dir, name + ".png"))
+            onehot = np.zeros(num_fg, np.float32)
+            onehot[[c - 1 for c in np.unique(mask) if 0 < c <= num_fg]] = 1
+            labels[name] = onehot
+            names.append(name)
+        with open(os.path.join(lists, split + ".txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    np.save(os.path.join(lists, "cls_labels_onehot.npy"), labels,
+            allow_pickle=True)
+    return root, lists
+
+
 # Phase 24: data parallel and FSDP.  In every arm each phase's steps
 # start from the same seeded weights and a fresh optimizer, so that the
 # phase's first step compares two runs on equal weights.  Bounds: the first
@@ -510,6 +648,11 @@ def par_affinity_wrong(img, kind, dilations=(1, 2, 4, 8, 12, 24), w1=0.3,
 # itself 0.41-0.51%), a factor of 2 reads 50%.
 P24_FIRST_REL, P24_LATER_REL, P24_GRAD_COS = 1e-3, 1e-2, 0.999
 P24_LEAF_REL = 2e-2
+# Phases 24-26 run at full width on the first P24_DEPTH of ViT-B/16's 12
+# blocks (``shallow``; the aux CAMs' block, -3, is block 1 there), so that
+# the script has room for phase 28.  The bounds above were set at depth 12;
+# a shallower stack sums fewer bf16 products, and they stay as they are.
+P24_DEPTH = 4
 P24_STEPS_A_PHASE = 3
 P24_LOSSES = ("loss", "cls_loss", "ptc_loss", "seg_loss", "sim_loss",
               "reg_loss")
@@ -531,8 +674,9 @@ def p24_batches(n):
             for i in range(n)]
 
 
-def p24_weights(cfg):
-    """The seeded initial weights, on the host."""
+def p24_weights(cfg, depth=None):
+    """The seeded initial weights, on the host; ``depth``: the first blocks
+    of each encoder only (``shallow``)."""
     import torch
 
     from dupl_tpu_torch.models.convert import init_weights
@@ -540,7 +684,16 @@ def p24_weights(cfg):
 
     model = DualStudent(cfg.model)
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if depth is not None:
+        shallow(model, depth)
     return model.state_dict()
+
+
+def p24_expected(expected, depth=P24_DEPTH):
+    """Phase 12's launches a step (12 blocks) at ``depth`` blocks: K1 and K2
+    launch once a block and pass."""
+    return {ph: {k: n * depth // 12 if k.startswith("exp_attention") else n
+                 for k, n in e.items()} for ph, e in expected.items()}
 
 
 def p24_run(trainer, state, d, step, batch):
@@ -624,7 +777,7 @@ def p24_arm(dev, cfg, weights, expected, d, fsdp=False, ref=None,
             continue
         last = i + per_phase
         with torch.device("meta"):       # no host init: the weights follow
-            model = DualStudent(cfg.model)
+            model = shallow(DualStudent(cfg.model), P24_DEPTH)
         model = model.to_empty(device=dev)
         model.load_state_dict(weights)
         if prepare is not None:
@@ -746,7 +899,7 @@ def phase24(dev, expected):
 
     cfg = production_config("voc")
     steps = p24_steps(cfg)
-    weights = p24_weights(cfg)
+    weights = p24_weights(cfg, P24_DEPTH)
     bare = p24_arm(dev, cfg, weights, expected, Dist())
     runs, gaps = {"bare": bare}, {}
     for name, group, fsdp in (("data parallel", True, False),
@@ -773,7 +926,8 @@ def phase24(dev, expected):
             for i in range(0, len(steps), P24_STEPS_A_PHASE)})
 
     print(f"[data parallel, NCCL world 1] production_config('voc'), "
-          f"ViT-B/16 dual student, crop 448, batch 4, steps {steps} (each "
+          f"ViT-B/16 dual student at depth {P24_DEPTH} of 12, crop 448, "
+          f"batch 4, steps {steps} (each "
           f"phase's from the seeded weights) | ms a step: " + "; ".join(
               f"{n} {ms(r)}" for n, r in runs.items()) + " | median ms of "
           f"a phase's later steps: " + "; ".join(
@@ -874,13 +1028,13 @@ def phase24(dev, expected):
 # kernels through the same ops, so its labels are expected bit-equal to the
 # live labels on the same card; P25_AGREE is the least share accepted.
 # Launches of one call: P25_SERVING a serving dispatch of 8 (K1: 2 students
-# x 12 blocks x 3 scales), P25_LABELER a pseudo-label call of 16 (PERF.md
-# section 6, columns S and P).
+# x P24_DEPTH blocks x 3 scales), P25_LABELER a pseudo-label call of 16
+# (PERF.md section 6, columns S and P, at 12 blocks).
 P25_AGREE = 0.999
-P25_SERVING = {"exp_attention": 72, "crf_apply": 1, "par_affinity": 0,
-               "par_propagate": 0}
-P25_LABELER = {"exp_attention": 72, "crf_apply": 1, "par_affinity": 1,
-               "par_propagate": 10}
+P25_SERVING = {"exp_attention": 6 * P24_DEPTH, "crf_apply": 1,
+               "par_affinity": 0, "par_propagate": 0}
+P25_LABELER = {"exp_attention": 6 * P24_DEPTH, "crf_apply": 1,
+               "par_affinity": 1, "par_propagate": 10}
 P25_ITERS = 5          # dispatches timed back to back (dispatch_ms)
 
 
@@ -984,7 +1138,7 @@ def phase25(dev, bodies):
     cfg = voc_config()
     model = DualStudent(cfg.model)
     init_weights(model, torch.Generator().manual_seed(0))
-    model = model.to(dev).eval()
+    model = shallow(model, P24_DEPTH).to(dev).eval()
     # phase 5's request images, resized as InferenceSession.predict does
     crop = cfg.data.crop_size
     images = np.stack([np.asarray(Image.open(io.BytesIO(body)).convert(
@@ -1504,7 +1658,7 @@ def phase26(dev, expected, bare, weights):
                             (ref_path, expected, ckpt_dir), timeout=900)
         # (b) the TP run's checkpoint in the bare Trainer, on the card
         with torch.device("meta"):
-            model = DualStudent(cfg.model)
+            model = shallow(DualStudent(cfg.model), P24_DEPTH)
         model = model.to_empty(device=dev)
         model.load_state_dict(weights)
         state = Trainer(cfg, model=model, device=dev).init_state(init=False)
@@ -1539,7 +1693,8 @@ def phase26(dev, expected, bare, weights):
 
     gib = 2 ** 30
     print(f"[tensor parallel, 2 ranks over gloo on one card] "
-          f"production_config('voc'), ViT-B/16 dual student, crop 448, data "
+          f"production_config('voc'), ViT-B/16 dual student at depth "
+          f"{P24_DEPTH} of 12, crop 448, data "
           f"1 x model {P26_N_MODEL} (6 of 12 heads a rank), the whole batch "
           f"of 4 on each rank, steps {steps} | ms a step: rank 0 "
           f"{ms(ranks[0])}, rank 1 {ms(ranks[1])}, bare {ms(bare)} | median "
@@ -1634,6 +1789,39 @@ def phase26(dev, expected, bare, weights):
             max(x["kernels"]["k2_err"] for x in ranks))
 
 
+@contextlib.contextmanager
+def twin_guard():
+    """Within: the plain twins of the kernels note each call that is handed
+    a CUDA tensor (a twin must never see one) in the list yielded."""
+    import torch
+
+    from dupl_tpu_torch.ops import attention, crf_cuda, par_cuda
+
+    calls = []
+    twins = [(attention, "exp_attention_ref"),
+             (attention, "exp_attention_bwd_ref"),
+             (attention, "flash_attention_ref"),
+             (attention, "flash_attention_bwd_ref"),
+             (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
+             (crf_cuda, "kernel_apply_ref")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod, name, fn in originals:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
 def shallow(model, depth):
     """The first ``depth`` blocks of each student's encoder."""
     import dataclasses
@@ -1679,7 +1867,7 @@ def phase27(dev, smi, flops768):
                                              production_config)
     from dupl_tpu_torch.models.convert import init_weights
     from dupl_tpu_torch.models.network import DualStudent
-    from dupl_tpu_torch.ops import attention, augment, crf_cuda, par_cuda
+    from dupl_tpu_torch.ops import attention, augment, par_cuda
     from dupl_tpu_torch.ops import image as image_ops
     from dupl_tpu_torch.utils import flops as flops_utils
     from dupl_tpu_torch.utils.tb import (TbWriter, cam_grids,
@@ -1699,26 +1887,7 @@ def phase27(dev, smi, flops768):
     def read():
         return {k: f.launches for k, f in counters.items()}
 
-    # A plain twin must never see a CUDA tensor: count such calls.
-    twin_calls = []
-    twins = [(attention, "exp_attention_ref"),
-             (attention, "exp_attention_bwd_ref"),
-             (attention, "flash_attention_ref"),
-             (attention, "flash_attention_bwd_ref"),
-             (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
-             (crf_cuda, "kernel_apply_ref")]
-    originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
-
-    def counting(name, fn):
-        def wrapped(*a, **kw):
-            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
-                twin_calls.append(name)
-            return fn(*a, **kw)
-        return wrapped
-
-    for mod, name, fn in originals:
-        setattr(mod, name, counting(name, fn))
-    try:
+    with twin_guard() as twin_calls:
         # -- (a) the CAM grids ---------------------------------------------------
         cfg = production_config("voc")
         trainer = Trainer(cfg, device=dev)
@@ -1824,9 +1993,6 @@ def phase27(dev, smi, flops768):
                            f"{json.dumps({n_: c for n_, c in v['card'][1].items() if c})})"
                            for k, v in counts.items()), flush=True)
         check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
 
     # -- (c) the MFU line of the train bench, full depth ---------------------------
     rows = {}
@@ -1842,6 +2008,260 @@ def phase27(dev, smi, flops768):
               f"{r['tf_per_img']:.4f} TF/img, {r['ms_per_step']:.1f} ms/step, "
               f"mfu {r['mfu']:.4f}" for ph, r in rows.items()), flush=True)
     return grid_launches["exp_attention"]
+
+
+# Phase 28: the co-run on the card.  The port's Trainer on corun_config and a
+# write_corun_tree tree, on the card and on the CPU from the same seeded
+# weights, on the same batches and the same strong-view op indices (drawn
+# once from a CPU generator), in lockstep.  Gaps are relative: |card - cpu| /
+# max(|cpu|, P28_FLOOR), the largest over the logged loss terms.  Arm (a)
+# crosses the whole curriculum at crop 64 (sequences of 17-37 tokens: K1 and
+# K2 stay off, attention is exact softmax on both sides); arm (b) runs at
+# crop 192, where scales 1.0 and 1.5 give 145 and 325 tokens and K1 / K2
+# launch, and its CPU side routes models/vit.py's attention through
+# exp_attention's twins at the card's threshold (the CPU alone would take
+# exact softmax), so that both sides compute one function.  The bounds were
+# set from the first card call's reading (PERF.md section 6, PR 16; NVIDIA
+# H100 80GB HBM3, 700 W): (a) 2.29e-5 at most before the full phase, 5.2e-4
+# a full step, 1.01e-4 on the full phase's mean, inside the CPU co-run's own
+# spread against JAX (tests/test_torch_corun.py: 3e-5, 3e-2, 4e-3); (b),
+# where the kernels round in bf16, 8.9e-4, 9.7e-3 and 5.5e-3.  Each bound is
+# 3-10 times its reading, and the GMM filter skipped read 0.054 / 0.14 (a)
+# and 0.038 / 0.076 (b) on its two steps, outside.
+P28_FLOOR = 1e-3
+P28_FIRST = 1e-4      # the first step past this gap is printed
+P28_ARMS = {
+    # name: (crop, steps, cam_iters, gmm_iters, bound before the full
+    # phase, bound of a full step, bound of the full phase's mean)
+    "a": (64, 60, 12, 24, 1e-4, 5e-3, 1e-3),
+    "b": (192, 12, 4, 8, 5e-3, 3e-2, 1.5e-2),
+}
+
+
+def p28_batches(cfg, root, lists, n):
+    """The first ``n`` batches of the port's loader on the co-run tree, on
+    the host (float32 wire)."""
+    from dupl_tpu_torch.data.pipeline import PrefetchLoader
+    from dupl_tpu_torch.data.voc import VocClsDataset
+
+    ds = VocClsDataset(root, lists, crop_size=cfg.data.crop_size,
+                       transfer_dtype="float32")
+    loader = PrefetchLoader(ds, cfg.samples_per_device, seed=cfg.seed,
+                            num_workers=2)
+    try:
+        return [{k: b[k] for k in ("image", "cls_label", "img_box")}
+                for _, b in zip(range(n), loader)]
+    finally:
+        loader.stop()
+
+
+def p28_expected(cfg, depth):
+    """K1-K4 launches a step of each phase: K1 once a block for every
+    pass of at least ``_EXP_MIN_SEQ`` tokens (per student scale 1.0 with
+    grad, its flip, scale 0.5 and 1.5 each with its flip in one batch, and
+    in the full phase the strong view), K2 once a block for each such pass
+    with grad; K3 once and K4 once a PAR round in a seg or full step."""
+    from dupl_tpu_torch.ops.attention import _EXP_MIN_SEQ
+
+    crop, p = cfg.data.crop_size, cfg.model.patch_size
+
+    def on(size):
+        return (size // p) ** 2 + 1 >= _EXP_MIN_SEQ
+
+    out = {}
+    for phase in ("warmup", "seg", "full"):
+        passes = [(1.0, True), (1.0, False), (0.5, False), (1.5, False)]
+        if phase == "full":
+            passes.append((cfg.aug_downscale, True))
+        k1 = sum(on(int(crop * s)) for s, _ in passes)
+        k2 = sum(on(int(crop * s)) for s, g in passes if g)
+        par = phase != "warmup"
+        out[phase] = {"exp_attention": 2 * depth * k1,
+                      "exp_attention_bwd": 2 * depth * k2,
+                      "par_affinity": int(par),
+                      "par_propagate": cfg.par.num_iter * par}
+    return out
+
+
+def p28_run(cfg, weights, batches, ops, device, counters=None, steps=None,
+            snapshot_at=None, start=None):
+    """The port's Trainer on ``batches`` (step i on batch i, the full steps
+    on ``ops[i]``): per step the logged loss terms and, with ``counters``,
+    the launches.  ``steps``: the steps to run (all by default);
+    ``snapshot_at``: the step before which the model and optimizer state
+    are kept on the host (returned); ``start``: such a snapshot to start
+    from in place of ``weights``."""
+    import copy
+
+    import torch
+
+    from dupl_tpu_torch.engine.train import Trainer
+    from dupl_tpu_torch.models.network import DualStudent
+
+    model = DualStudent(cfg.model)
+    model.load_state_dict(weights if start is None else start[0])
+    trainer = Trainer(cfg, model=model, device=device)
+    state = trainer.init_state(init=False)
+    if start is not None:
+        state.optimizer.load_state_dict(start[1])
+    recs, snap = {}, None
+    for step in (range(len(batches)) if steps is None else steps):
+        if step == snapshot_at:
+            snap = copy.deepcopy((
+                {k: v.cpu() for k, v in state.model.state_dict().items()},
+                state.optimizer.state_dict()))
+        if counters:
+            for f in counters.values():
+                f.launches = 0
+        op = None if ops[step] is None else ops[step].to(device)
+        state, m = trainer.train_step(state, batches[step], step=step,
+                                      aug_ops=op)
+        recs[step] = {"metrics": {k: float(m[k]) for k in P24_LOSSES}}
+        if counters:
+            recs[step]["launches"] = {k: f.launches
+                                      for k, f in counters.items()}
+    return recs, snap
+
+
+def p28_gaps(cpu, card):
+    """Per step of ``card``, the largest relative gap of a loss term to
+    ``cpu``, and per step the terms' gaps."""
+    terms = {s: {k: abs(r["metrics"][k] - cpu[s]["metrics"][k])
+                 / max(abs(cpu[s]["metrics"][k]), P28_FLOOR)
+                 for k in P24_LOSSES} for s, r in card.items()}
+    return {s: max(g.values()) for s, g in terms.items()}, terms
+
+
+def p28_within(cfg, gaps, terms, bounds):
+    """The breaches of an arm's bounds: (step or "mean", gap)."""
+    from dupl_tpu_torch.engine.train import phase_of
+
+    before, step_b, mean_b = bounds
+    out = [(s, g) for s, g in gaps.items()
+           if g > (step_b if phase_of(cfg, s) == "full" else before)]
+    full = [s for s in terms if phase_of(cfg, s) == "full"]
+    for k in P24_LOSSES:
+        if full:
+            mean = statistics.mean(terms[s][k] for s in full)
+            if mean > mean_b:
+                out.append(("mean " + k, mean))
+    return out
+
+
+def phase28(dev):
+    """Phase 28, the co-run on the card: arms (a) and (b) of ``P28_ARMS``,
+    each card run against the CPU run in lockstep, then the GMM filter
+    skipped on the card from the first full step for two steps, which must
+    break the arm's bounds.  Returns per arm the launches of each phase."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dupl_tpu_torch import config as tconfig
+    from dupl_tpu_torch.engine.train import Trainer, phase_of
+    from dupl_tpu_torch.models import vit
+    from dupl_tpu_torch.ops import attention, augment, par_cuda
+
+    counters = {"exp_attention": attention.exp_attention_cuda,
+                "exp_attention_bwd": attention.exp_attention_bwd_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda}
+
+    def card_attention(q, k, v, *, scale):
+        """The card's route of ``dot_attention`` on CPU tensors: the
+        max-free exp attention's twins from ``_EXP_MIN_SEQ`` tokens on."""
+        if q.shape[1] >= attention._EXP_MIN_SEQ:
+            return attention.exp_attention(q, k, v, scale=scale)
+        return attention.softmax_attention(q, k, v, scale=scale)
+
+    out = {}
+    with twin_guard() as twin_calls:
+        with tempfile.TemporaryDirectory() as tmp:
+            root, lists = write_corun_tree(os.path.join(tmp, "tree"), 32, 16,
+                                           seed=28)
+            for arm, (crop, n, cam, gmm, *bounds) in P28_ARMS.items():
+                t0 = time.perf_counter()
+                cfg = corun_config(tconfig, n, crop=crop, cam_iters=cam,
+                                   gmm_iters=gmm)
+                weights = p24_weights(cfg)
+                batches = p28_batches(cfg, root, lists, n)
+                gen = torch.Generator().manual_seed(28)
+                ops = [augment.draw_ops(gen, cfg.aug_n, len(b["image"]))
+                       if phase_of(cfg, s) == "full" else None
+                       for s, b in enumerate(batches)]
+                real = vit.dot_attention
+                if arm == "b":
+                    vit.dot_attention = card_attention
+                try:
+                    t_cpu = time.perf_counter()
+                    cpu, _ = p28_run(cfg, weights, batches, ops, "cpu")
+                    t_cpu = time.perf_counter() - t_cpu
+                finally:
+                    vit.dot_attention = real
+                t_card = time.perf_counter()
+                card, snap = p28_run(cfg, weights, batches, ops, dev,
+                                     counters, snapshot_at=gmm)
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t_card
+                check(all(math.isfinite(v) for r in card.values()
+                          for v in r["metrics"].values()),
+                      f"co-run arm ({arm}): non-finite losses on the card")
+                check(all(card[s]["metrics"]["reg_loss"] > 0
+                          for s in range(gmm, n)),
+                      f"co-run arm ({arm}): a full step without "
+                      "consistency pixels")
+                depth = vit.VIT_CONFIGS[cfg.model.backbone].depth
+                expected = p28_expected(cfg, depth)
+                for s, r in card.items():
+                    ph = phase_of(cfg, s)
+                    check(r["launches"] == expected[ph],
+                          f"co-run arm ({arm}) step {s} ({ph}): launches "
+                          f"{r['launches']}, expected {expected[ph]}")
+                gaps, terms = p28_gaps(cpu, card)
+                breaches = p28_within(cfg, gaps, terms, bounds)
+                # the planted fault: the GMM filter skipped on the card
+                real_filter = Trainer._gmm_filter
+                Trainer._gmm_filter = lambda self, segs, refined: refined
+                try:
+                    fault, _ = p28_run(cfg, weights, batches, ops, dev,
+                                       steps=range(gmm, gmm + 2), start=snap)
+                finally:
+                    Trainer._gmm_filter = real_filter
+                f_gaps, f_terms = p28_gaps(cpu, fault)
+                f_breaches = p28_within(cfg, f_gaps, f_terms, bounds)
+                first = next((s for s in sorted(gaps) if gaps[s] > P28_FIRST),
+                             None)
+                means = {ph: statistics.mean(
+                    g for s, g in gaps.items() if phase_of(cfg, s) == ph)
+                    for ph in ("warmup", "seg", "full")}
+                attn = ("K1 and K2 off: every sequence is under "
+                        f"_EXP_MIN_SEQ {attention._EXP_MIN_SEQ} tokens"
+                        if arm == "a" else "K1 / K2 at 145 and 325 tokens, "
+                        "the CPU through exp_attention's twins")
+                print(f"[co-run ({arm})] corun_config at crop {crop}, "
+                      f"{n} steps (warm-up {cam}, seg {gmm - cam}, full "
+                      f"{n - gmm}), depth {depth}, batch 2, write_corun_tree "
+                      f"(32 train JPEGs), seeded weights, card against CPU "
+                      f"in lockstep; {attn} | launches a step "
+                      f"{json.dumps(expected)} | gap a step "
+                      + " ".join(f"{gaps[s]:.3g}" for s in sorted(gaps))
+                      + f" | first step past {P28_FIRST}: {first} | mean gap "
+                      f"a phase {json.dumps({k: float(f'{v:.4g}') for k, v in means.items()})} | "
+                      f"bounds (before full, full step, full mean) {bounds} "
+                      f"breached: {breaches} | GMM skipped on the card from "
+                      f"step {gmm}: gaps "
+                      + " ".join(f"{f_gaps[s]:.3g}" for s in sorted(f_gaps))
+                      + f", breaches {len(f_breaches)} | s: CPU {t_cpu:.1f}, "
+                      f"card {t_card:.1f}, arm {time.perf_counter() - t0:.1f}"
+                      f" | no twin on a CUDA tensor", flush=True)
+                check(not breaches, f"co-run arm ({arm}): the card left the "
+                      f"CPU run's bounds: {breaches}")
+                check(f_breaches, f"co-run arm ({arm}): the GMM-skip fault "
+                      f"stayed inside the bounds: {f_gaps}")
+                out[arm] = expected
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    return out
 
 
 def main() -> int:
@@ -4548,13 +4968,18 @@ def main() -> int:
               for r_ in rows23), flush=True)
 
     # -- 24. data-parallel and fully-sharded training ---------------------------
-    launches24, bare24, weights24 = phase24(dev, expected)
+    expected24 = p24_expected(expected)
+    t24 = time.perf_counter()
+    launches24, bare24, weights24 = phase24(dev, expected24)
+    print(f"[data parallel] phase 24 took {time.perf_counter() - t24:.1f} s",
+          flush=True)
 
     # -- 25. the sealed artifacts ------------------------------------------------
     t25 = time.perf_counter()
     rec25 = phase25(dev, bodies)
     srv25, lab25, http25 = rec25["serving"], rec25["pseudo_label"], rec25["http"]
-    print(f"[sealed serving] export_serving, ViT-B/16 dual student, crop 448, "
+    print(f"[sealed serving] export_serving, ViT-B/16 dual student at depth "
+          f"{P24_DEPTH} of 12, crop 448, "
           f"batch 8, MSC 1.0/1.5/1.25 x flip, ensemble, fast CRF; "
           f"load_artifact in a fresh process, phase 5's 16 images | labels "
           f"equal to live {json.dumps(srv25['shares'])} (bound {P25_AGREE}) | "
@@ -4579,13 +5004,20 @@ def main() -> int:
           f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
 
     # -- 26. tensor parallelism ----------------------------------------------------
-    launches26, k1_err26, k2_err26 = phase26(dev, expected, bare24, weights24)
+    launches26, k1_err26, k2_err26 = phase26(dev, expected24, bare24,
+                                             weights24)
     del bare24, weights24
 
     # -- 27. the run operations: CAM grids, FLOP counts, the MFU line -------------
     t27 = time.perf_counter()
     grid_launches27 = phase27(dev, smi, flops17)
     print(f"[run operations] phase 27 took {time.perf_counter() - t27:.1f} s",
+          flush=True)
+
+    # -- 28. the co-run: the card against the CPU in lockstep ---------------------
+    t28 = time.perf_counter()
+    launches28 = phase28(dev)
+    print(f"[co-run] phase 28 took {time.perf_counter() - t28:.1f} s",
           flush=True)
 
     # The kernels line.  ``launches``: the count of one run of the main path
@@ -4779,6 +5211,9 @@ def main() -> int:
                     ph: n_[e["name"]] for ph, n_ in by_phase.items()}
             e["launches_train_tensor_parallel"] = {
                 ph: n_[e["name"]] for ph, n_ in launches26.items()}
+            e["launches_corun"] = {
+                arm: {ph: n_[e["name"]] for ph, n_ in by_phase.items()}
+                for arm, by_phase in launches28.items()}
     for e in kernels[:5]:   # K1, K3, K4, K5 in the sealed programs' calls
         if e["name"] in P25_SERVING:
             e["launches_sealed_serving"] = srv25["launches"][e["name"]]

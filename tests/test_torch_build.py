@@ -212,3 +212,70 @@ def test_port_shell_scripts_run_only_port_tools(script):
     assert not re.search(r"\b(jax|flax|dupl_tpu)(\.|\b)(?!_torch)", text
                          .replace("dupl_tpu_torch", "")), script
     assert "JAX_PLATFORMS" not in text
+
+
+@pytest.mark.parametrize("test_file", ["tests/test_torch_corun.py",
+                                       "tests/test_torch_corun_cli.py"])
+def test_corun_helpers_import_no_jax(test_file, tmp_path):
+    """The co-run tests take their recipe and tree from ``chip_smoke``'s
+    ``corun_config`` and ``write_corun_tree``, which the card's phase 28
+    runs too: in a fresh interpreter both helpers, run on the port's config
+    module, import nothing of jax, flax, optax or the JAX package."""
+    import ast
+    root = Path(dupl_tpu_torch.__file__).parents[1]
+    names = {a.name for node in ast.walk(ast.parse(
+        (root / test_file).read_text()))
+        if isinstance(node, ast.ImportFrom) and node.module == "chip_smoke"
+        for a in node.names}
+    assert {"corun_config", "write_corun_tree"} <= names, names
+    code = ("import sys\n"
+            "import chip_smoke\n"
+            "from dupl_tpu_torch import config\n"
+            "cfg = chip_smoke.corun_config(config, 60)\n"
+            "assert (cfg.cam_iters, cfg.gmm_iters, cfg.max_iters) == "
+            "(12, 24, 60)\n"
+            f"chip_smoke.write_corun_tree({str(tmp_path)!r}, 2, 1)\n"
+            "bad = ('jax', 'jaxlib', 'flax', 'optax', 'dupl_tpu')\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m in bad or m.startswith(tuple(b + '.' for b in bad))))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=True,
+                         cwd=root).stdout
+    assert out.strip() == "[]", out
+
+
+def test_corun_tree_ties_a_colour_to_each_class(tmp_path):
+    """``write_corun_tree`` paints every object in its class's colour of
+    ``corun_colours`` (under its texture, the noise and the JPEG), whatever
+    the seed: the colour nearest an object's mean is its class's, and the
+    colours are far apart."""
+    import numpy as np
+    from PIL import Image
+
+    from chip_smoke import corun_colours, write_corun_tree
+
+    colours = corun_colours().astype(np.float64)
+    assert np.array_equal(corun_colours(), corun_colours())
+    fg = colours[1:]
+    dist = np.sqrt(((fg[:, None] - fg[None]) ** 2).sum(-1))
+    assert dist[~np.eye(len(fg), dtype=bool)].min() > 30
+    for seed in (0, 1):
+        root, lists = write_corun_tree(str(tmp_path / str(seed)), 8, 2,
+                                       seed=seed)
+        labels = np.load(f"{lists}/cls_labels_onehot.npy",
+                         allow_pickle=True).item()
+        names = open(f"{lists}/train_aug.txt").read().split()
+        names += open(f"{lists}/val.txt").read().split()
+        assert sorted(labels) == sorted(names) and len(names) == 10
+        for name in names:
+            img = np.asarray(Image.open(f"{root}/JPEGImages/{name}.jpg"),
+                             np.float64)
+            mask = np.asarray(Image.open(
+                f"{root}/SegmentationClassAug/{name}.png"))
+            present = [c for c in np.unique(mask) if 0 < c < 255]
+            assert labels[name].nonzero()[0].tolist() == [
+                c - 1 for c in present]
+            for c in present:
+                mean = img[mask == c].mean(0)
+                nearest = np.sqrt(((fg - mean) ** 2).sum(-1)).argmin() + 1
+                assert nearest == c, (seed, name, c, mean)
