@@ -3,8 +3,9 @@ the pseudo-label path, the training step, the evaluation path, the four
 kernel-experiment tools, the training run, the recipe's COCO inputs
 (packed records, a DeiT checkpoint, COCO training and evaluation),
 training across processes, the sealed serving artifacts, tensor
-parallelism, the run operations (CAM grids, FLOP counts, MFU) and a whole
-training run held to the CPU's in lockstep.
+parallelism, the run operations (CAM grids, FLOP counts, MFU), a whole
+training run held to the CPU's in lockstep and the measurement programs
+(``bench_torch.py`` and the three dissection tools).
 
     python3 chip_smoke.py
 
@@ -235,13 +236,31 @@ JAX.  Phases, each printing one result line:
    gap, first step past ``P28_FIRST`` and phase means held to its bounds
    in ``P28_ARMS``, K1-K4 launches a step as ``p28_expected`` counts them,
    no twin on a CUDA tensor, and the GMM filter skipped on the card for two
-   steps from the first full step, which must break the bounds.
+   steps from the first full step, which must break the bounds;
+29. the JAX side's measurement programs in bench.py's configuration
+   (``config.bench_config``: tanh GELU, bf16 residual stream, PAR in bf16)
+   at full width and depth, in-process through their ``run``: (a)
+   ``bench_torch.py`` (batch 16, crop 448, blob scenes; one warm-up call,
+   one counted by ``count_flops``, 3 windows of 10): its line carries
+   bench.py's keys, img/s above 0 and 0 < mfu <= 1, K1 / K3 / K4 / K5
+   launch 72 / 1 / 10 / 1 times a call, and its refined and CRF labels
+   equal ``make_pseudo_label_fn``'s bit for bit on the same inputs; (b)
+   ``tools/bench_components_torch.py`` VOC, batch 16, ``--iters 2``; (c)
+   the same at COCO width with 20 classes an image (``--dataset coco
+   --density dense``, ``--iters 1``): PAR past the class budget runs K4 at
+   C 324 and the CRF labels on 32 classes run K5 at V 33, and the first
+   launch at each width is held to its twin on its own operands (2 bf16
+   ulps of each element; phase 4's bounds), timed beside it; (d)
+   ``tools/encoder_dissect_torch.py`` at 64 sequences of 448^2, ``--iters
+   3``; (e) ``tools/train_dissect_torch.py`` at batch 8, ``--iters 2``;
+   every tool's rows, no twin on a CUDA tensor.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
 its memory rate, whichever is larger; kernel times are medians of one call
 between two CUDA events, and the attention entries add ``ms_back_to_back``,
-rounds of back-to-back calls, K1 and K2 also ``host_us``), and last
+rounds of back-to-back calls, K1 and K2 also ``host_us``; K1, K3, K4 and
+K5 also ``launches_bench``, their launches a ``bench_torch.py`` call), and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 2.
@@ -2262,6 +2281,223 @@ def phase28(dev):
                 out[arm] = expected
         check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
     return out
+
+
+# Phase 29: the JAX side's measurement programs on the port, in bench.py's
+# configuration (config.bench_config: tanh GELU, bf16 residual stream, PAR
+# in bf16 on a class budget), at full width and depth, each through its
+# run().  (a) bench_torch.py: a pipeline call of 16 launches K1 72 times
+# (scales 1.0 / 0.5 / 1.5, each with its flip, 12 blocks, 2 students), K3
+# once, K4 once a PAR round and K5 once (the fast CRF's last apply).
+P29_BENCH_LAUNCHES = {"exp_attention": 72, "par_affinity": 1,
+                      "par_propagate": 10, "crf_apply": 1}
+# bench_torch.run's calls: one warm-up, one under count_flops, 3 x 10 timed
+P29_BENCH_CALLS = 32
+P29_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "mfu",
+                 "tflops_per_img"}
+
+
+def phase29(dev, smi):
+    """The four measurement tools in-process on the card: (a)
+    ``bench_torch.run``, its line and its launches a call, then its
+    pipeline's labels against ``make_pseudo_label_fn``'s on the same model
+    and inputs; (b)
+    ``bench_components_torch`` VOC at batch 16, ``--iters 2``; (c) COCO with
+    20 classes an image at batch 16, ``--iters 1``: PAR past the class
+    budget (K4 at C 324) and the CRF labels on 32 classes (K5 at V 33), the
+    first launch at each width held to its twin at phase 8's bf16 and phase
+    4's bounds; (d) ``encoder_dissect_torch`` at 64 sequences of 448^2,
+    ``--iters 3``; (e) ``train_dissect_torch`` at batch 8, ``--iters 2``.
+    Returns K1 / K3 / K4 / K5 launches a bench call and the wide launches'
+    record (operand shapes, errors, kernel and plain ms)."""
+    import os
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import bench_components_torch
+    import bench_torch
+    import encoder_dissect_torch
+    import train_dissect_torch
+
+    from dupl_tpu_torch.config import bench_config
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.engine.export import make_pseudo_label_fn
+    from dupl_tpu_torch.ops import attention, crf_cuda, par_cuda
+    from dupl_tpu_torch.utils.timing import time_ms
+
+    counters = {"exp_attention": attention.exp_attention_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda,
+                "crf_apply": crf_cuda.kernel_apply_cuda}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    secs = {}
+    with twin_guard() as twin_calls:
+        # -- (a) bench_torch --------------------------------------------------------
+        t = time.perf_counter()
+        zero()
+        line = bench_torch.run([])
+        per_call = {k: n / P29_BENCH_CALLS for k, n in read().items()}
+        # the same model and inputs through both programs
+        cfg = bench_config("voc")
+        trainer = bench_torch.build(cfg, 0, dev)
+        batch = trainer.put(synthetic_batch(16, crop=448))
+        with torch.inference_mode():
+            refined, labels = bench_torch.cam_par_pipeline(trainer, batch)
+        live = make_pseudo_label_fn(cfg, trainer.model)(
+            batch["image"], batch["cls_label"], batch["img_box"])
+        equal = (torch.equal(refined.to(torch.uint8), live[0])
+                 and torch.equal(labels.to(torch.uint8), live[1]))
+        has_ignore = bool((live[0] == cfg.ignore_index).any())
+        del trainer, batch, refined, labels, live
+        secs["a"] = time.perf_counter() - t
+        print(f"[bench_torch] {json.dumps(line)}", flush=True)
+        check(set(line) == P29_LINE_KEYS and line["value"] > 0
+              and 0 < line["mfu"] <= 1 and line["tflops_per_img"] > 0,
+              f"bench_torch: line {line}")
+        check(per_call == P29_BENCH_LAUNCHES,
+              f"bench_torch: launches a call {per_call}, expected "
+              f"{P29_BENCH_LAUNCHES}")
+        check(equal and has_ignore,
+              "bench_torch: its labels differ from make_pseudo_label_fn's "
+              "on the same inputs")
+        print(f"[bench_torch] ViT-B/16 dual student, bench_config('voc') "
+              f"(tanh GELU, bf16 stream, bf16 PAR, budget 10), batch 16, "
+              f"crop 448, blob | {smi} | launches a call "
+              f"{json.dumps(per_call)} | refined and CRF labels bit-equal "
+              f"to make_pseudo_label_fn's | {secs['a']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+        # -- (b) bench_components_torch, VOC ----------------------------------------
+        t = time.perf_counter()
+        voc = bench_components_torch.run(["--batch", "16", "--iters", "2"])
+        secs["b"] = time.perf_counter() - t
+        check(all(math.isfinite(v) and v > 0 for r in voc.values()
+                  for v in (r if isinstance(r, (list, tuple)) else [r])),
+              f"bench_components_torch voc: {voc}")
+        torch.cuda.empty_cache()
+
+        # -- (c) bench_components_torch, COCO, 20 classes an image ------------------
+        wide = {}
+        prop, apply_ = par_cuda.propagate, crf_cuda.kernel_apply
+
+        def propagating(masks, aff, dilations, num_iter, compute_dtype):
+            out = prop(masks, aff, dilations, num_iter, compute_dtype)
+            wide.setdefault("par_c", []).append(masks.shape[-1])
+            if masks.shape[-1] == 324 and "k4" not in wide:
+                wide["k4"] = (masks, aff, tuple(dilations), num_iter,
+                              compute_dtype, out)
+            return out
+
+        def applying(basis, coef, logc, vals, block_rows=25088):
+            out = apply_(basis, coef, logc, vals, block_rows)
+            wide.setdefault("crf_v", []).append(vals.shape[-1])
+            if vals.shape[-1] == 33 and "k5" not in wide:
+                wide["k5"] = (basis, coef, logc, vals, out)
+            return out
+
+        par_cuda.propagate, crf_cuda.kernel_apply = propagating, applying
+        t = time.perf_counter()
+        zero()
+        try:
+            coco = bench_components_torch.run(
+                ["--batch", "16", "--iters", "1", "--dataset", "coco",
+                 "--density", "dense"])
+        finally:
+            par_cuda.propagate, crf_cuda.kernel_apply = prop, apply_
+        coco_launches = read()
+        secs["c"] = time.perf_counter() - t
+        check(all(math.isfinite(v) and v > 0 for r in coco.values()
+                  for v in (r if isinstance(r, (list, tuple)) else [r])),
+              f"bench_components_torch coco dense: {coco}")
+        check("k4" in wide and "k5" in wide,
+              f"coco dense: PAR widths {sorted(set(wide.get('par_c', [])))}, "
+              f"CRF value columns {sorted(set(wide.get('crf_v', [])))}: no "
+              f"K4 at C 324 or no K5 at V 33")
+        torch.cuda.empty_cache()
+
+        # -- (d) encoder_dissect_torch, (e) train_dissect_torch ----------------------
+        t = time.perf_counter()
+        enc = encoder_dissect_torch.run(["--seqs", "64", "--size", "448",
+                                         "--iters", "3"])
+        secs["d"] = time.perf_counter() - t
+        check(all(v is not None and math.isfinite(v) and v > 0
+                  for v in enc.values()), f"encoder_dissect_torch: {enc}")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        trd = train_dissect_torch.run(["--batch", "8", "--iters", "2"])
+        secs["e"] = time.perf_counter() - t
+        check(all(math.isfinite(v) and v > 0 for v in trd.values()),
+              f"train_dissect_torch: {trd}")
+        torch.cuda.empty_cache()
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+
+    # K4 at C 324 and K5 at V 33 against their twins, on the operands of
+    # their first launch at that width (outside the guard: the twins run on
+    # the card's tensors here on purpose)
+    masks, aff, dil, n_iter, cdt, got = wide.pop("k4")
+    want = par_cuda.propagate_ref(masks, aff, dil, n_iter, cdt)
+    err = (got - want).abs()
+    k4_ulps = (err / bf16_ulp(want.abs())).max().item()
+    check(cdt == "bfloat16" and bool(torch.isfinite(got).all())
+          and k4_ulps <= 2.0,
+          f"K4 at C 324 ({cdt}): {k4_ulps:.3g} bf16 ulps of its element "
+          f"(bound 2)")
+    m_in = masks.float().permute(0, 3, 1, 2).contiguous()
+    a_in = aff.to(torch.bfloat16).contiguous()
+    k4 = {"shape": list(masks.shape), "compute_dtype": cdt,
+          "launches": coco_launches["par_propagate"],
+          "max_abs_err": err.max().item(), "ulps": k4_ulps,
+          "ms": time_ms(lambda: par_cuda.propagate_cuda(m_in, a_in, dil,
+                                                         n_iter), dev),
+          "plain_ms": time_ms(lambda: par_cuda.propagate_ref(
+              masks, aff, dil, n_iter, cdt), dev, iters=1, warmup=0)}
+    del masks, aff, got, want, err, m_in, a_in
+    basis, coef, logc, vals, got = wide.pop("k5")
+    want = crf_cuda.kernel_apply_ref(basis, coef, logc, vals)
+    worst, mean = crf_apply_err(got, want)
+    check(bool(torch.isfinite(got).all()) and worst <= K5_MAX
+          and mean <= K5_MEAN,
+          f"K5 at V 33: error {worst:.3g} / {mean:.3g} of the column scale "
+          f"(max / mean; bounds {K5_MAX} / {K5_MEAN})")
+    v_in = vals.float().contiguous()
+    k5 = {"shape": [basis.shape[0], basis.shape[1], coef.shape[2],
+                    vals.shape[2]],
+          "launches": coco_launches["crf_apply"],
+          "max_abs_err": (got - want).abs().max().item(),
+          "err_rel": [worst, mean],
+          "ms": time_ms(lambda: crf_cuda.kernel_apply_cuda(
+              basis, coef, logc, v_in), dev),
+          "plain_ms": time_ms(lambda: crf_cuda.kernel_apply_ref(
+              basis, coef, logc, vals), dev, iters=3, warmup=1)}
+    del basis, coef, logc, vals, got, want, v_in
+    torch.cuda.empty_cache()
+    for name, rep in (("voc", voc), ("coco dense", coco)):
+        print(f"[bench_components_torch {name}] batch 16 | {smi} | ms "
+              + ", ".join(f"{k} {1e3 * (v[0] if isinstance(v, (list, tuple)) else v):.2f}"
+                          for k, v in rep.items())
+              + f" | img/s pipeline {16 / rep['pipeline']:.3f}, eval "
+              f"{16 / rep['eval_protocol']:.3f}", flush=True)
+    print(f"[wide K4, K5] coco dense: PAR widths "
+          f"{sorted(set(wide['par_c']))}, CRF value columns "
+          f"{sorted(set(wide['crf_v']))} | launches {json.dumps(coco_launches)}"
+          f" | K4 {json.dumps(k4)} | K5 {json.dumps(k5)}", flush=True)
+    print(f"[encoder_dissect_torch] 64 seqs, 448^2 | {smi} | ms "
+          f"{json.dumps({k: round(v, 3) for k, v in enc.items()})}", flush=True)
+    print(f"[train_dissect_torch] batch 8, crop 448 | {smi} | ms "
+          f"{json.dumps({k: round(v, 3) for k, v in trd.items()})}", flush=True)
+    print(f"[measurement tools] s {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f" | phase 29 {sum(secs.values()):.1f} s of the kernels' and "
+          f"tools' work (budget 100)", flush=True)
+    return {"launches_bench": per_call, "k4_c324": k4, "k5_v33": k5}
 
 
 def main() -> int:
@@ -5020,6 +5256,12 @@ def main() -> int:
     print(f"[co-run] phase 28 took {time.perf_counter() - t28:.1f} s",
           flush=True)
 
+    # -- 29. the JAX side's measurement programs on the port ----------------------
+    t29 = time.perf_counter()
+    rec29 = phase29(dev, smi)
+    print(f"[measurement tools] phase 29 took {time.perf_counter() - t29:.1f}"
+          f" s", flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -5218,6 +5460,21 @@ def main() -> int:
         if e["name"] in P25_SERVING:
             e["launches_sealed_serving"] = srv25["launches"][e["name"]]
             e["launches_sealed_pseudo_label"] = lab25["launches"][e["name"]]
+    # Phase 29: K1 / K3 / K4 / K5 launches a bench_torch call; K4 at C 324
+    # (bf16: the products run as bf16x2 FMAs, twice the fp32 rate) and K5
+    # at V 33 with the bounds of their operands
+    k4w, k5w = rec29["k4_c324"], rec29["k5_v33"]
+    b4, h4, w4, c4 = k4w["shape"]
+    pix4 = b4 * h4 * w4
+    k4w["bound_ms"], k4w["bound_by"] = bound_ms(
+        cfg.par.num_iter * 2 * taps * pix4 * c4 / 2, "fp32",
+        4 * pix4 * 2 * c4 + 2 * pix4 * taps)
+    k5w["bound_ms"], k5w["bound_by"] = k5_bound(*k5w["shape"])
+    by_name = {e["name"]: e for e in kernels}
+    for name, n_ in rec29["launches_bench"].items():
+        by_name[name]["launches_bench"] = n_
+    by_name["par_propagate"]["c324"] = k4w
+    by_name["crf_apply"]["v33"] = k5w
     check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
           "a kernel of a main path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

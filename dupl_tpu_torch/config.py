@@ -267,6 +267,25 @@ def coco_config(**overrides) -> TrainConfig:
     return dataclasses.replace(base, **overrides)
 
 
+def bench_config(dataset: str = "voc", **model_overrides) -> TrainConfig:
+    """The configuration of the JAX side's measurement programs
+    (``bench.py:105-109``, ``tools/bench_components.py:74-81``): the
+    dataset's recipe with a ViT-B/16 of tanh GELU and a bf16 residual
+    stream, and PAR propagating in bf16 on a class budget.  VOC: 21 classes,
+    budget 10; COCO: ``coco_config`` with its model replaced as the JAX
+    tool replaces it (81 classes, the default ``aux_layer``), budget 16.
+    ``model_overrides`` set further ``ModelConfig`` fields (``backbone``;
+    ``quantized_inference``, the JAX tool's ``--int8``, which the port's
+    ViT refuses)."""
+    recipe, num_classes, budget = {"voc": (voc_config, 21, 10),
+                                   "coco": (coco_config, 81, 16)}[dataset]
+    model = ModelConfig(**{"num_classes": num_classes,
+                           "gelu_approximate": True,
+                           "stream_dtype": "bfloat16", **model_overrides})
+    return recipe(model=model,
+                  par=ParConfig(compute_dtype="bfloat16", class_budget=budget))
+
+
 def resolve_samples_per_device(cfg: TrainConfig, n_data: int):
     """Derive ``samples_per_device`` from the recipe's global batch.
 

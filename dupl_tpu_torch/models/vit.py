@@ -20,6 +20,7 @@ which is what the reference's ``siamese_network.state_dict()`` holds.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -92,16 +93,31 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU as ``jax.nn.gelu(approximate=True)`` computes
+    it: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` one operation
+    at a time in ``x``'s dtype, the constants rounded to it and ``x^3`` as
+    ``x * (x * x)``.  In bf16 this rounds where the JAX package rounds
+    (``F.gelu(approximate="tanh")`` rounds once, and differs in the last
+    bit on ~40% of elements)."""
+    def c(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * (x * x)))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype,
                  gelu_approximate: bool):
         super().__init__()
         self.fc1 = Linear(dim, hidden, compute_dtype=compute_dtype)
         self.fc2 = Linear(hidden, dim, compute_dtype=compute_dtype)
-        self.approximate = "tanh" if gelu_approximate else "none"
+        self.gelu_approximate = gelu_approximate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = self.fc1(x)
+        return self.fc2(gelu_tanh(h) if self.gelu_approximate else F.gelu(h))
 
 
 class Attention(nn.Module):

@@ -179,6 +179,10 @@ def test_port_never_imports_jax():
                                     "tools/bench_records_torch.py",
                                     "tools/crf_width_probe_torch.py",
                                     "tools/convert_test_seg_torch.py",
+                                    "bench_torch.py",
+                                    "tools/bench_components_torch.py",
+                                    "tools/encoder_dissect_torch.py",
+                                    "tools/train_dissect_torch.py",
                                     "dupl_tpu_torch/engine/profile.py"])
 def test_port_scripts_name_no_jax_module(script):
     """The port's scripts import nothing of jax, flax, optax, the JAX
