@@ -4,8 +4,9 @@ kernel-experiment tools, the training run, the recipe's COCO inputs
 (packed records, a DeiT checkpoint, COCO training and evaluation),
 training across processes, the sealed serving artifacts, tensor
 parallelism, the run operations (CAM grids, FLOP counts, MFU), a whole
-training run held to the CPU's in lockstep and the measurement programs
-(``bench_torch.py`` and the three dissection tools).
+training run held to the CPU's in lockstep, the measurement programs
+(``bench_torch.py`` and the three dissection tools), and the exact GELU
+and the int8 inference path.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,8 @@ JAX.  Phases, each printing one result line:
    weights from seed 0) behind the batched HTTP server; 16 concurrent
    clients POST JPEG/PNG images of varied sizes, twice (the second round is
    measured); every answer must be a 200 label map of the input's size, and
-   both kernels must have launched in the measured round;
+   both kernels must have launched in the measured round, and kernel G (the
+   exact GELU) once a block and pass, as often as K1;
 6. the same model at crop 224, batch 1, on the card and on the CPU (plain
    paths): ensemble logits before the CRF, and the CRF labels, must agree;
 6b. COCO serving: ``make_serving_fn(coco_config())`` (81 classes) at batch
@@ -62,7 +64,8 @@ JAX.  Phases, each printing one result line:
    ``warmup``, ``seg`` and ``full`` phases, one untimed and three timed
    steps each: finite losses, every trainable parameter moved (but the
    decoder in warm-up, and never ``pos_embed``), the launches of K1-K4 a
-   step as counted from the code, no plain twin run on a CUDA tensor, and
+   step as counted from the code, G's as K1's and G's backward's as K2's,
+   no plain twin run on a CUDA tensor, and
    no host sync inside a step (``torch.cuda.set_sync_debug_mode("error")``);
    then K3 and K4 against their twins on the operands one of those steps
    handed them (4 images at 224^2, the compacted class axis, fp32);
@@ -253,7 +256,26 @@ JAX.  Phases, each printing one result line:
    ulps of each element; phase 4's bounds), timed beside it; (d)
    ``tools/encoder_dissect_torch.py`` at 64 sequences of 448^2, ``--iters
    3``; (e) ``tools/train_dissect_torch.py`` at batch 8, ``--iters 2``;
-   every tool's rows, no twin on a CUDA tensor.
+   every tool's rows, no twin on a CUDA tensor;
+30. the exact GELU and the int8 inference path: (a) kernel G
+   (``csrc/gelu_erf.cu``) forward and backward against its twins on all
+   65,536 bf16 bit patterns and 2^20 fp32 values, 0 unequal elements, and
+   the wrong twins of ``gelu_wrong`` (F.gelu, the formula without XLA's
+   FMAs, one FMA more) and F.gelu's backward unequal; G, its twin and
+   F.gelu timed at the MLP's hidden activations (16 x 785 x 3072 bf16),
+   and G held to its twins there (0 unequal) in bf16 and fp32: the whole
+   tensor, a length off the vector width, a view off 16-byte alignment;
+   (b) Q1 (``csrc/quantize_rows.cu``) and Q2 (``csrc/int8_gemm.cu``)
+   against their twins bit for bit at ViT-B's four products (qkv, proj,
+   fc1 in bf16, fc2 in fp32, M 12,560) and a ragged M, with and without the
+   bias, the wrong twins of ``quant_wrong`` unequal, timed beside
+   ``torch._int_mm`` + rescale and the twins; (c)
+   ``tools/bench_components_torch.py --int8`` at batch 16 with every
+   kernel's count zeroed before and read after (Q1, Q2, K1, K3, K4, K5
+   launched; no twin on a CUDA tensor), its rows beside phase 29's bf16
+   rows, the int8 multi-scale CAMs against the bf16 ones on the same
+   weights and images (argmax agreement, correlation), and a quantized
+   forward's FLOPs equal on the card and on the CPU.
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -1814,7 +1836,7 @@ def twin_guard():
     a CUDA tensor (a twin must never see one) in the list yielded."""
     import torch
 
-    from dupl_tpu_torch.ops import attention, crf_cuda, par_cuda
+    from dupl_tpu_torch.ops import attention, crf_cuda, gelu, par_cuda, quant
 
     calls = []
     twins = [(attention, "exp_attention_ref"),
@@ -1822,7 +1844,9 @@ def twin_guard():
              (attention, "flash_attention_ref"),
              (attention, "flash_attention_bwd_ref"),
              (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
-             (crf_cuda, "kernel_apply_ref")]
+             (crf_cuda, "kernel_apply_ref"), (gelu, "gelu_erf_ref"),
+             (gelu, "gelu_erf_bwd_ref"), (quant, "quantize_rows_ref"),
+             (quant, "int8_linear_ref")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
 
     def counting(name, fn):
@@ -2497,7 +2521,411 @@ def phase29(dev, smi):
     print(f"[measurement tools] s {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
           f" | phase 29 {sum(secs.values()):.1f} s of the kernels' and "
           f"tools' work (budget 100)", flush=True)
-    return {"launches_bench": per_call, "k4_c324": k4, "k5_v33": k5}
+    return {"launches_bench": per_call, "k4_c324": k4, "k5_v33": k5,
+            "voc_rows": voc}
+
+
+# Phase 30: the exact GELU (kernel G) and the int8 inference path (kernels
+# Q1 and Q2).  Each kernel is held to its twin bit for bit: 0 unequal
+# elements (NaN equal to NaN, every other bit pattern compared).
+P30_MLP_ROWS = 16 * 785        # bench_config's 16 images at scale 1.0
+# ViT-B's four products a block: name -> (N, K, activation dtype)
+P30_PRODUCTS = {"qkv": (2304, 768, "bfloat16"), "proj": (768, 768, "bfloat16"),
+                "fc1": (3072, 768, "bfloat16"), "fc2": (768, 3072, "float32")}
+# fp32 instructions an element of G's forward: about 12 below |z| = 1 (the
+# shared 9-step Horner scheme, 1 - z P, two products, the bf16 roundings),
+# about 30 beyond (the exp's 12, two divisions counted as one each, the
+# 9-step scheme, the reflection); the backward adds the exp of the
+# derivative and 8 products
+P30_G_INSTR = {"small": 12, "large": 30, "bwd_extra": 20}
+
+
+def bits_unequal(got, want):
+    """Elements of two same-dtype tensors whose bits differ, NaNs equal."""
+    import torch
+
+    it = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = got.view(it) == want.view(it)
+    return int((~(same | (torch.isnan(got) & torch.isnan(want)))).sum())
+
+
+def gelu_wrong(x, kind):
+    """Wrong twins of kernel G's forward: ``one_rounding`` (F.gelu, the
+    port's former GELU), ``no_fma`` (every product and sum of XLA's HLO
+    rounded on its own, where XLA's CPU code fuses the Horner steps) and
+    ``fma_reflect`` (2 - q P as one FMA, a contraction XLA does not
+    make)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dupl_tpu_torch.ops import gelu
+
+    if kind == "one_rounding":
+        return F.gelu(x)
+
+    def erfc_reflect(z, e=None):
+        az, z2 = z.abs(), z * z
+        e = gelu._exp_xla(-z2) if e is None else e
+        one = torch.ones_like(z)
+        v = torch.where(az < 1.0, z2, torch.div(one, z2))
+        branch = (az >= 1.0).long() + (az >= 2.0).long()
+        c = gelu._erfc_coefs(z.device)[:, branch]
+        acc = gelu.fma_f32(v, c[0], c[1])
+        for i in range(2, 9):
+            acc = gelu.fma_f32(acc, v, c[i])
+        q = e * torch.div(one, az)
+        y = torch.where(-z2 < gelu._ERFC_UNDERFLOW, torch.zeros_like(z),
+                        q * acc)
+        fused = torch.where(-z2 < gelu._ERFC_UNDERFLOW, 2.0 - y,
+                            gelu.fma_f32(-q, acc, 2.0))
+        y = torch.where(z < 0, fused, y)
+        return torch.where(az < 1.0, gelu.fma_f32(-z, acc, 1.0), y)
+
+    keep = gelu.fma_f32, gelu._erfc_xla
+    if kind == "no_fma":
+        gelu.fma_f32 = lambda a, b, c: (torch.as_tensor(a, device=x.device)
+                                        * b) + c
+    else:
+        assert kind == "fma_reflect"
+        gelu._erfc_xla = erfc_reflect
+    try:
+        if x.dtype == torch.bfloat16:       # the formula, not the table
+            z = (-x).float() * gelu._SQRT_HALF[torch.bfloat16]
+            half = gelu._bf(x.float() * 0.5)
+            return (half * gelu._bf(gelu._erfc_xla(z))).to(torch.bfloat16)
+        return gelu.gelu_erf_ref(x)
+    finally:
+        gelu.fma_f32, gelu._erfc_xla = keep
+
+
+def quant_wrong(x, w, kind):
+    """Wrong twins of Q1 + Q2 (``tests/test_torch_quant.py:_wrong``): the
+    scale as max|x| / 127, the rescale as y * (s_a * s_w), the last 32
+    columns of k left out."""
+    import torch
+
+    from dupl_tpu_torch.ops import quant
+
+    if kind == "divide_by_127":
+        def qrows(t):
+            t = t.float()
+            amax = t.abs().amax(1, keepdim=True)
+            # a true division (a CUDA tensor divided by a Python number is
+            # multiplied by its reciprocal, which is the right recipe)
+            s = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+            return (torch.clamp(torch.round(t / s), -127, 127)
+                    .to(torch.int8), s)
+        (qa, sa), (qw, sw) = qrows(x), qrows(w)
+        return quant.int8_linear_ref(qa, sa, qw, sw)
+    (qa, sa), (qw, sw) = quant.quantize_rows_ref(x), quant.quantize_rows_ref(w)
+    if kind == "rescale_once":
+        acc = (qa.double() @ qw.double().t()).float()
+        return acc * (sa * sw.reshape(1, -1))
+    assert kind == "last_k_tile_dropped"
+    return quant.int8_linear_ref(qa[:, :-32], sa, qw[:, :-32], sw)
+
+
+def phase30(dev, smi, voc29):
+    """(a) Kernel G against its twins on all 65,536 bf16 bit patterns and
+    2^20 fp32 values, forward and backward, and the wrong twins of
+    :func:`gelu_wrong` outside (> 0 unequal); G timed at the MLP's hidden
+    shape (12,560 x 3072 bf16) and held to its twins there in bf16 and
+    fp32, whole, at a length off the vector width and on a view off
+    16-byte alignment; (b) Q1 and Q2 against their twins bit for bit at ViT-B's four
+    products (M 12,560) and a ragged M, the wrong twins of
+    :func:`quant_wrong` outside, timed beside ``torch._int_mm`` + rescale;
+    (c) ``tools/bench_components_torch.py --int8`` at batch 16 with the
+    counts of every kernel zeroed before and read after, its rows beside
+    phase 29's bf16 ones, the int8 CAMs against the bf16 ones on the same
+    weights and images (argmax agreement, correlation), and one quantized
+    forward's FLOPs on the card and on the CPU.  Returns the records of
+    the kernels line."""
+    import os
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import bench_components_torch
+    import bench_torch
+
+    from dupl_tpu_torch.config import bench_config
+    from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.ops import attention, crf_cuda, gelu, par_cuda, quant
+    from dupl_tpu_torch.utils import flops as flops_utils
+    from dupl_tpu_torch.utils.timing import time_ms
+
+    rates = (flops_utils.device_rates(torch.cuda.get_device_name(0))
+             or flops_utils.H100_SXM)
+
+    def bound(ops, rate, nbytes):
+        o, b = 1e3 * ops / rates[rate], 1e3 * nbytes / rates["hbm_bytes_per_s"]
+        return (o, "operations") if o >= b else (b, "bytes")
+
+    t30 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(30)
+    rec = {}
+
+    # -- (a) G -----------------------------------------------------------------
+    bf = torch.bfloat16
+    x16 = torch.arange(65536, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf)
+    n32 = 1 << 20
+    x32 = torch.cat([torch.randn(n32 // 2, generator=g, device=dev) * 3,
+                     (torch.rand(n32 // 2, generator=g, device=dev) - 0.5)
+                     * 24])
+    g16 = torch.randn(65536, generator=g, device=dev).to(bf)
+    g32 = torch.randn(n32, generator=g, device=dev)
+    ga = {}
+    for name, x, gg in (("bf16", x16, g16), ("fp32", x32, g32)):
+        fwd = bits_unequal(gelu.gelu_erf_cuda(x), gelu.gelu_erf_ref(x))
+        bwd = bits_unequal(gelu.gelu_erf_bwd_cuda(x, gg),
+                           gelu.gelu_erf_bwd_ref(x, gg))
+        torch.cuda.synchronize()
+        ga[name] = {"fwd_unequal": fwd, "bwd_unequal": bwd}
+        check(fwd == 0 and bwd == 0,
+              f"G {name}: {fwd} / {bwd} elements unequal to the twins "
+              f"(forward / backward; bound 0)")
+    wrong = {}
+    for kind in ("one_rounding", "no_fma", "fma_reflect"):
+        wrong[kind] = sum(bits_unequal(gelu_wrong(x, kind), gelu.gelu_erf_ref(x))
+                          for x in (x16, x32))
+    xw = x32.clone().requires_grad_(True)
+    torch.nn.functional.gelu(xw).backward(g32)
+    wrong["bwd_one_rounding"] = bits_unequal(xw.grad,
+                                             gelu.gelu_erf_bwd_ref(x32, g32))
+    keep = gelu.fma_f32
+    gelu.fma_f32 = lambda a, b, c: (torch.as_tensor(a, device=dev) * b) + c
+    try:
+        wrong["bwd_no_fma"] = bits_unequal(gelu.gelu_erf_bwd_ref(x32, g32),
+                                           gelu.gelu_erf_bwd_cuda(x32, g32))
+    finally:
+        gelu.fma_f32 = keep
+    check(all(n > 0 for n in wrong.values()),
+          f"G: a wrong twin is bit-equal to the twin {wrong}")
+    # the MLP's hidden activations of bench_config's batch (16 x 785 rows,
+    # 3072 wide, bf16) and their cotangent
+    h = (torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev) * 1.5).to(bf)
+    gh = torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev).to(bf)
+    large = int((h.float().abs() * gelu._SQRT_HALF[bf] >= 1.0).sum())
+    n_el = h.numel()
+    instr = (n_el - large) * P30_G_INSTR["small"] + large * P30_G_INSTR["large"]
+    gb = bound(instr, "fp32_instr", 4 * n_el)
+    gbb = bound(instr + n_el * P30_G_INSTR["bwd_extra"], "fp32_instr",
+                6 * n_el)
+    rec["gelu_erf"] = {
+        "unequal": ga, "wrong_unequal": wrong,
+        "shape": [P30_MLP_ROWS, 3072], "dtype": "bfloat16",
+        "ms": time_ms(lambda: gelu.gelu_erf_cuda(h), dev),
+        "plain_ms": time_ms(lambda: gelu.gelu_erf_ref(h), dev),
+        "library_ms": time_ms(lambda: torch.nn.functional.gelu(h), dev),
+        "bound_ms": gb[0], "bound_by": gb[1],
+        "ms_bwd": time_ms(lambda: gelu.gelu_erf_bwd_cuda(h, gh), dev),
+        "plain_ms_bwd": time_ms(lambda: gelu.gelu_erf_bwd_ref(h, gh), dev,
+                                iters=3, warmup=1),
+        "bound_ms_bwd": gbb[0], "bound_by_bwd": gbb[1]}
+    hr = h.clone().requires_grad_(True)
+    out_lib = torch.nn.functional.gelu(hr)
+    rec["gelu_erf"]["library_ms_bwd"] = time_ms(
+        lambda: torch.autograd.grad(out_lib, hr, gh, retain_graph=True), dev)
+    del hr, out_lib
+    # G's forward on inputs of one erfc branch each (|z| < 1: 1 - z P;
+    # |z| >= 2: the exp, two divisions and the reflection) beside the mixed
+    # draws above: what the large branch costs and what mixing branches in a
+    # warp adds
+    u = torch.rand(P30_MLP_ROWS, 3072, generator=g, device=dev)
+    branch_x = {"small": ((u * 2 - 1) * 1.4).to(bf),
+                "large": (torch.where(u < 0.5, -1.0, 1.0)
+                          * (2.9 + 5 * torch.rand_like(u))).to(bf)}
+    rec["gelu_erf"]["ms_by_branch"] = {
+        k_: time_ms(lambda: gelu.gelu_erf_cuda(v_), dev)
+        for k_, v_ in branch_x.items()}
+    rec["gelu_erf"]["ms_by_branch"]["mixed"] = rec["gelu_erf"]["ms"]
+    rec["gelu_erf"]["large_share"] = large / n_el
+    del u, branch_x
+    # the same at the main path's size, where each thread of the capped grid
+    # makes about 9 passes of the vector loop: the whole tensors, a length
+    # with n % 8 != 0 (the scalar tail) and a view 2 or 4 bytes past 16-byte
+    # alignment (the elementwise instantiation), in bf16 and in fp32 (the
+    # int8 path's GELU on fc1's fp32 output)
+    big = {}
+    for name, (xm, gm) in (("bf16", (h, gh)),
+                           ("fp32", (h.float(), gh.float()))):
+        xf, gf = xm.view(-1), gm.view(-1)
+        for cut, (xv, gv) in (("whole", (xm, gm)), ("tail", (xf[:-3], gf[:-3])),
+                              ("unaligned", (xf[1:], gf[1:]))):
+            big[f"{name} {cut}"] = [
+                bits_unequal(gelu.gelu_erf_cuda(xv), gelu.gelu_erf_ref(xv)),
+                bits_unequal(gelu.gelu_erf_bwd_cuda(xv, gv),
+                             gelu.gelu_erf_bwd_ref(xv, gv))]
+        del xm, gm, xf, gf, xv, gv
+    torch.cuda.synchronize()
+    rec["gelu_erf"]["unequal_main_shape"] = big
+    check(all(n == 0 for pair in big.values() for n in pair),
+          f"G at the MLP's hidden shape: elements unequal to the twins "
+          f"(forward, backward; bound 0) {big}")
+    del h, gh, x32, g32, xw
+    torch.cuda.empty_cache()
+    secs = {"a": time.perf_counter() - t30}
+    print(f"[G gelu_erf] {smi} | every bf16 bit pattern and 2^20 fp32 values: "
+          f"unequal to the twins {json.dumps(ga)} (bound 0) | wrong twins "
+          f"unequal {json.dumps(wrong)} | MLP hidden (12560 x 3072), "
+          f"[forward, backward] unequal {json.dumps(big)} (bound 0) | bf16: "
+          f"forward {rec['gelu_erf']['ms']:.4f} ms (bound "
+          f"{gb[0]:.4f}, {gb[1]}; twin {rec['gelu_erf']['plain_ms']:.3f}; "
+          f"F.gelu {rec['gelu_erf']['library_ms']:.4f}), backward "
+          f"{rec['gelu_erf']['ms_bwd']:.4f} ms (bound {gbb[0]:.4f}; F.gelu's "
+          f"{rec['gelu_erf']['library_ms_bwd']:.4f}) | forward ms by erfc "
+          f"branch {json.dumps(rec['gelu_erf']['ms_by_branch'])} (mixed: "
+          f"{large / n_el:.3f} of |z| >= 1)", flush=True)
+
+    # -- (b) Q1, Q2 --------------------------------------------------------------
+    t = time.perf_counter()
+    shapes = {name: (P30_MLP_ROWS, *nkd) for name, nkd in P30_PRODUCTS.items()}
+    shapes["fc1_ragged"] = (1001, 3072, 768, "bfloat16")
+    qrec = {}
+    for name, (m, n, k, dt) in shapes.items():
+        x = (torch.randn(m, k, generator=g, device=dev)
+             * torch.rand(m, 1, generator=g, device=dev) * 4).to(
+                 getattr(torch, dt))
+        x[7] = 0
+        w = torch.randn(n, k, generator=g, device=dev) * 0.02
+        bias = torch.randn(n, generator=g, device=dev) * 0.02
+        qa, sa = quant.quantize_rows_cuda(x)
+        qw, sw = quant.quantize_rows_cuda(w)
+        ra, rsa = quant.quantize_rows_ref(x)
+        rw, rsw = quant.quantize_rows_ref(w)
+        q1_bad = sum(bits_unequal(a_, b_) for a_, b_ in
+                     ((qa.view(torch.int8).to(torch.int16), ra.to(torch.int16)),
+                      (sa, rsa), (qw.to(torch.int16), rw.to(torch.int16)),
+                      (sw, rsw)))
+        y = quant.int8_linear_cuda(qa, sa, qw, sw, bias)
+        y0 = quant.int8_linear_cuda(qa, sa, qw, sw)
+        q2_bad = (bits_unequal(y, quant.int8_linear_ref(ra, rsa, rw, rsw, bias))
+                  + bits_unequal(y0, quant.int8_linear_ref(ra, rsa, rw, rsw)))
+        torch.cuda.synchronize()
+        check(q1_bad == 0 and q2_bad == 0,
+              f"Q1 / Q2 at {name} (M {m}, N {n}, K {k}, {dt}): {q1_bad} / "
+              f"{q2_bad} elements unequal to the twins (bound 0)")
+        r = {"shape": [m, n, k], "dtype": dt, "q1_unequal": q1_bad,
+             "q2_unequal": q2_bad}
+        if name == "fc1":
+            r["wrong_unequal"] = {kind: bits_unequal(quant_wrong(x, w, kind), y0)
+                                  for kind in ("divide_by_127", "rescale_once",
+                                               "last_k_tile_dropped")}
+            check(all(v > 0 for v in r["wrong_unequal"].values()),
+                  f"Q2: a wrong twin is bit-equal {r['wrong_unequal']}")
+        if name in P30_PRODUCTS:
+            esize = x.element_size()
+            r["q1_ms"] = time_ms(lambda: quant.quantize_rows_cuda(x), dev)
+            r["q1_plain_ms"] = time_ms(lambda: quant.quantize_rows_ref(x), dev)
+            r["q1_bound_ms"], r["q1_bound_by"] = bound(
+                0, "fp32", m * k * esize + m * k + 4 * m)
+            r["q2_ms"] = time_ms(lambda: quant.int8_linear_cuda(
+                qa, sa, qw, sw, bias), dev)
+            r["q2_plain_ms"] = time_ms(lambda: quant.int8_linear_ref(
+                qa, sa, qw, sw, bias), dev, iters=3)
+            r["q2_bound_ms"], r["q2_bound_by"] = bound(
+                2 * m * n * k, "int8",
+                m * k + n * k + 4 * m + 8 * n + 4 * m * n)
+            try:   # the library yardstick: cuBLASLt's int8 product + rescale
+                def lib():
+                    acc = torch._int_mm(qa, qw.t())
+                    return torch.addcmul(bias, acc.float() * sa, sw.t())
+                r["library_ms"] = time_ms(lib, dev)
+            except RuntimeError as e:
+                r["library_ms"] = None
+                print(f"[Q2] torch._int_mm at {name}: {e}", flush=True)
+        qrec[name] = r
+        del x, w, bias, qa, sa, qw, sw, ra, rsa, rw, rsw, y, y0
+    torch.cuda.empty_cache()
+    secs["b"] = time.perf_counter() - t
+    print(f"[Q1 quantize_rows, Q2 int8_linear] {smi} | bit for bit at "
+          + ", ".join(f"{k_} {v_['shape']} {v_['dtype']}" for k_, v_ in qrec.items())
+          + f" | wrong twins unequal {json.dumps(qrec['fc1']['wrong_unequal'])}"
+          + " | ms (Q1, Q2; Q2 bound, library, twin) " + ", ".join(
+              f"{k_} {v_['q1_ms']:.4f}, {v_['q2_ms']:.4f}; "
+              f"{v_['q2_bound_ms']:.4f} ({v_['q2_bound_by']}), "
+              f"{v_['library_ms']}, {v_['q2_plain_ms']:.3f}"
+              for k_, v_ in qrec.items() if "q2_ms" in v_), flush=True)
+
+    # -- (c) the int8 path ----------------------------------------------------
+    t = time.perf_counter()
+    counters = {"quantize_rows": quant.quantize_rows_cuda,
+                "int8_linear": quant.int8_linear_cuda,
+                "gelu_erf": gelu.gelu_erf_cuda,
+                "exp_attention": attention.exp_attention_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda,
+                "crf_apply": crf_cuda.kernel_apply_cuda}
+    with twin_guard() as twin_calls:
+        for f in counters.values():
+            f.launches = 0
+        int8 = bench_components_torch.run(["--batch", "16", "--iters", "1",
+                                           "--int8"])
+        path_launches = {k_: f.launches for k_, f in counters.items()}
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+    check(all(math.isfinite(v) and v > 0 for r_ in int8.values()
+              for v in (r_ if isinstance(r_, (list, tuple)) else [r_])),
+          f"bench_components_torch --int8: {int8}")
+    check(all(path_launches[k_] > 0 for k_ in counters if k_ != "gelu_erf"),
+          f"the int8 path did not launch every kernel: {path_launches}")
+    secs["c"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    # int8 CAMs against bf16 ones: the same seeded weights and images
+    t = time.perf_counter()
+    inputs = None
+    cams = {}
+    for q in (False, True):
+        trainer = bench_torch.build(bench_config("voc", quantized_inference=q),
+                                    0, dev)
+        if inputs is None:
+            inputs = trainer.put(synthetic_batch(16, crop=448))["image"]
+        with torch.inference_mode():
+            cams[q] = bench_torch.msc_cams(trainer, inputs)[0].float()
+        del trainer
+    a, b = cams[False], cams[True]
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    corr = float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1])
+    check(math.isfinite(corr) and agree > 0.5,
+          f"int8 CAMs against bf16: argmax agreement {agree}, corr {corr}")
+    del cams, a, b, inputs
+    torch.cuda.empty_cache()
+    # one quantized forward's FLOPs, card and CPU (depth 2, crop 224)
+    from dupl_tpu_torch.models.network import DualStudent
+
+    cfgq = bench_config("voc", quantized_inference=True)
+    model = shallow(DualStudent(cfgq.model), 2)
+    xq = torch.zeros(1, 224, 224, 3)
+    with torch.no_grad():
+        cpu_flops = flops_utils.count_flops(model.cam_only, xq)
+        model.to(dev)
+        card_flops = flops_utils.count_flops(model.cam_only, xq.to(dev))
+    check(card_flops == cpu_flops > 0,
+          f"quantized forward FLOPs: card {card_flops}, CPU {cpu_flops}")
+    del model
+    secs["c2"] = time.perf_counter() - t
+    print(f"[int8 path] tools/bench_components_torch.py --int8, VOC, batch 16 "
+          f"| {smi} | launches {json.dumps(path_launches)} | ms "
+          + ", ".join(f"{k_} {1e3 * (v_[0] if isinstance(v_, (list, tuple)) else v_):.2f}"
+                      for k_, v_ in int8.items())
+          + f" | img/s pipeline {16 / int8['pipeline']:.3f}, eval "
+          f"{16 / int8['eval_protocol']:.3f}", flush=True)
+    print(f"[bf16 path, phase 29] ms " + ", ".join(
+        f"{k_} {1e3 * (v_[0] if isinstance(v_, (list, tuple)) else v_):.2f}"
+        for k_, v_ in voc29.items()), flush=True)
+    print(f"[int8 vs bf16] multi-scale CAMs of both students, batch 16, the "
+          f"same seeded weights and images: argmax agreement {agree:.6f}, "
+          f"correlation {corr:.6f} | a quantized cam_only at depth 2, crop "
+          f"224: {card_flops} FLOPs on the card, {cpu_flops} on the CPU",
+          flush=True)
+    print(f"[phase 30] s {json.dumps({k_: round(v_, 1) for k_, v_ in secs.items()})}"
+          f" | {time.perf_counter() - t30:.1f} s (budget 60)", flush=True)
+    rec["quant"] = qrec
+    rec["path"] = {"launches": path_launches, "rows": int8,
+                   "cam_agreement": agree, "cam_correlation": corr,
+                   "flops_card": card_flops, "flops_cpu": cpu_flops}
+    return rec
 
 
 def main() -> int:
@@ -2508,11 +2936,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_main = time.perf_counter()
     import numpy as np
     import torch.nn.functional as F
 
     from dupl_tpu_torch.kernels import build
-    from dupl_tpu_torch.ops import attention, crf, crf_cuda, par_cuda
+    from dupl_tpu_torch.ops import attention, crf, crf_cuda, gelu, par_cuda
     from dupl_tpu_torch.utils import flops as flops_utils
 
     dev = torch.device("cuda:0")
@@ -2541,7 +2970,8 @@ def main() -> int:
     # local memory, so it fails the build phase.
     for name in ("crf_apply", "par_propagate", "exp_attention",
                  "flash_attention", "exp_attention_ones",
-                 "exp_attention_bnhd", "par_affinity", "crf_apply_bf16"):
+                 "exp_attention_bnhd", "par_affinity", "crf_apply_bf16",
+                 "int8_gemm", "quantize_rows", "gelu_erf"):
         usage = build.ptxas_usage(name)
         check(bool(usage), f"{name}: no ptxas -v lines in its build log")
         for fn, regs, st, ld in usage:
@@ -2881,10 +3311,12 @@ def main() -> int:
         before = batcher.stats()
         attention.exp_attention_cuda.launches = 0
         crf_cuda.kernel_apply_cuda.launches = 0
+        gelu.gelu_erf_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats()
         lat, wall = http_round()
         launches = {"exp_attention": attention.exp_attention_cuda.launches,
-                    "crf_apply": crf_cuda.kernel_apply_cuda.launches}
+                    "crf_apply": crf_cuda.kernel_apply_cuda.launches,
+                    "gelu_erf": gelu.gelu_erf_cuda.launches}
         after = batcher.stats()
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -2892,8 +3324,10 @@ def main() -> int:
         server.server_close()
         batcher.close()
         srv_thread.join(timeout=10)
-    check(launches["exp_attention"] > 0 and launches["crf_apply"] > 0,
-          f"a kernel of the path never launched: {launches}")
+    check(launches["exp_attention"] > 0 and launches["crf_apply"] > 0
+          and launches["gelu_erf"] == launches["exp_attention"],
+          f"a kernel of the path never launched, or G not once a block: "
+          f"{launches}")
     dispatches = after["dispatches"] - before["dispatches"]
     dispatch_ms = 1e3 * (after["dispatch_seconds"]
                          - before["dispatch_seconds"]) / dispatches
@@ -3320,7 +3754,8 @@ def main() -> int:
     twins = [(attention, "exp_attention_ref"),
              (attention, "exp_attention_bwd_ref"),
              (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
-             (crf_cuda, "kernel_apply_ref")]
+             (crf_cuda, "kernel_apply_ref"), (gelu, "gelu_erf_ref"),
+             (gelu, "gelu_erf_bwd_ref")]
     twin_calls = []
 
     def counting(mod, name):
@@ -3389,6 +3824,8 @@ def main() -> int:
             for _ in range(3):
                 for f in train_counters.values():
                     f.launches = 0
+                gelu.gelu_erf_cuda.launches = 0
+                gelu.gelu_erf_bwd_cuda.launches = 0
                 t = time.perf_counter()
                 # no host sync inside a step: PyTorch raises on any of its
                 # own calls that would wait for the device
@@ -3404,6 +3841,14 @@ def main() -> int:
                 check(step_launches == expected[phase],
                       f"{phase}: launches a step {step_launches}, expected "
                       f"{expected[phase]}")
+                # G once a block and forward pass (every pass here has 128
+                # tokens or more, so as K1), its backward as K2
+                g_launches = {"gelu_erf": gelu.gelu_erf_cuda.launches,
+                              "gelu_erf_bwd": gelu.gelu_erf_bwd_cuda.launches}
+                check(g_launches == {
+                    "gelu_erf": expected[phase]["exp_attention"],
+                    "gelu_erf_bwd": expected[phase]["exp_attention_bwd"]},
+                      f"{phase}: G launches a step {g_launches}")
             losses12 = {k_: v_.item() for k_, v_ in metrics12.items()}
             check(all(np.isfinite(v_) for v_ in losses12.values()),
                   f"{phase}: non-finite loss {losses12}")
@@ -3416,6 +3861,7 @@ def main() -> int:
             med12 = statistics.median(times12)
             train12[phase] = {
                 "ms": 1e3 * med12, "launches": step_launches,
+                "launches_g": g_launches,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
             print(f"[training slice] {phase}: ViT-B/16 dual student, crop 448, "
                   f"batch 4 | median {1e3 * med12:.1f} ms/step of 3 "
@@ -5262,6 +5708,12 @@ def main() -> int:
     print(f"[measurement tools] phase 29 took {time.perf_counter() - t29:.1f}"
           f" s", flush=True)
 
+    # -- 30. the exact GELU and the int8 inference path -------------------------
+    t30 = time.perf_counter()
+    rec30 = phase30(dev, smi, rec29["voc_rows"])
+    print(f"[GELU and int8] phase 30 took {time.perf_counter() - t30:.1f} s",
+          flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -5475,8 +5927,55 @@ def main() -> int:
         by_name[name]["launches_bench"] = n_
     by_name["par_propagate"]["c324"] = k4w
     by_name["crf_apply"]["v33"] = k5w
-    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 11,
+    # Phase 30: G (its launches: the serving round's; the backward's: a
+    # full-phase training step of phase 12), Q1 and Q2 (their launches: the
+    # int8 path's run); times at the MLP's hidden width and at fc1's shape
+    g30, fc1 = rec30["gelu_erf"], rec30["quant"]["fc1"]
+    kernels += [
+        {"name": "gelu_erf", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/gelu_erf.cu",
+         "replaces": "dupl_tpu/models/vit.py:90 (nn.gelu, an XLA fusion; no "
+                     "Pallas kernel)",
+         "launches": launches["gelu_erf"], "max_abs_err": 0.0,
+         "ms": g30["ms"], "plain_ms": g30["plain_ms"],
+         "bound_ms": g30["bound_ms"], "bound_by": g30["bound_by"],
+         "library_ms": g30["library_ms"],
+         "launches_train": {ph: train12[ph]["launches_g"]["gelu_erf"]
+                            for ph in train12},
+         "launches_bwd_train": {ph: train12[ph]["launches_g"]["gelu_erf_bwd"]
+                                for ph in train12},
+         **{k_: g30[k_] for k_ in ("unequal", "wrong_unequal", "shape",
+                                   "ms_bwd", "plain_ms_bwd", "bound_ms_bwd",
+                                   "bound_by_bwd", "library_ms_bwd")}},
+        {"name": "quantize_rows", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/quantize_rows.cu",
+         "replaces": "dupl_tpu/ops/quant.py:36-43 (an XLA fusion; no Pallas "
+                     "kernel)",
+         "launches": rec30["path"]["launches"]["quantize_rows"],
+         "max_abs_err": 0.0, "ms": fc1["q1_ms"],
+         "plain_ms": fc1["q1_plain_ms"], "bound_ms": fc1["q1_bound_ms"],
+         "bound_by": fc1["q1_bound_by"], "library_ms": None,
+         "by_product": {k_: {f: v_[f] for f in ("shape", "dtype", "q1_ms",
+                                                "q1_plain_ms", "q1_bound_ms")}
+                        for k_, v_ in rec30["quant"].items() if "q1_ms" in v_}},
+        {"name": "int8_linear", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/int8_gemm.cu",
+         "replaces": "dupl_tpu/ops/quant.py:45-48 (an XLA int8 dot; no "
+                     "Pallas kernel)",
+         "launches": rec30["path"]["launches"]["int8_linear"],
+         "max_abs_err": 0.0, "ms": fc1["q2_ms"],
+         "plain_ms": fc1["q2_plain_ms"], "bound_ms": fc1["q2_bound_ms"],
+         "bound_by": fc1["q2_bound_by"], "library_ms": fc1["library_ms"],
+         "wrong_unequal": fc1["wrong_unequal"],
+         "by_product": {k_: {f: v_[f] for f in ("shape", "dtype", "q2_ms",
+                                                "q2_plain_ms", "q2_bound_ms",
+                                                "library_ms")}
+                        for k_, v_ in rec30["quant"].items() if "q2_ms" in v_}},
+    ]
+    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 14,
           "a kernel of a main path never launched")
+    print(f"[chip_smoke] phases 1-30 took {time.perf_counter() - t_main:.1f} s"
+          f" (limit 1200)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

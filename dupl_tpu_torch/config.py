@@ -71,8 +71,8 @@ class ModelConfig:
     # defaults to the exact erf form the backbone was trained with (torch
     # nn.GELU default); inference pipelines may enable the approximation.
     gelu_approximate: bool = False
-    # dynamic-int8 GEMMs for inference pipelines only (not ported: the port's
-    # ViT raises on it).  Never enabled for training.
+    # dynamic-int8 GEMMs for inference pipelines only (ops/quant.py; the
+    # Trainer refuses a training step with it).  Never enabled for training.
     quantized_inference: bool = False
     # Residual-stream dtype for the NO-GRAD multi-scale CAM pass in training
     # (reference: torch.no_grad() forwards, train_final_voc.py:216).  ``None``
@@ -275,8 +275,8 @@ def bench_config(dataset: str = "voc", **model_overrides) -> TrainConfig:
     budget 10; COCO: ``coco_config`` with its model replaced as the JAX
     tool replaces it (81 classes, the default ``aux_layer``), budget 16.
     ``model_overrides`` set further ``ModelConfig`` fields (``backbone``;
-    ``quantized_inference``, the JAX tool's ``--int8``, which the port's
-    ViT refuses)."""
+    ``quantized_inference``, the JAX tool's ``--int8``: w8a8 products in
+    every block, ``ops/quant.py``)."""
     recipe, num_classes, budget = {"voc": (voc_config, 21, 10),
                                    "coco": (coco_config, 81, 16)}[dataset]
     model = ModelConfig(**{"num_classes": num_classes,

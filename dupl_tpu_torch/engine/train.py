@@ -528,7 +528,12 @@ class Trainer:
         the strong view's (aug_n, global B) op indices, of which a rank
         takes the columns of its data rank; drawn from ``state.rng`` when
         None (every rank draws the global batch's, so the ranks' generators
-        stay in step and a model group's ranks use the same columns)."""
+        stay in step and a model group's ranks use the same columns).
+        Refuses a model with ``quantized_inference``: the int8 products
+        are for inference only, as in the reference's config."""
+        if self.cfg.model.quantized_inference:
+            raise ValueError("quantized_inference is for inference only: "
+                             "training with int8 products is not ported")
         step = state.step if step is None else step
         batch = self.put(batch)
         phase = phase_of(self.cfg, step)

@@ -61,10 +61,17 @@ def _nvcc() -> str:
 
 
 # The kernels of the main path, each launched through the registered
-# ``torch.library`` op ``dupl::<name>`` of the same name as its source
-# (``ops/attention.py``, ``ops/crf_cuda.py``, ``ops/par_cuda.py``).
-OPS = ("exp_attention", "exp_attention_bwd", "flash_attention",
-       "flash_attention_bwd", "crf_apply", "par_affinity", "par_propagate")
+# ``torch.library`` op ``dupl::<name>`` (``ops/attention.py``,
+# ``ops/crf_cuda.py``, ``ops/par_cuda.py``, ``ops/gelu.py``,
+# ``ops/quant.py``): op name -> the stem of its source under ``csrc/``.
+OPS = {"exp_attention": "exp_attention",
+       "exp_attention_bwd": "exp_attention_bwd",
+       "flash_attention": "flash_attention",
+       "flash_attention_bwd": "flash_attention_bwd",
+       "crf_apply": "crf_apply", "par_affinity": "par_affinity",
+       "par_propagate": "par_propagate",
+       "gelu_erf": "gelu_erf", "gelu_erf_bwd": "gelu_erf",
+       "quantize_rows": "quantize_rows", "int8_linear": "int8_gemm"}
 
 
 def _digest(src: Path) -> str:
@@ -85,7 +92,7 @@ def digests() -> Dict[str, str]:
     """``dupl::<name>`` -> :func:`source_digest` of its source, for every op
     of :data:`OPS`.  A sealed program calls the ops by name, so an artifact
     records these and is refused where the sources differ."""
-    return {f"dupl::{name}": source_digest(name) for name in OPS}
+    return {f"dupl::{name}": source_digest(src) for name, src in OPS.items()}
 
 
 def build(name: str, verbose: bool = False) -> Path:

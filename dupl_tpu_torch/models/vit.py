@@ -9,6 +9,11 @@ input's patch grid on every call.
 Dtypes follow the reference: matmuls run in ``compute_dtype`` (inputs and
 weights cast, bias added in the output dtype), parameters stay float32, and
 the residual stream runs in ``stream_dtype``; LayerNorm statistics are fp32.
+``quant=True`` (``ModelConfig.quantized_inference``, inference only) makes
+the four products of every block w8a8 (``ops/quant.py``: kernels Q1 and Q2
+on the card), fp32 out with the bias added in fp32, as the reference's
+``QDense``; the exact GELU then runs on fc1's fp32 output.  The exact GELU
+rounds as the jitted reference does (``ops/gelu.py``: kernel G on the card).
 ``ViT.forward(x, stream_dtype=...)`` runs the same parameters with another
 stream dtype (the trainer's no-grad CAM passes run a bf16 stream beside the
 fp32 stream of the differentiated pass).  ``remat=True`` recomputes each
@@ -29,7 +34,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dupl_tpu_torch.ops.attention import dot_attention
+from dupl_tpu_torch.ops.gelu import gelu_erf
 from dupl_tpu_torch.ops.image import resize_bicubic
+from dupl_tpu_torch.ops.quant import quantized_matmul
 from dupl_tpu_torch.parallel import tensor_parallel
 
 
@@ -58,18 +65,30 @@ class Linear(nn.Linear):
     the product rounded to that dtype, then the bias added in it.  ``tp``
     and ``tp_role`` (``parallel/tensor_parallel.py``) make it column- or
     row-parallel on this rank's share; a row-parallel product is summed
-    over the model group before the bias."""
+    over the model group before the bias.  ``quant`` (the reference's
+    ``QDense(quant=True)``): the dynamic int8 product
+    (``ops/quant.py:quantized_matmul``), fp32 out, the bias added in fp32;
+    not with tensor parallelism (the reference's abs-max scales would span
+    a row-parallel weight's shards)."""
 
     tp = None
     tp_role = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 quant: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
+        if self.quant:
+            if self.tp is not None:
+                raise ValueError("int8 inference (quantized_inference) is not "
+                                 "ported to tensor parallelism "
+                                 "(--model-parallel > 1)")
+            return quantized_matmul(x, self.weight, self.bias)
         if self.tp is None:
             y = F.linear(x.to(cd), self.weight.to(cd))
         else:
@@ -109,15 +128,23 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype,
-                 gelu_approximate: bool):
+                 gelu_approximate: bool, quant: bool = False):
         super().__init__()
-        self.fc1 = Linear(dim, hidden, compute_dtype=compute_dtype)
-        self.fc2 = Linear(hidden, dim, compute_dtype=compute_dtype)
+        if not (gelu_approximate or quant
+                or compute_dtype in (torch.bfloat16, torch.float32)):
+            # the int8 path's GELU runs on fc1's float32 output
+            raise ValueError(f"the exact GELU (gelu_approximate=False) takes "
+                             f"bfloat16 or float32; compute_dtype "
+                             f"{compute_dtype} is not supported")
+        self.fc1 = Linear(dim, hidden, compute_dtype=compute_dtype,
+                          quant=quant)
+        self.fc2 = Linear(hidden, dim, compute_dtype=compute_dtype,
+                          quant=quant)
         self.gelu_approximate = gelu_approximate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
-        return self.fc2(gelu_tanh(h) if self.gelu_approximate else F.gelu(h))
+        return self.fc2(gelu_tanh(h) if self.gelu_approximate else gelu_erf(h))
 
 
 class Attention(nn.Module):
@@ -127,12 +154,14 @@ class Attention(nn.Module):
 
     tp = None
 
-    def __init__(self, dim: int, num_heads: int, compute_dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, compute_dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
-        self.qkv = Linear(dim, dim * 3, compute_dtype=compute_dtype)
-        self.proj = Linear(dim, dim, compute_dtype=compute_dtype)
+        self.qkv = Linear(dim, dim * 3, compute_dtype=compute_dtype,
+                          quant=quant)
+        self.proj = Linear(dim, dim, compute_dtype=compute_dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -152,13 +181,14 @@ class Block(nn.Module):
     block's input."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 compute_dtype: torch.dtype, gelu_approximate: bool):
+                 compute_dtype: torch.dtype, gelu_approximate: bool,
+                 quant: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, compute_dtype)
+        self.attn = Attention(dim, num_heads, compute_dtype, quant)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype,
-                       gelu_approximate)
+                       gelu_approximate, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x)).to(x.dtype)
@@ -187,8 +217,6 @@ class ViT(nn.Module):
                  remat: bool = False,
                  stream_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if quant:
-            raise NotImplementedError("int8 inference is not ported")
         self.remat = remat
         self.spec = spec
         self.aux_layer = aux_layer
@@ -200,7 +228,7 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(spec.patch_size, d, compute_dtype)
         self.blocks = nn.ModuleList([
             Block(d, spec.num_heads, spec.mlp_ratio, compute_dtype,
-                  gelu_approximate)
+                  gelu_approximate, quant)
             for _ in range(spec.depth)])
         self.norm = LayerNorm(d)
 

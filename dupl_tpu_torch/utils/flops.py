@@ -21,22 +21,25 @@ from typing import Dict, Optional
 import torch
 
 
-def _hopper(bf16: float, fp32: float, hbm_bytes_per_s: float) -> Dict[str, float]:
+def _hopper(bf16: float, fp32: float, hbm_bytes_per_s: float,
+            int8: float) -> Dict[str, float]:
     """A Hopper card's rates.  An SM runs fp32 FMAs on 128 lanes (two
-    FLOPs an instruction) and special-function instructions (exp) on 16."""
+    FLOPs an instruction) and special-function instructions (exp) on 16;
+    ``int8``: dense int8 tensor-core operations a second."""
     return {"bf16": bf16, "fp32": fp32, "fp32_instr": fp32 / 2,
-            "sfu": fp32 / 2 / 8, "hbm_bytes_per_s": hbm_bytes_per_s}
+            "sfu": fp32 / 2 / 8, "hbm_bytes_per_s": hbm_bytes_per_s,
+            "int8": int8}
 
 
 # Dense rates (no sparsity) from NVIDIA's H100 Tensor Core GPU datasheet,
 # keyed by a lower-case part of torch.cuda.get_device_name().
 _RATES = {
     # H100 SXM5 80 GB: 989 TFLOP/s bf16 (1,979 with sparsity), 67 TFLOP/s
-    # fp32, HBM3 at 3.35 TB/s
-    "h100 80gb hbm3": _hopper(989e12, 67e12, 3.35e12),
+    # fp32, HBM3 at 3.35 TB/s, 1,979 TOP/s int8 (3,958 with sparsity)
+    "h100 80gb hbm3": _hopper(989e12, 67e12, 3.35e12, 1979e12),
     # H100 PCIe 80 GB: 756 TFLOP/s bf16 (1,513 with sparsity), 51 TFLOP/s
-    # fp32, HBM2e at 2.0 TB/s
-    "h100 pcie": _hopper(756e12, 51e12, 2.0e12),
+    # fp32, HBM2e at 2.0 TB/s, 1,513 TOP/s int8 (3,026 with sparsity)
+    "h100 pcie": _hopper(756e12, 51e12, 2.0e12, 1513e12),
 }
 
 # The SXM part's rates, for a caller that must bound a card not in the table
@@ -46,8 +49,8 @@ H100_SXM = _RATES["h100 80gb hbm3"]
 def device_rates(name: str) -> Optional[Dict[str, float]]:
     """The peak rates of the card called ``name`` (as
     ``torch.cuda.get_device_name`` gives it): ``bf16`` and ``fp32`` FLOP/s,
-    ``fp32_instr`` and ``sfu`` instructions/s, ``hbm_bytes_per_s``; None
-    for a card not in the table."""
+    ``int8`` operations/s, ``fp32_instr`` and ``sfu`` instructions/s,
+    ``hbm_bytes_per_s``; None for a card not in the table."""
     name = name.lower()
     for key in sorted(_RATES, key=len, reverse=True):
         if key in name:

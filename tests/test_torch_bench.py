@@ -95,16 +95,6 @@ def test_bench_config_equals_the_jax_tools(dataset, int8):
     assert got["par"]["class_budget"] == (10 if dataset == "voc" else 16)
 
 
-def test_int8_is_refused():
-    """``--int8`` (``quantized_inference``) raises as ``quant=True`` does:
-    the port has no int8 path."""
-    with pytest.raises(NotImplementedError, match="int8"):
-        DualStudent(bench_config("voc", backbone=TINY,
-                                 quantized_inference=True).model)
-    with pytest.raises(NotImplementedError, match="int8"):
-        components.run(["--device", "cpu", "--backbone", TINY, "--int8"])
-
-
 # -------------------------------------------------------- (2) the bf16 Block
 def test_gelu_tanh_rounds_as_jax_in_bf16():
     """Bit for bit against ``jax.nn.gelu(approximate=True)`` on bf16 (the
@@ -122,13 +112,15 @@ def test_gelu_tanh_rounds_as_jax_in_bf16():
     np.testing.assert_array_equal(got, eager)
 
 
-def _blocks(stream):
-    """The JAX ``Block`` of ``bench.py``'s model (bf16 compute, tanh GELU)
-    on ``stream`` and the port's on the same weights (perturbed LayerNorm
-    parameters, so that they count), D 64, 4 heads."""
+def _blocks(stream, gelu_approximate=True):
+    """The JAX ``Block`` of ``bench.py``'s model (bf16 compute, tanh GELU;
+    the exact GELU with ``gelu_approximate=False``) on ``stream`` and the
+    port's on the same weights (perturbed LayerNorm parameters, so that
+    they count), D 64, 4 heads."""
     d, heads = 64, 4
     jdt = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}[stream]
-    jb = JBlock(d, heads, 4.0, jnp.bfloat16, True, stream_dtype=jdt)
+    jb = JBlock(d, heads, 4.0, jnp.bfloat16, gelu_approximate,
+                stream_dtype=jdt)
     x = np.random.RandomState(0).randn(3, 50, d).astype(np.float32)
     xj = jnp.asarray(x).astype(jdt)
     params = jb.init(jax.random.PRNGKey(0), xj)
@@ -142,7 +134,7 @@ def _blocks(stream):
                       ("mlp", "fc2")):
         sd[f"{mod}.{leaf}.weight"] = p[mod][leaf]["kernel"].T
         sd[f"{mod}.{leaf}.bias"] = p[mod][leaf]["bias"]
-    tb = Block(d, heads, 4.0, torch.bfloat16, True)
+    tb = Block(d, heads, 4.0, torch.bfloat16, gelu_approximate)
     tb.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                         for k, v in sd.items()})
     tx = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(
@@ -319,6 +311,7 @@ def test_dissect_clis_on_cpu(capsys):
     out = capsys.readouterr().out
     assert _last_json(out) == enc and enc["mlp_roofline"] is None
     assert "12x Block" in out and "12x exp_attention" in out
+    assert enc["mlp_train"] > 0 and "12x Mlp forward and backward" in out
     trd = train_dissect.run(CPU + ["--crop", "32", "--batch", "2",
                                    "--iters", "1"])
     out = capsys.readouterr().out

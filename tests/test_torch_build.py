@@ -112,8 +112,8 @@ def test_library_name_follows_the_sources():
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
         "crf_apply", "crf_apply_bf16", "exp_attention", "exp_attention_bnhd",
         "exp_attention_bwd", "exp_attention_ones", "exp_rate",
-        "flash_attention", "flash_attention_bwd", "par_affinity",
-        "par_propagate"]
+        "flash_attention", "flash_attention_bwd", "gelu_erf", "int8_gemm",
+        "par_affinity", "par_propagate", "quantize_rows"]
     # a shared header is part of every library's name
     assert (build.CSRC / "mma_bf16.cuh").exists()
 

@@ -140,6 +140,8 @@ def test_peak_table_and_mfu(monkeypatch):
     assert flops.device_rates("NVIDIA A100-SXM4-80GB") is None
     rates = flops.device_rates("NVIDIA H100 80GB HBM3")
     assert rates["sfu"] == 67e12 / 16 and rates["fp32_instr"] == 67e12 / 2
+    assert rates["int8"] == 1979e12
+    assert flops.device_rates("NVIDIA H100 PCIe")["int8"] == 1513e12
     assert flops.peak_flops_per_device("cpu") is None
     name = {"name": "NVIDIA H100 80GB HBM3"}
     monkeypatch.setattr(torch.cuda, "get_device_name",

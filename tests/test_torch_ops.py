@@ -13,7 +13,8 @@ from dupl_tpu_torch.config import DataConfig, ModelConfig, voc_config
 from dupl_tpu_torch.engine.export import ServingProgram
 from dupl_tpu_torch.kernels import build
 from dupl_tpu_torch.models.network import DualStudent
-from dupl_tpu_torch.ops import attention, crf_cuda, image, par_cuda  # noqa: F401
+from dupl_tpu_torch.ops import (attention, crf_cuda, gelu, image,  # noqa: F401
+                                par_cuda, quant)
 
 torch.set_num_threads(2)
 DIL = [1, 2]
@@ -48,12 +49,20 @@ def _cases():
         "par_propagate": (masks.clone().requires_grad_(True), aff, DIL, 2),
         "par_propagate_bf16": (masks.clone().requires_grad_(True),
                                aff.to(bf), DIL, 2),
+        "gelu_erf": (_randn(3, 7, 16, dtype=bf, grad=True),),
+        "gelu_erf_fp32": (_randn(3, 7, 16, grad=True),),
+        "gelu_erf_bwd": (_randn(3, 7, 16, dtype=bf, grad=True),
+                         _randn(3, 7, 16, dtype=bf, seed=1)),
+        "quantize_rows": (_randn(10, 64, dtype=bf, grad=True),),
+        "int8_linear": (*torch.ops.dupl.quantize_rows(_randn(10, 64)),
+                        *torch.ops.dupl.quantize_rows(_randn(16, 64, seed=1)),
+                        _randn(16, grad=True)),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_cases()))
 def test_opcheck(case):
-    name = case.removesuffix("_bf16")
+    name = case.removesuffix("_bf16").removesuffix("_fp32")
     op = getattr(torch.ops.dupl, name).default
     torch.library.opcheck(op, _cases()[case])
 
@@ -61,13 +70,13 @@ def test_opcheck(case):
 def test_every_kernel_of_the_path_is_an_op():
     """The ops of ``kernels/build.py:OPS`` are registered with a CPU, a CUDA
     and a fake kernel and an autograd registration (a fallthrough: an op is
-    not differentiable by itself), each named after its CUDA source."""
-    for name in build.OPS:
+    not differentiable by itself), each with its CUDA source."""
+    for name, src in build.OPS.items():
         qual = f"dupl::{name}"
         for key in ("CPU", "CUDA", "Meta", "Autograd"):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, key), \
                 (qual, key)
-        assert (build.CSRC / f"{name}.cu").exists()
+        assert (build.CSRC / f"{src}.cu").exists()
     registered = {n for n in torch._C._dispatch_get_all_op_names()
                   if n.startswith("dupl::")}
     assert set(build.digests()) == registered == {f"dupl::{n}"

@@ -28,8 +28,10 @@ one warm-up, each call followed by a ``torch.cuda.synchronize()``:
 
 ``--density dense`` gives every image 20 present classes, drawn as the JAX
 tool draws them; at COCO width that overruns the class budget of 16 and
-PAR takes the full class axis (K4 at C 324).  ``--int8`` is refused: the
-port has no int8 path.  Prints the card's name and power limit, one row a
+PAR takes the full class axis (K4 at C 324).  ``--int8`` sets
+``quantized_inference`` (the JAX tool's flag): every block's four products
+run w8a8 (``ops/quant.py``: kernels Q1 and Q2 on the card), the same rows
+are timed.  Prints the card's name and power limit, one row a
 piece and last a JSON line of the JAX tool's ``report`` keys (seconds; the
 per-scale entries ``[seconds, TFLOPS]``) plus ``par_affinity`` and
 ``par_propagate``.  ``--device cpu`` runs the plain twins, a functional
@@ -108,7 +110,7 @@ def run(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--int8", action="store_true",
-                    help="int8 GEMMs: refused, the port has none")
+                    help="dynamic-int8 GEMMs (ModelConfig.quantized_inference)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--dataset", choices=["voc", "coco"], default="voc")
     ap.add_argument("--density", choices=["realistic", "dense"],

@@ -3,9 +3,11 @@ the counterpart of ``tools/encoder_dissect.py`` on one card.
 
     python tools/encoder_dissect_torch.py [--seqs 64] [--size 448]
                                           [--iters 10] [--device cuda]
+                                          [--gelu tanh|erf]
 
 ``bench_config``'s model (ViT-B/16, tanh GELU, bf16 residual stream,
-weights from seed 1).  Each stage is timed as ``--iters`` calls queued back
+weights from seed 1); ``--gelu erf`` takes the training recipe's exact GELU
+instead (kernel G on the card).  Each stage is timed as ``--iters`` calls queued back
 to back after one warm-up, with one ``torch.cuda.synchronize()`` at the
 end, divided by ``--iters``:
 
@@ -15,6 +17,9 @@ end, divided by ``--iters``:
 * 12 x ``Attention`` (qkv, K1, proj) and 12 x ``Mlp`` on those tokens,
   the MLP beside its GEMM roofline at the card's dense bf16 peak
   (``utils/flops.py``);
+* ``mlp_train``: 12 x ``Mlp`` forward and backward on 16 sequences (a
+  training step's scale-1.0 pass of 4 images and their flips through two
+  students), the GELU's backward included;
 * 12 x ``ops/attention.exp_attention`` (K1) on (seqs, N, 12, 64), beside
   the roofline of the qkv and output projections.
 
@@ -34,6 +39,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+TRAIN_SEQS = 16
+
 
 def run(argv=None) -> dict:
     """The measurement; returns the row of milliseconds.  Raises without
@@ -44,6 +51,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backbone", default="deit_base_patch16")
+    ap.add_argument("--gelu", choices=["tanh", "erf"], default="tanh",
+                    help="tanh: bench_config's GELU; erf: the recipe's")
     args = ap.parse_args(argv)
 
     import torch
@@ -59,7 +68,9 @@ def run(argv=None) -> dict:
 
     device = cli_device(args.device)
     print(card_line(device), flush=True)
-    cfg = bench_config("voc", backbone=args.backbone).model
+    tanh = args.gelu == "tanh"
+    cfg = bench_config("voc", backbone=args.backbone,
+                       gelu_approximate=tanh).model
     spec = VIT_CONFIGS[cfg.backbone]
     d, heads, hidden = spec.embed_dim, spec.num_heads, int(
         spec.embed_dim * spec.mlp_ratio)
@@ -107,9 +118,9 @@ def run(argv=None) -> dict:
         tokens = torch.randn(args.seqs, n_tok, d, generator=g).to(
             device, torch.bfloat16)
         bf16 = torch.bfloat16
-        blk = Block(d, heads, spec.mlp_ratio, bf16, True)
+        blk = Block(d, heads, spec.mlp_ratio, bf16, tanh)
         attn = Attention(d, heads, bf16)
-        mlp = Mlp(d, hidden, bf16, True)
+        mlp = Mlp(d, hidden, bf16, tanh)
         mods = torch.nn.ModuleDict({"block": blk, "attn": attn, "mlp": mlp})
         init_weights(mods, torch.Generator().manual_seed(3))
         mods.to(device).eval()
@@ -147,6 +158,21 @@ def run(argv=None) -> dict:
               f"(qkv+proj roofline "
               f"{'%.1f ms' % rf if rf is not None else 'not known'})",
               flush=True)
+    # outside inference_mode: parameters made there cannot be saved for
+    # a backward
+    mlp = Mlp(d, hidden, torch.bfloat16, tanh)
+    init_weights(mlp, torch.Generator().manual_seed(3))
+    mlp.to(device)
+    small = torch.randn(TRAIN_SEQS, n_tok, d, generator=g).to(
+        device, torch.bfloat16)
+
+    def train(t):
+        t = t.clone().requires_grad_(True)
+        twelve(mlp)(t).float().sum().backward()
+
+    rows["mlp_train"] = 1e3 * bench(train, small)
+    print(f"  12x Mlp forward and backward ({TRAIN_SEQS} seqs): "
+          f"{rows['mlp_train']:.1f} ms", flush=True)
     print(json.dumps(rows), flush=True)
     return rows
 
