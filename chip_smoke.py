@@ -259,17 +259,22 @@ JAX.  Phases, each printing one result line:
    every tool's rows, no twin on a CUDA tensor;
 30. the exact GELU and the int8 inference path: (a) kernel G
    (``csrc/gelu_erf.cu``) forward and backward against its twins on all
-   65,536 bf16 bit patterns and 2^20 fp32 values, 0 unequal elements, and
-   the wrong twins of ``gelu_wrong`` (F.gelu, the formula without XLA's
-   FMAs, one FMA more) and F.gelu's backward unequal; G, its twin and
-   F.gelu timed at the MLP's hidden activations (16 x 785 x 3072 bf16),
-   and G held to its twins there (0 unequal) in bf16 and fp32: the whole
-   tensor, a length off the vector width, a view off 16-byte alignment;
-   (b) Q1 (``csrc/quantize_rows.cu``) and Q2 (``csrc/int8_gemm.cu``)
-   against their twins bit for bit at ViT-B's four products (qkv, proj,
-   fc1 in bf16, fc2 in fp32, M 12,560) and a ragged M, with and without the
-   bias, the wrong twins of ``quant_wrong`` unequal, timed beside
-   ``torch._int_mm`` + rescale and the twins; (c)
+   65,536 bf16 bit patterns (the cotangent with ±0, ±inf and NaN) and
+   2^20 fp32 values and at lengths 1 and 7, 0 unequal elements, and the
+   wrong twins of ``gelu_wrong`` (F.gelu, the formula without XLA's FMAs,
+   one FMA more; the bf16 table read at -x, the packed factors swapped,
+   the exp of the unrounded z^2) and F.gelu's backward unequal; G, its
+   twin and F.gelu timed at the MLP's hidden activations (16 x 785 x 3072
+   bf16; one call, and back to back), by erfc branch, and in fp32, and
+   G held to its twins there
+   (0 unequal) in bf16 and fp32: the whole tensor, a length off the vector
+   width, a view off 16-byte alignment; (b) Q1
+   (``csrc/quantize_rows.cu``) and Q2 (``csrc/int8_gemm.cu``) against
+   their twins bit for bit at ViT-B's four products (qkv, proj, fc1 in
+   bf16, fc2 in fp32, M 12,560), a ragged M and Q2's edges (M 1, M 63, N
+   1000, K 96), with and without the bias, the wrong twins of
+   ``quant_wrong`` unequal, timed beside ``torch._int_mm`` + rescale and
+   the twins; (c)
    ``tools/bench_components_torch.py --int8`` at batch 16 with every
    kernel's count zeroed before and read after (Q1, Q2, K1, K3, K4, K5
    launched; no twin on a CUDA tensor), its rows beside phase 29's bf16
@@ -280,8 +285,9 @@ JAX.  Phases, each printing one result line:
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
 its memory rate, whichever is larger; kernel times are medians of one call
-between two CUDA events, and the attention entries add ``ms_back_to_back``,
-rounds of back-to-back calls, K1 and K2 also ``host_us``; K1, K3, K4 and
+between two CUDA events, and the attention entries, G, Q1 and Q2 add
+``ms_back_to_back``, rounds of back-to-back calls, K1 and K2 also
+``host_us``; K1, K3, K4 and
 K5 also ``launches_bench``, their launches a ``bench_torch.py`` call), and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -295,6 +301,7 @@ import gc
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2532,11 +2539,11 @@ P30_MLP_ROWS = 16 * 785        # bench_config's 16 images at scale 1.0
 # ViT-B's four products a block: name -> (N, K, activation dtype)
 P30_PRODUCTS = {"qkv": (2304, 768, "bfloat16"), "proj": (768, 768, "bfloat16"),
                 "fc1": (3072, 768, "bfloat16"), "fc2": (768, 3072, "float32")}
-# fp32 instructions an element of G's forward: about 12 below |z| = 1 (the
-# shared 9-step Horner scheme, 1 - z P, two products, the bf16 roundings),
-# about 30 beyond (the exp's 12, two divisions counted as one each, the
-# 9-step scheme, the reflection); the backward adds the exp of the
-# derivative and 8 products
+# fp32 instructions an element of G's fp32 forward: about 12 below |z| = 1
+# (the 7-step Horner scheme, 1 - z P, two products), about 30 beyond (the
+# exp's 12, two reciprocals counted as one each, the 8- or 9-step scheme,
+# the reflection); the backward adds the exp of the derivative and 8
+# products.  bf16 reads tables: its bound is the bytes.
 P30_G_INSTR = {"small": 12, "large": 30, "bwd_extra": 20}
 
 
@@ -2549,12 +2556,16 @@ def bits_unequal(got, want):
     return int((~(same | (torch.isnan(got) & torch.isnan(want)))).sum())
 
 
-def gelu_wrong(x, kind):
+def gelu_wrong(x, kind, g=None):
     """Wrong twins of kernel G's forward: ``one_rounding`` (F.gelu, the
     port's former GELU), ``no_fma`` (every product and sum of XLA's HLO
     rounded on its own, where XLA's CPU code fuses the Horner steps) and
-    ``fma_reflect`` (2 - q P as one FMA, a contraction XLA does not
-    make)."""
+    ``fma_reflect`` (2 - q P as one FMA, a contraction XLA does not make);
+    and of its bf16 table design: ``table_negated_index`` (the forward
+    table read at the bits of -x), and, backward on the cotangent ``g``,
+    ``bwd_factors_swapped`` (erfc(z) and exp(-z^2) exchanged in the packed
+    word) and ``bwd_e_unrounded_z`` (the exp of -z^2 without the bf16
+    roundings of z and z^2)."""
     import torch
     import torch.nn.functional as F
 
@@ -2562,6 +2573,25 @@ def gelu_wrong(x, kind):
 
     if kind == "one_rounding":
         return F.gelu(x)
+    if kind in ("table_negated_index", "bwd_factors_swapped",
+                "bwd_e_unrounded_z"):
+        assert x.dtype == torch.bfloat16, "the tables are G's bf16 design"
+        fwd_tab, ec_tab, e_tab = gelu._bf16_tables(x.device)
+        i = gelu._bf16_index(x)
+        if kind == "table_negated_index":
+            return fwd_tab[i ^ 0x8000]
+        ec, e = ec_tab[i], e_tab[i]
+        if kind == "bwd_factors_swapped":
+            ec, e = e, ec
+        else:
+            z = (-x).float() * gelu._SQRT_HALF[torch.bfloat16]
+            e = gelu._bf(gelu._exp_xla(-(z * z)))
+        # the backward's products that mix x and g, as the kernel takes them
+        xf, gf = x.float(), g.float()
+        t = gelu._bf(gelu._bf(gelu._bf(xf * 0.5) * gf) * -1.125)
+        left = -gelu._bf(gelu._bf(t * e) * 0.70703125)
+        right = gelu._bf(gelu._bf(gf * ec) * 0.5)
+        return (left + right).to(torch.bfloat16)
 
     def erfc_reflect(z, e=None):
         az, z2 = z.abs(), z * z
@@ -2599,9 +2629,14 @@ def gelu_wrong(x, kind):
 
 
 def quant_wrong(x, w, kind):
-    """Wrong twins of Q1 + Q2 (``tests/test_torch_quant.py:_wrong``): the
-    scale as max|x| / 127, the rescale as y * (s_a * s_w), the last 32
-    columns of k left out."""
+    """Wrong twins of Q1 + Q2, without the bias: the scale as max|x| / 127
+    (``divide_by_127``), the rescale as y * (s_a * s_w) (``rescale_once``),
+    the last 32 columns of k left out (``last_k_tile_dropped``); and faults
+    of Q2's design: the first 32-column K slice read again in place of the
+    second (``k_stage_read_twice``, a ring stage read in the wrong phase),
+    the row scales of the two 8-row halves of each 16-row group exchanged
+    (``row_scale_shifted``), columns 0-127 and 128-255 of the output
+    exchanged (``n_tiles_swapped``)."""
     import torch
 
     from dupl_tpu_torch.ops import quant
@@ -2621,19 +2656,33 @@ def quant_wrong(x, w, kind):
     if kind == "rescale_once":
         acc = (qa.double() @ qw.double().t()).float()
         return acc * (sa * sw.reshape(1, -1))
-    assert kind == "last_k_tile_dropped"
-    return quant.int8_linear_ref(qa[:, :-32], sa, qw[:, :-32], sw)
+    if kind == "last_k_tile_dropped":
+        return quant.int8_linear_ref(qa[:, :-32], sa, qw[:, :-32], sw)
+    if kind == "k_stage_read_twice":
+        qa, qw = qa.clone(), qw.clone()
+        qa[:, 32:64], qw[:, 32:64] = qa[:, :32], qw[:, :32]
+        return quant.int8_linear_ref(qa, sa, qw, sw)
+    if kind == "row_scale_shifted":
+        rows = torch.arange(sa.shape[0], device=sa.device)
+        swap = rows ^ 8
+        return quant.int8_linear_ref(
+            qa, sa[torch.where(swap < sa.shape[0], swap, rows)], qw, sw)
+    assert kind == "n_tiles_swapped"
+    y = quant.int8_linear_ref(qa, sa, qw, sw)
+    return torch.cat([y[:, 128:256], y[:, :128], y[:, 256:]], dim=1)
 
 
 def phase30(dev, smi, voc29):
-    """(a) Kernel G against its twins on all 65,536 bf16 bit patterns and
-    2^20 fp32 values, forward and backward, and the wrong twins of
-    :func:`gelu_wrong` outside (> 0 unequal); G timed at the MLP's hidden
-    shape (12,560 x 3072 bf16) and held to its twins there in bf16 and
-    fp32, whole, at a length off the vector width and on a view off
-    16-byte alignment; (b) Q1 and Q2 against their twins bit for bit at ViT-B's four
-    products (M 12,560) and a ragged M, the wrong twins of
-    :func:`quant_wrong` outside, timed beside ``torch._int_mm`` + rescale;
+    """(a) Kernel G against its twins on all 65,536 bf16 bit patterns, 2^20
+    fp32 values and lengths 1 and 7, forward and backward, and the wrong
+    twins of :func:`gelu_wrong` outside (> 0 unequal); G timed at the MLP's
+    hidden shape (12,560 x 3072 bf16; one call, and back to back), by
+    erfc branch and in fp32, and held to its twins there in
+    bf16 and fp32, whole, at a length off the vector width and on a view
+    off 16-byte alignment; (b) Q1 and Q2 against their twins bit for bit at
+    ViT-B's four products (M 12,560), a ragged M and Q2's edges, the wrong
+    twins of :func:`quant_wrong` outside, timed beside ``torch._int_mm`` +
+    rescale;
     (c) ``tools/bench_components_torch.py --int8`` at batch 16 with the
     counts of every kernel zeroed before and read after, its rows beside
     phase 29's bf16 ones, the int8 CAMs against the bf16 ones on the same
@@ -2651,6 +2700,7 @@ def phase30(dev, smi, voc29):
 
     from dupl_tpu_torch.config import bench_config
     from dupl_tpu_torch.data.pipeline import synthetic_batch
+    from dupl_tpu_torch.kernels import build
     from dupl_tpu_torch.ops import attention, crf_cuda, gelu, par_cuda, quant
     from dupl_tpu_torch.utils import flops as flops_utils
     from dupl_tpu_torch.utils.timing import time_ms
@@ -2675,21 +2725,39 @@ def phase30(dev, smi, voc29):
                      (torch.rand(n32 // 2, generator=g, device=dev) - 0.5)
                      * 24])
     g16 = torch.randn(65536, generator=g, device=dev).to(bf)
+    g16[:6] = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0],
+                           device=dev).to(bf)
     g32 = torch.randn(n32, generator=g, device=dev)
     ga = {}
     for name, x, gg in (("bf16", x16, g16), ("fp32", x32, g32)):
-        fwd = bits_unequal(gelu.gelu_erf_cuda(x), gelu.gelu_erf_ref(x))
-        bwd = bits_unequal(gelu.gelu_erf_bwd_cuda(x, gg),
-                           gelu.gelu_erf_bwd_ref(x, gg))
-        torch.cuda.synchronize()
-        ga[name] = {"fwd_unequal": fwd, "bwd_unequal": bwd}
-        check(fwd == 0 and bwd == 0,
-              f"G {name}: {fwd} / {bwd} elements unequal to the twins "
-              f"(forward / backward; bound 0)")
+        ga[name] = {"fwd_unequal": bits_unequal(gelu.gelu_erf_cuda(x),
+                                                gelu.gelu_erf_ref(x)),
+                    "bwd_unequal": bits_unequal(gelu.gelu_erf_bwd_cuda(x, gg),
+                                                gelu.gelu_erf_bwd_ref(x, gg))}
+        # lengths 1 and 7: from a 16-byte aligned start (the vector loop's
+        # tail alone) and ending at the last element (off alignment)
+        for n_ in (1, 7):
+            for at, sl in (("start", slice(0, n_)), ("end", slice(-n_, None))):
+                xv, gv = x[sl], gg[sl]
+                ga[f"{name} n{n_} {at}"] = {
+                    "fwd_unequal": bits_unequal(gelu.gelu_erf_cuda(xv),
+                                                gelu.gelu_erf_ref(xv)),
+                    "bwd_unequal": bits_unequal(gelu.gelu_erf_bwd_cuda(xv, gv),
+                                                gelu.gelu_erf_bwd_ref(xv, gv))}
+    torch.cuda.synchronize()
+    check(all(v["fwd_unequal"] == 0 and v["bwd_unequal"] == 0
+              for v in ga.values()),
+          f"G: elements unequal to the twins (forward / backward; bound 0) "
+          f"{ga}")
     wrong = {}
     for kind in ("one_rounding", "no_fma", "fma_reflect"):
         wrong[kind] = sum(bits_unequal(gelu_wrong(x, kind), gelu.gelu_erf_ref(x))
                           for x in (x16, x32))
+    wrong["table_negated_index"] = bits_unequal(
+        gelu_wrong(x16, "table_negated_index"), gelu.gelu_erf_ref(x16))
+    for kind in ("bwd_factors_swapped", "bwd_e_unrounded_z"):
+        wrong[kind] = bits_unequal(gelu_wrong(x16, kind, g16),
+                                   gelu.gelu_erf_bwd_ref(x16, g16))
     xw = x32.clone().requires_grad_(True)
     torch.nn.functional.gelu(xw).backward(g32)
     wrong["bwd_one_rounding"] = bits_unequal(xw.grad,
@@ -2710,44 +2778,74 @@ def phase30(dev, smi, voc29):
     large = int((h.float().abs() * gelu._SQRT_HALF[bf] >= 1.0).sum())
     n_el = h.numel()
     instr = (n_el - large) * P30_G_INSTR["small"] + large * P30_G_INSTR["large"]
-    gb = bound(instr, "fp32_instr", 4 * n_el)
-    gbb = bound(instr + n_el * P30_G_INSTR["bwd_extra"], "fp32_instr",
-                6 * n_el)
+    gb, gbb = bound(0, "fp32", 4 * n_el), bound(0, "fp32", 6 * n_el)
+    gb32 = bound(instr, "fp32_instr", 8 * n_el)
+    gbb32 = bound(instr + n_el * P30_G_INSTR["bwd_extra"], "fp32_instr",
+                  12 * n_el)
+    hr = h.clone().requires_grad_(True)
+    out_lib = torch.nn.functional.gelu(hr)
+
+    def times(fn):
+        """(ms of one call on an idle device, ms a call back to back)"""
+        return time_ms(fn, dev), time_ms(fn, dev, back_to_back=True)
+
+    fwd_ms = times(lambda: gelu.gelu_erf_cuda(h))
+    lib_ms = times(lambda: torch.nn.functional.gelu(h))
+    bwd_ms = times(lambda: gelu.gelu_erf_bwd_cuda(h, gh))
+    lib_bwd_ms = times(lambda: torch.autograd.grad(out_lib, hr, gh,
+                                                   retain_graph=True))
     rec["gelu_erf"] = {
         "unequal": ga, "wrong_unequal": wrong,
         "shape": [P30_MLP_ROWS, 3072], "dtype": "bfloat16",
-        "ms": time_ms(lambda: gelu.gelu_erf_cuda(h), dev),
+        "ms": fwd_ms[0], "ms_back_to_back": fwd_ms[1],
         "plain_ms": time_ms(lambda: gelu.gelu_erf_ref(h), dev),
-        "library_ms": time_ms(lambda: torch.nn.functional.gelu(h), dev),
+        "library_ms": lib_ms[0], "library_ms_back_to_back": lib_ms[1],
         "bound_ms": gb[0], "bound_by": gb[1],
-        "ms_bwd": time_ms(lambda: gelu.gelu_erf_bwd_cuda(h, gh), dev),
+        "ms_bwd": bwd_ms[0], "ms_bwd_back_to_back": bwd_ms[1],
         "plain_ms_bwd": time_ms(lambda: gelu.gelu_erf_bwd_ref(h, gh), dev,
                                 iters=3, warmup=1),
+        "library_ms_bwd": lib_bwd_ms[0],
+        "library_ms_bwd_back_to_back": lib_bwd_ms[1],
         "bound_ms_bwd": gbb[0], "bound_by_bwd": gbb[1]}
-    hr = h.clone().requires_grad_(True)
-    out_lib = torch.nn.functional.gelu(hr)
-    rec["gelu_erf"]["library_ms_bwd"] = time_ms(
-        lambda: torch.autograd.grad(out_lib, hr, gh, retain_graph=True), dev)
     del hr, out_lib
-    # G's forward on inputs of one erfc branch each (|z| < 1: 1 - z P;
-    # |z| >= 2: the exp, two divisions and the reflection) beside the mixed
-    # draws above: what the large branch costs and what mixing branches in a
-    # warp adds
+    g30 = rec["gelu_erf"]
+    # inputs of one erfc branch each (|z| < 1, |z| >= 2) beside the mixed
+    # draws: with the tables, the same time
     u = torch.rand(P30_MLP_ROWS, 3072, generator=g, device=dev)
     branch_x = {"small": ((u * 2 - 1) * 1.4).to(bf),
                 "large": (torch.where(u < 0.5, -1.0, 1.0)
                           * (2.9 + 5 * torch.rand_like(u))).to(bf)}
-    rec["gelu_erf"]["ms_by_branch"] = {
-        k_: time_ms(lambda: gelu.gelu_erf_cuda(v_), dev)
+    g30["ms_by_branch"] = {k_: times(lambda: gelu.gelu_erf_cuda(v_))
+                           for k_, v_ in branch_x.items()}
+    g30["ms_by_branch"]["mixed"] = fwd_ms
+    g30["ms_bwd_by_branch"] = {
+        k_: times(lambda: gelu.gelu_erf_bwd_cuda(v_, gh))
         for k_, v_ in branch_x.items()}
-    rec["gelu_erf"]["ms_by_branch"]["mixed"] = rec["gelu_erf"]["ms"]
-    rec["gelu_erf"]["large_share"] = large / n_el
+    g30["ms_bwd_by_branch"]["mixed"] = bwd_ms
+    g30["large_share"] = large / n_el
     del u, branch_x
-    # the same at the main path's size, where each thread of the capped grid
-    # makes about 9 passes of the vector loop: the whole tensors, a length
-    # with n % 8 != 0 (the scalar tail) and a view 2 or 4 bytes past 16-byte
-    # alignment (the elementwise instantiation), in bf16 and in fp32 (the
-    # int8 path's GELU on fc1's fp32 output)
+    # fp32 (the int8 path's GELU on fc1's fp32 output): the expansion
+    hf, ghf = h.float(), gh.float()
+    f32_ms = times(lambda: gelu.gelu_erf_cuda(hf))
+    f32_lib_ms = times(lambda: torch.nn.functional.gelu(hf))
+    f32_bwd_ms = times(lambda: gelu.gelu_erf_bwd_cuda(hf, ghf))
+    g30["fp32"] = {
+        "ms": f32_ms[0], "ms_back_to_back": f32_ms[1],
+        "bound_ms": gb32[0], "bound_by": gb32[1],
+        "library_ms": f32_lib_ms[0],
+        "library_ms_back_to_back": f32_lib_ms[1],
+        "ms_bwd": f32_bwd_ms[0], "ms_bwd_back_to_back": f32_bwd_ms[1],
+        "bound_ms_bwd": gbb32[0], "bound_by_bwd": gbb32[1]}
+    del hf, ghf
+    g30["registers"] = {}
+    for e_, r_, _, _ in build.ptxas_usage("gelu_erf"):
+        m_ = re.search(r"gelu_kernelI(\w)Lb(\d)ELi(\d+)E", e_)
+        g30["registers"]["build_tables" if m_ is None else " ".join((
+            "bf16" if m_[1] == "t" else "fp32", "bwd" if m_[2] == "1" else "fwd",
+            f"vec{m_[3]}"))] = r_
+    # the same at the main path's size: the whole tensors, a length with
+    # n % 8 != 0 (the scalar tail) and a view 2 or 4 bytes past 16-byte
+    # alignment (the elementwise instantiation), in bf16 and in fp32
     big = {}
     for name, (xm, gm) in (("bf16", (h, gh)),
                            ("fp32", (h.float(), gh.float()))):
@@ -2760,35 +2858,59 @@ def phase30(dev, smi, voc29):
                              gelu.gelu_erf_bwd_ref(xv, gv))]
         del xm, gm, xf, gf, xv, gv
     torch.cuda.synchronize()
-    rec["gelu_erf"]["unequal_main_shape"] = big
+    g30["unequal_main_shape"] = big
     check(all(n == 0 for pair in big.values() for n in pair),
           f"G at the MLP's hidden shape: elements unequal to the twins "
           f"(forward, backward; bound 0) {big}")
     del h, gh, x32, g32, xw
     torch.cuda.empty_cache()
     secs = {"a": time.perf_counter() - t30}
-    print(f"[G gelu_erf] {smi} | every bf16 bit pattern and 2^20 fp32 values: "
-          f"unequal to the twins {json.dumps(ga)} (bound 0) | wrong twins "
-          f"unequal {json.dumps(wrong)} | MLP hidden (12560 x 3072), "
-          f"[forward, backward] unequal {json.dumps(big)} (bound 0) | bf16: "
-          f"forward {rec['gelu_erf']['ms']:.4f} ms (bound "
-          f"{gb[0]:.4f}, {gb[1]}; twin {rec['gelu_erf']['plain_ms']:.3f}; "
-          f"F.gelu {rec['gelu_erf']['library_ms']:.4f}), backward "
-          f"{rec['gelu_erf']['ms_bwd']:.4f} ms (bound {gbb[0]:.4f}; F.gelu's "
-          f"{rec['gelu_erf']['library_ms_bwd']:.4f}) | forward ms by erfc "
-          f"branch {json.dumps(rec['gelu_erf']['ms_by_branch'])} (mixed: "
-          f"{large / n_el:.3f} of |z| >= 1)", flush=True)
+    f32 = g30["fp32"]
+    print(f"[G gelu_erf] {smi} | every bf16 bit pattern (cotangent with ±0, "
+          f"±inf, NaN), 2^20 fp32 values, lengths 1 and 7: unequal to the "
+          f"twins {json.dumps(ga)} (bound 0) | wrong twins unequal "
+          f"{json.dumps(wrong)} | MLP hidden (12560 x 3072), [forward, "
+          f"backward] unequal {json.dumps(big)} (bound 0)", flush=True)
+    def pair(t):
+        return f"{t[0]:.4f} / {t[1]:.4f}"
+
+    def share(bound_, t):
+        return f"{bound_ / t[0]:.0%} / {bound_ / t[1]:.0%}"
+
+    def by_branch(d):
+        return json.dumps({k_: [round(v_, 4) for v_ in t_]
+                           for k_, t_ in d.items()})
+
+    print(f"[G gelu_erf times] {smi} | ms one call on an idle device / a "
+          f"call back to back | bf16 forward {pair(fwd_ms)} (bound "
+          f"{gb[0]:.4f}, {gb[1]}; {share(gb[0], fwd_ms)}; F.gelu "
+          f"{pair(lib_ms)}; twin {g30['plain_ms']:.3f}), backward "
+          f"{pair(bwd_ms)} (bound {gbb[0]:.4f}, {share(gbb[0], bwd_ms)}; "
+          f"F.gelu's {pair(lib_bwd_ms)}) | by erfc branch, forward "
+          f"{by_branch(g30['ms_by_branch'])}, backward "
+          f"{by_branch(g30['ms_bwd_by_branch'])} (mixed: {large / n_el:.3f} "
+          f"of |z| >= 1) | fp32 forward {pair(f32_ms)} (bound "
+          f"{f32['bound_ms']:.4f}, {f32['bound_by']}; F.gelu "
+          f"{pair(f32_lib_ms)}), backward {pair(f32_bwd_ms)} (bound "
+          f"{f32['bound_ms_bwd']:.4f}, {f32['bound_by_bwd']}) | ptxas "
+          f"registers {json.dumps(g30['registers'])}", flush=True)
 
     # -- (b) Q1, Q2 --------------------------------------------------------------
     t = time.perf_counter()
     shapes = {name: (P30_MLP_ROWS, *nkd) for name, nkd in P30_PRODUCTS.items()}
     shapes["fc1_ragged"] = (1001, 3072, 768, "bfloat16")
+    # Q2's edges: one row, a single 64-row half, a ragged 128-column tile
+    # (N 1000), a K inside one 128-column slice (K 96)
+    shapes.update({"m1": (1, 3072, 768, "bfloat16"),
+                   "m63": (63, 3072, 768, "bfloat16"),
+                   "n1000": (1001, 1000, 768, "bfloat16"),
+                   "k96": (1001, 768, 96, "bfloat16")})
     qrec = {}
     for name, (m, n, k, dt) in shapes.items():
         x = (torch.randn(m, k, generator=g, device=dev)
              * torch.rand(m, 1, generator=g, device=dev) * 4).to(
                  getattr(torch, dt))
-        x[7] = 0
+        x[min(7, m - 1)] = 0
         w = torch.randn(n, k, generator=g, device=dev) * 0.02
         bias = torch.randn(n, generator=g, device=dev) * 0.02
         qa, sa = quant.quantize_rows_cuda(x)
@@ -2812,17 +2934,21 @@ def phase30(dev, smi, voc29):
         if name == "fc1":
             r["wrong_unequal"] = {kind: bits_unequal(quant_wrong(x, w, kind), y0)
                                   for kind in ("divide_by_127", "rescale_once",
-                                               "last_k_tile_dropped")}
+                                               "last_k_tile_dropped",
+                                               "k_stage_read_twice",
+                                               "row_scale_shifted",
+                                               "n_tiles_swapped")}
             check(all(v > 0 for v in r["wrong_unequal"].values()),
                   f"Q2: a wrong twin is bit-equal {r['wrong_unequal']}")
         if name in P30_PRODUCTS:
             esize = x.element_size()
-            r["q1_ms"] = time_ms(lambda: quant.quantize_rows_cuda(x), dev)
+            r["q1_ms"], r["q1_ms_back_to_back"] = times(
+                lambda: quant.quantize_rows_cuda(x))
             r["q1_plain_ms"] = time_ms(lambda: quant.quantize_rows_ref(x), dev)
             r["q1_bound_ms"], r["q1_bound_by"] = bound(
                 0, "fp32", m * k * esize + m * k + 4 * m)
-            r["q2_ms"] = time_ms(lambda: quant.int8_linear_cuda(
-                qa, sa, qw, sw, bias), dev)
+            r["q2_ms"], r["q2_ms_back_to_back"] = times(
+                lambda: quant.int8_linear_cuda(qa, sa, qw, sw, bias))
             r["q2_plain_ms"] = time_ms(lambda: quant.int8_linear_ref(
                 qa, sa, qw, sw, bias), dev, iters=3)
             r["q2_bound_ms"], r["q2_bound_by"] = bound(
@@ -2832,22 +2958,31 @@ def phase30(dev, smi, voc29):
                 def lib():
                     acc = torch._int_mm(qa, qw.t())
                     return torch.addcmul(bias, acc.float() * sa, sw.t())
-                r["library_ms"] = time_ms(lib, dev)
+                r["library_ms"], r["library_ms_back_to_back"] = times(lib)
             except RuntimeError as e:
-                r["library_ms"] = None
+                r["library_ms"] = r["library_ms_back_to_back"] = None
                 print(f"[Q2] torch._int_mm at {name}: {e}", flush=True)
         qrec[name] = r
         del x, w, bias, qa, sa, qw, sw, ra, rsa, rw, rsw, y, y0
     torch.cuda.empty_cache()
     secs["b"] = time.perf_counter() - t
-    print(f"[Q1 quantize_rows, Q2 int8_linear] {smi} | bit for bit at "
+    q2_regs = build.ptxas_usage("int8_gemm")
+    print(f"[Q1 quantize_rows, Q2 int8_linear] {smi} | bit for bit, with and "
+          f"without the bias, at "
           + ", ".join(f"{k_} {v_['shape']} {v_['dtype']}" for k_, v_ in qrec.items())
           + f" | wrong twins unequal {json.dumps(qrec['fc1']['wrong_unequal'])}"
-          + " | ms (Q1, Q2; Q2 bound, library, twin) " + ", ".join(
-              f"{k_} {v_['q1_ms']:.4f}, {v_['q2_ms']:.4f}; "
-              f"{v_['q2_bound_ms']:.4f} ({v_['q2_bound_by']}), "
-              f"{v_['library_ms']}, {v_['q2_plain_ms']:.3f}"
-              for k_, v_ in qrec.items() if "q2_ms" in v_), flush=True)
+          + " | ms one call on an idle device / a call back to back (Q1; "
+          "Q2; Q2 bound, its share; library; twin) " + ", ".join(
+              f"{k_} {pair((v_['q1_ms'], v_['q1_ms_back_to_back']))}; "
+              f"{pair(q2_)}; {v_['q2_bound_ms']:.4f} ({v_['q2_bound_by']}), "
+              f"{share(v_['q2_bound_ms'], q2_)}; "
+              + (pair((v_['library_ms'], v_['library_ms_back_to_back']))
+                 if v_['library_ms'] is not None else "None")
+              + f"; {v_['q2_plain_ms']:.3f}"
+              for k_, v_ in qrec.items() if "q2_ms" in v_
+              for q2_ in [(v_['q2_ms'], v_['q2_ms_back_to_back'])])
+          + f" | Q2 ptxas (registers, spills) "
+          f"{[(r_, st_, ld_) for _, r_, st_, ld_ in q2_regs]}", flush=True)
 
     # -- (c) the int8 path ----------------------------------------------------
     t = time.perf_counter()
@@ -2943,6 +3078,7 @@ def main() -> int:
     from dupl_tpu_torch.kernels import build
     from dupl_tpu_torch.ops import attention, crf, crf_cuda, gelu, par_cuda
     from dupl_tpu_torch.utils import flops as flops_utils
+    from dupl_tpu_torch.utils import timing
 
     dev = torch.device("cuda:0")
 
@@ -2980,28 +3116,11 @@ def main() -> int:
         check(all(st == ld == 0 for _, _, st, ld in usage),
               f"{name}: ptxas spilled registers {usage}")
 
-    def time_ms(fn, iters=10, warmup=2, back_to_back=False):
-        """Median per-call device time from CUDA events around one call;
-        with ``back_to_back``, around rounds of back-to-back calls (as many
-        as take about 5 ms, at most 20) divided by their number, so that the
-        host's time to launch a call hides behind the device's work, as on
-        the main path."""
-        for _ in range(warmup):
-            fn()
-
-        def round_ms(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
-            b.synchronize()
-            return a.elapsed_time(b) / reps
-
-        reps = (max(1, min(20, int(5.0 / max(round_ms(1), 1e-3))))
-                if back_to_back else 1)
-        return statistics.median(round_ms(reps) for _ in range(iters))
+    def time_ms(fn, **kw):
+        """Median ms a call of ``fn`` on the card: one call, or with
+        ``back_to_back`` rounds of calls back to back
+        (``utils/timing.time_ms``)."""
+        return timing.time_ms(fn, dev, **kw)
 
     def graph_ms(fn, stream):
         """Median device time of ``fn`` captured once in a CUDA graph on
@@ -5946,16 +6065,23 @@ def main() -> int:
                                 for ph in train12},
          **{k_: g30[k_] for k_ in ("unequal", "wrong_unequal", "shape",
                                    "ms_bwd", "plain_ms_bwd", "bound_ms_bwd",
-                                   "bound_by_bwd", "library_ms_bwd")}},
+                                   "bound_by_bwd", "library_ms_bwd",
+                                   "ms_back_to_back", "library_ms_back_to_back",
+                                   "ms_bwd_back_to_back",
+                                   "library_ms_bwd_back_to_back",
+                                   "ms_by_branch", "ms_bwd_by_branch", "fp32",
+                                   "registers")}},
         {"name": "quantize_rows", "route": "cuda",
          "source": "dupl_tpu_torch/csrc/quantize_rows.cu",
          "replaces": "dupl_tpu/ops/quant.py:36-43 (an XLA fusion; no Pallas "
                      "kernel)",
          "launches": rec30["path"]["launches"]["quantize_rows"],
          "max_abs_err": 0.0, "ms": fc1["q1_ms"],
+         "ms_back_to_back": fc1["q1_ms_back_to_back"],
          "plain_ms": fc1["q1_plain_ms"], "bound_ms": fc1["q1_bound_ms"],
          "bound_by": fc1["q1_bound_by"], "library_ms": None,
          "by_product": {k_: {f: v_[f] for f in ("shape", "dtype", "q1_ms",
+                                                "q1_ms_back_to_back",
                                                 "q1_plain_ms", "q1_bound_ms")}
                         for k_, v_ in rec30["quant"].items() if "q1_ms" in v_}},
         {"name": "int8_linear", "route": "cuda",
@@ -5964,12 +6090,18 @@ def main() -> int:
                      "Pallas kernel)",
          "launches": rec30["path"]["launches"]["int8_linear"],
          "max_abs_err": 0.0, "ms": fc1["q2_ms"],
+         "ms_back_to_back": fc1["q2_ms_back_to_back"],
+         "library_ms_back_to_back": fc1["library_ms_back_to_back"],
          "plain_ms": fc1["q2_plain_ms"], "bound_ms": fc1["q2_bound_ms"],
          "bound_by": fc1["q2_bound_by"], "library_ms": fc1["library_ms"],
          "wrong_unequal": fc1["wrong_unequal"],
+         "unequal_by_shape": {k_: v_["q2_unequal"]
+                              for k_, v_ in rec30["quant"].items()},
          "by_product": {k_: {f: v_[f] for f in ("shape", "dtype", "q2_ms",
+                                                "q2_ms_back_to_back",
                                                 "q2_plain_ms", "q2_bound_ms",
-                                                "library_ms")}
+                                                "library_ms",
+                                                "library_ms_back_to_back")}
                         for k_, v_ in rec30["quant"].items() if "q2_ms" in v_}},
     ]
     check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 14,

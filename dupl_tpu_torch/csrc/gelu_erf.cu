@@ -16,32 +16,61 @@
 // pseudo-labels, evaluation and training: 12 launches a student's forward,
 // 12 a backward).
 //
-// Every rounding is explicit: __fmul_rn / __fadd_rn / __fsub_rn /
-// __fdiv_rn round each operation on its own (nvcc would otherwise contract
-// a product and a sum into one FMA), and __fmaf_rn stands exactly where
-// XLA's CPU code generator contracts: each Horner step of the erfc and exp
-// polynomials, 1 - z P, the exp's range reduction, and in the fp32
-// backward the last product with the sum.  The constants are XLA's (hex,
-// as in ops/gelu.py).  Subnormals are kept (no -ftz), as in the twins.
+// Every rounding is explicit: __fmul_rn / __fadd_rn / __fsub_rn round each
+// operation on its own (nvcc would otherwise contract a product and a sum
+// into one FMA), and __fmaf_rn stands exactly where XLA's CPU code
+// generator contracts: each Horner step of the erfc and exp polynomials,
+// 1 - z P, the exp's range reduction, and in the fp32 backward the last
+// product with the sum.  XLA's divisions 1 / |z| and 1 / z^2 are
+// __frcp_rn, the correctly rounded reciprocal (the same bits as
+// __fdiv_rn(1, v) in fewer instructions).  The constants are XLA's (hex, as
+// in ops/gelu.py).  Subnormals are kept (no -ftz), as in the twins.
+//
+// bf16: tables.  A bf16 result depends on the 16 input bits alone, so G
+// keeps two tables of all 65,536 inputs in device memory, as the twin does
+// (ops/gelu.py:_bf16_tables): the forward's bf16 result (128 KB), and the
+// backward's two x-only factors packed in one word (256 KB), bf16
+// erfc(z) in the low half and bf16 exp(-bf16(bf16(z)^2)) in the high half,
+// so each unpacks with one shift or one mask.  build_tables runs the
+// expansion below over every bit pattern, once per device, at G's first
+// launch there (not under stream capture).  The forward is then a gather,
+// and the backward keeps only the products that mix x and g, each rounded
+// to bf16 as XLA's VJP rounds it.  A lookup reads the table through L1
+// (ld.global.nc): the hot set of real activations is a few thousand
+// entries.  A window of the table staged in shared memory by every block
+// tied this forward and lost 9% backward on the card (PERF.md).
+//
+// fp32: the expansion, forward and backward as separate kernels (the
+// backward's registers no longer limit the forward's residency).
 //
 // Bound.  Per element: 2 or 4 bytes read (twice that for the backward's x
-// and g) and as many written; on the fp32 pipes about 12 instructions for
-// |z| < 1 and about 30 (an exp, two divisions, a 7- or 8-step polynomial)
-// beyond, the backward about twice that.  At ViT-B's MLP width in bf16
-// both bounds are about equal (PERF.md).  Design: a grid-stride loop of
-// 16-byte loads and stores (8 bf16 or 4 fp32 elements a thread and step)
-// where both pointers are 16-byte aligned, elementwise otherwise and for
-// the tail; the erfc's branches diverge within a warp only where |z|
-// crosses 1 or 2.
+// and g) and as many written.  bf16 is bound by these bytes; fp32 by them
+// or, beyond |z| = 1, by the expansion's ~30 instructions (PERF.md).  Each
+// thread loads kChunks 16-byte chunks of x (and g) before it computes on
+// any of them, with L1::no_allocate so that streamed data does not evict
+// the table from L1; elementwise where a pointer is off 16-byte alignment
+// and for the tail.  The grid covers the tensor once: on the card it beat
+// a grid-stride loop over the resident blocks (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 namespace {
 
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t bf_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float bf_value(uint32_t bits) {
+  return __uint_as_float(bits << 16);
 }
 
 // XLA's f32 exp on the CPU: clamp, n = floor(x log2 e + 1/2) in
@@ -77,8 +106,8 @@ __device__ __forceinline__ float erfc_small(float z, float z2) {
 // exp(-z^2) / |z| * Q or R (1 / z^2), reflected for z < 0; e = exp(-z^2)
 __device__ __forceinline__ float erfc_large(float z, float z2, float e) {
   const float az = fabsf(z);
-  const float q = __fmul_rn(e, __fdiv_rn(1.0f, az));
-  const float w = __fdiv_rn(1.0f, z2);
+  const float q = __fmul_rn(e, __frcp_rn(az));
+  const float w = __frcp_rn(z2);
   float a;
   if (az < 2.0f) {
     a = __fmaf_rn(w, 0x1.7d39e8p-6f, -0x1.1c10dp-3f);
@@ -113,26 +142,11 @@ __device__ __forceinline__ float erfc_xla(float z) {
 constexpr float kSqrtHalfBf16 = 0.70703125f;
 constexpr float kSqrtHalfF32 = 0x1.6a09e6p-1f;
 
-__device__ __forceinline__ float fwd(float x, bool bf16) {
-  if (bf16) {
-    const float half = bf(__fmul_rn(x, 0.5f));
-    const float e = bf(erfc_xla(__fmul_rn(-x, kSqrtHalfBf16)));
-    return __fmul_rn(half, e);                 // rounded to bf16 by the store
-  }
+__device__ __forceinline__ float fwd_f32(float x) {
   return __fmul_rn(__fmul_rn(x, 0.5f), erfc_xla(__fmul_rn(-x, kSqrtHalfF32)));
 }
 
-__device__ __forceinline__ float bwd(float x, float g, bool bf16) {
-  if (bf16) {
-    const float t = bf(__fmul_rn(bf(__fmul_rn(bf(__fmul_rn(x, 0.5f)), g)),
-                                 -1.125f));
-    const float z = __fmul_rn(-x, kSqrtHalfBf16);
-    const float zb = bf(z);
-    const float e = bf(exp_xla(-bf(__fmul_rn(zb, zb))));
-    const float left = -bf(__fmul_rn(bf(__fmul_rn(t, e)), kSqrtHalfBf16));
-    const float right = bf(__fmul_rn(bf(__fmul_rn(g, bf(erfc_xla(z)))), 0.5f));
-    return __fadd_rn(left, right);             // rounded to bf16 by the store
-  }
+__device__ __forceinline__ float bwd_f32(float x, float g) {
   const float t = __fmul_rn(__fmul_rn(__fmul_rn(x, 0.5f), g),
                             -0x1.20dd76p+0f);
   const float z = __fmul_rn(-x, kSqrtHalfF32);
@@ -143,78 +157,172 @@ __device__ __forceinline__ float bwd(float x, float g, bool bf16) {
   return __fmaf_rn(-__fmul_rn(t, e), kSqrtHalfF32, right);
 }
 
-template <typename T>
-__device__ __forceinline__ float load(T v);
-template <>
-__device__ __forceinline__ float load<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float load<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T store(float v);
-template <>
-__device__ __forceinline__ float store<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// ---- the bf16 tables -----------------------------------------------------------
+
+__device__ uint16_t g_fwd_table[65536];  // bf16 gelu(x), by the bits of x
+__device__ uint32_t g_bwd_table[65536];  // bf16 erfc(z) | bf16 exp(..) << 16
+
+// One thread a bit pattern: the forward bf16(bf16(0.5 x) bf16(erfc(z))), z
+// = f32(-x) * bf16(sqrt(1/2)), and the backward's erfc(z) and
+// exp(-bf16(bf16(z)^2)), each rounded to bf16.
+__global__ void __launch_bounds__(256) build_tables() {
+  const uint32_t i = blockIdx.x * 256 + threadIdx.x;
+  const float x = bf_value(i);
+  const float z = __fmul_rn(-x, kSqrtHalfBf16);
+  const float ec = bf(erfc_xla(z));
+  g_fwd_table[i] =
+      static_cast<uint16_t>(bf_bits(__fmul_rn(bf(__fmul_rn(x, 0.5f)), ec)));
+  const float zb = bf(z);
+  const float e = exp_xla(-bf(__fmul_rn(zb, zb)));
+  g_bwd_table[i] = bf_bits(ec) | (bf_bits(e) << 16);
 }
 
-// out[i] = fwd(x[i]) (g == nullptr) or bwd(x[i], g[i]); kVec elements a
-// thread and step by 16-byte accesses, or 1
-template <typename T, int kVec>
-__global__ void __launch_bounds__(256)
+// The backward's products that mix x and g, from the packed word w of x.
+__device__ __forceinline__ float bwd_bf16(float x, float g, uint32_t w) {
+  const float ec = __uint_as_float(w << 16);
+  const float e = __uint_as_float(w & 0xffff0000u);
+  const float t = bf(__fmul_rn(bf(__fmul_rn(bf(__fmul_rn(x, 0.5f)), g)),
+                               -1.125f));
+  const float left = -bf(__fmul_rn(bf(__fmul_rn(t, e)), kSqrtHalfBf16));
+  const float right = bf(__fmul_rn(bf(__fmul_rn(g, ec)), 0.5f));
+  return __fadd_rn(left, right);               // rounded to bf16 by the caller
+}
+
+// The table entry of x's bits, through L1.
+template <bool kBwd>
+__device__ __forceinline__ uint32_t look(uint32_t bits) {
+  if constexpr (kBwd) return __ldg(g_bwd_table + bits);
+  else return __ldg(g_fwd_table + bits);
+}
+
+// ---- the elementwise pass ------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kChunks = 2;  // 16-byte chunks of x (and g) a thread loads at once
+
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// One element: T is uint16_t (bf16 bits) or float.
+template <typename T, bool kBwd>
+__device__ __forceinline__ T elem(T x, T g) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (kBwd) return bwd_f32(x, g);
+    else return fwd_f32(x);
+  } else {
+    const uint32_t w = look<kBwd>(x);
+    if constexpr (!kBwd) return static_cast<T>(w);
+    else return static_cast<T>(bf_bits(bwd_bf16(bf_value(x), bf_value(g), w)));
+  }
+}
+
+// out[i] = forward(x[i]) or backward(x[i], g[i]); kVec elements a chunk
+// (16 bytes), or 1 where a pointer is off 16-byte alignment.
+template <typename T, bool kBwd, int kVec>
+__global__ void __launch_bounds__(kThreads)
 gelu_kernel(const T* __restrict__ x, const T* __restrict__ g,
             T* __restrict__ out, int64_t n) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
   const int64_t nvec = n / kVec;
-  for (int64_t i = first; i < nvec; i += stride) {
-    alignas(16) T xv[kVec];
-    alignas(16) T gv[kVec];
-    alignas(16) T ov[kVec];
-    if constexpr (kVec > 1) {
-      *reinterpret_cast<uint4*>(xv) = reinterpret_cast<const uint4*>(x)[i];
-      if (g) *reinterpret_cast<uint4*>(gv) = reinterpret_cast<const uint4*>(g)[i];
-    } else {
-      xv[0] = x[i];
-      if (g) gv[0] = g[i];
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kChunks;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * kThreads * kChunks +
+                    threadIdx.x;
+       i0 < nvec; i0 += step) {
+    union Chunk {
+      uint4 v;
+      T e[kVec];
+    } xv[kChunks], gv[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t i = i0 + c * kThreads;
+      if (i >= nvec) break;
+      if constexpr (kVec > 1) {
+        xv[c].v = ld_stream(x + i * kVec);
+        if constexpr (kBwd) gv[c].v = ld_stream(g + i * kVec);
+      } else {
+        xv[c].e[0] = x[i];
+        if constexpr (kBwd) gv[c].e[0] = g[i];
+      }
     }
 #pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      ov[k] = store<T>(g ? bwd(load(xv[k]), load(gv[k]), kBf16)
-                         : fwd(load(xv[k]), kBf16));
-    if constexpr (kVec > 1)
-      reinterpret_cast<uint4*>(out)[i] = *reinterpret_cast<uint4*>(ov);
-    else
-      out[i] = ov[0];
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t i = i0 + c * kThreads;
+      if (i >= nvec) break;
+      Chunk o;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        o.e[k] = elem<T, kBwd>(xv[c].e[k], kBwd ? gv[c].e[k] : T(0));
+      if constexpr (kVec > 1)
+        *reinterpret_cast<uint4*>(out + i * kVec) = o.v;
+      else
+        out[i] = o.e[0];
+    }
   }
-  for (int64_t i = nvec * kVec + first; i < n; i += stride)
-    out[i] = store<T>(g ? bwd(load(x[i]), load(g[i]), kBf16)
-                        : fwd(load(x[i]), kBf16));
+  if (blockIdx.x == 0 && threadIdx.x < n - nvec * kVec) {  // the tail
+    const int64_t i = nvec * kVec + threadIdx.x;
+    out[i] = elem<T, kBwd>(x[i], kBwd ? g[i] : T(0));
+  }
 }
 
-template <typename T>
+// ---- host ------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// Build the bf16 tables on the current device once: on `stream`, waited
+// for, so that a launch on any stream of the device finds them.  Not under
+// stream capture: a captured build would not run until the graph does.
+int tables_ready(cudaStream_t stream) {
+  static std::mutex mu;
+  static bool built[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(mu);
+  if (built[dev]) return 0;
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &capture);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (capture != cudaStreamCaptureStatusNone)
+    return static_cast<int>(cudaErrorStreamCaptureUnsupported);
+  build_tables<<<65536 / 256, 256, 0, stream>>>();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  built[dev] = true;
+  return 0;
+}
+
+template <typename T, bool kBwd, int kVec>
+int launch_one(const void* x, const void* g, void* out, long long n,
+               cudaStream_t stream) {
+  // a block for every kThreads * kChunks chunks: each thread's loop runs
+  // once (the loop strides on only past 2^30 blocks)
+  const long long per_block = static_cast<long long>(kThreads) * kChunks;
+  const long long want = (n / kVec + per_block - 1) / per_block;
+  const int blocks = static_cast<int>(want < 1 ? 1 : want < (1 << 30) ? want : 1 << 30);
+  gelu_kernel<T, kBwd, kVec><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kBwd>
 int launch(const void* x, const void* g, void* out, long long n,
            cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kVec = 16 / sizeof(T);
+  if constexpr (!std::is_same<T, float>::value) {
+    const int status = tables_ready(stream);
+    if (status != 0) return status;
+  }
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(out)) % 16) == 0;
-  const long long work = aligned ? (n + kVec - 1) / kVec : n;
-  const int blocks = static_cast<int>(
-      work / 256 + 1 < 132 * 16 ? work / 256 + 1 : 132 * 16);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  T* ot = static_cast<T*>(out);
-  if (aligned)
-    gelu_kernel<T, kVec><<<blocks, 256, 0, stream>>>(xt, gt, ot, n);
-  else
-    gelu_kernel<T, 1><<<blocks, 256, 0, stream>>>(xt, gt, ot, n);
-  return static_cast<int>(cudaGetLastError());
+  return aligned ? launch_one<T, kBwd, 16 / sizeof(T)>(x, g, out, n, stream)
+                 : launch_one<T, kBwd, 1>(x, g, out, n, stream);
 }
 
 }  // namespace
@@ -222,14 +330,15 @@ int launch(const void* x, const void* g, void* out, long long n,
 extern "C" int dupl_gelu_erf_fwd(const void* x, void* y, long long n,
                                  int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, nullptr, y, n, st)
-              : launch<float>(x, nullptr, y, n, st);
+  return bf16 ? launch<uint16_t, false>(x, nullptr, y, n, st)
+              : launch<float, false>(x, nullptr, y, n, st);
 }
 
 extern "C" int dupl_gelu_erf_bwd(const void* x, const void* g, void* dx,
                                  long long n, int bf16, void* stream) {
   if (g == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, g, dx, n, st)
-              : launch<float>(x, g, dx, n, st);
+  return bf16 ? launch<uint16_t, true>(x, g, dx, n, st)
+              : launch<float, true>(x, g, dx, n, st);
 }
+

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (attention_fwd.cuh: K1, L1f, P1, P2; attention_bwd.cuh: K2, L1b):
+// (attention_fwd.cuh: K1, L1f, P1, P2; attention_bwd.cuh: K2, L1b) and the
+// w8a8 product (int8_gemm.cu: Q2):
 // mbarriers, TMA tensor copies, wgmma descriptors and products, register
 // rebalancing, proxy fences and named barriers, the softmax's exp2 and bf16
 // packing, and the host-side launch set-up and encoding of TMA tensor maps.
@@ -88,6 +89,47 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- thread block clusters -----------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster (not necessarily all threads of
+// a warp together): shared-memory writes and mbarrier set-up before it are
+// seen after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive once on the mbarrier at offset `bar` in the CTA of rank `rank`,
+// with the default (CTA-scope) ordering: a cluster-scope release also
+// waits for this thread's bulk stores in flight, which cost Q2 half its
+// speed.  Use it after reads that have completed (a wgmma wait).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(rank)
+      : "memory");
+}
+
 // Make this thread's ordinary stores to shared memory visible to the async
 // proxy (wgmma, TMA); a barrier after it orders them for the other threads.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -98,6 +140,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // multiple of 32.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at named barrier `id` without waiting for it.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
@@ -141,6 +188,52 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// One box of a 2-D tensor map into shared memory, completion to `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of shared memory to a 2-D tensor map; elements past the tensor's
+// edge are not written.  Completion is tracked by bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same box into the shared memory of every CTA of the cluster whose
+// bit is set in `mask`, at this CTA's offsets `dst` and `bar` in each.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N bulk groups of this thread are pending: with `read`,
+// only until their shared-memory sources have been read.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- register rebalancing between warpgroups ---------------------------------
 
 template <int R>
@@ -173,6 +266,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the swizzle of a chunk of `width` columns
 // (layout 1: 128-byte, 2: 64-byte, 3: 32-byte swizzle).
@@ -186,7 +285,8 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 
 // K-major operand (the product's K runs along the chunk's columns): the
 // 16-column step `kk` of a chunk at `addr`.  Rows step by 8-row groups of
-// 8 * row bytes; the step moves 32 bytes along the swizzled row.
+// 8 * row bytes; the step moves 32 bytes along the swizzled row.  An int8
+// operand's 128-byte rows (128 columns, a k32 step of 32 bytes) are width 64.
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int width, int kk) {
   return make_desc(addr + 32 * kk, 16, 16 * width, width);
 }
@@ -513,6 +613,28 @@ inline bool encode_operand(CUtensorMap* map, const void* base, int batch, int n,
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major 2-D tensor (rows x cols elements of `type`, rows `row_bytes`
+// apart, a multiple of 16) as a tensor map whose box is `box_rows` rows of
+// 128 bytes (`box_cols` elements) in the 128-byte swizzle.  Boxes reaching
+// past the tensor read zeros and write nothing there.  Returns false if the
+// driver refuses.
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      int64_t rows, int64_t cols, int64_t row_bytes, int box_rows,
+                      int box_cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -31,7 +31,9 @@ flushes subnormal inputs and results to zero, which the twins do not.
 
 ``dupl::gelu_erf`` and ``dupl::gelu_erf_bwd`` (``ops/library.py``) run the
 twins on CPU tensors and kernel G (``csrc/gelu_erf.cu``: one elementwise
-pass each, the same roundings) on CUDA tensors.  :func:`gelu_erf` pairs them
+pass each, the same roundings; bf16 reads tables of all 65,536 inputs that
+G's own code builds on the device, as the twins read ``_bf16_tables``) on
+CUDA tensors.  :func:`gelu_erf` pairs them
 in a ``torch.autograd.Function`` that saves only ``x``.  Their flop formula
 is 0: elementwise work is not counted (``utils/flops.py``).
 """

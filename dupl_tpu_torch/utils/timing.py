@@ -11,27 +11,35 @@ import torch
 
 
 def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 10,
-            warmup: int = 2) -> float:
-    """Median milliseconds a call of ``fn``: CUDA events around each call on
-    a card (device time, not the enqueue); the host clock on the CPU, where
-    the number only shows that the path ran."""
+            warmup: int = 2, back_to_back: bool = False) -> float:
+    """Median milliseconds a call of ``fn``: CUDA events around one call on
+    an idle card (its host time to enqueue included); with
+    ``back_to_back``, around rounds of back-to-back calls (as many as take
+    about 5 ms, at most 20) divided by their number, so that the host's
+    time to launch a call hides behind the device's work, as on the main
+    path.  The host clock on the CPU, where the number only shows that the
+    path ran."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
+
+    def round_ms(reps):
+        if device.type != "cuda":
             t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return 1e3 * (time.perf_counter() - t) / reps
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
             fn()
-            times.append(1e3 * (time.perf_counter() - t))
-    return statistics.median(times)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    reps = (max(1, min(20, int(5.0 / max(round_ms(1), 1e-3))))
+            if back_to_back else 1)
+    return statistics.median(round_ms(reps) for _ in range(iters))
 
 
 def card_line(device: torch.device) -> str:

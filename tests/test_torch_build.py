@@ -173,6 +173,7 @@ def test_port_never_imports_jax():
                                     "tools/exp_rate_experiment_torch.py",
                                     "tools/attn_fwd_timing_torch.py",
                                     "tools/crf_par_timing_torch.py",
+                                    "tools/gelu_int8_timing_torch.py",
                                     "tools/convert_ref_checkpoint_torch.py",
                                     "tools/pack_records_torch.py",
                                     "tools/gen_cls_labels_torch.py",

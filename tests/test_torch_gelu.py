@@ -176,6 +176,82 @@ def test_backward_f32():
     assert not _unequal(got, want).any()
 
 
+def _all_bf16_and_cotangent():
+    """Every bf16 bit pattern as x, and a seeded bf16 cotangent g whose
+    first elements are +0, -0, +inf, -inf and NaN (each against every x
+    class through the seeded rest)."""
+    x = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    g = np.random.RandomState(6).randn(65536).astype(np.float32) * 2
+    g[:5] = [0.0, -0.0, np.inf, -np.inf, np.nan]
+    g[65536 // 2:65536 // 2 + 5] = g[:5]
+    return x, torch.from_numpy(g).to(torch.bfloat16)
+
+
+def _bf16_round(v):
+    """float32 -> bf16 bits (uint32, in the high half), round to nearest
+    even; NaN stays a NaN."""
+    u = v.astype(np.float32).view(np.uint32)
+    r = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return np.where(np.isnan(v), u | np.uint32(0x00400000), r).view(np.float32)
+
+
+def _u16(t):
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+@pytest.mark.parametrize("way", ["forward", "backward"])
+def test_kernel_bf16_arithmetic_emulated(way):
+    """Kernel G's bf16 design on the CPU, in numpy: the tables built from
+    ``_bf16_tables`` as the card holds them (the forward's bf16 bits; the
+    backward's word packing bf16 erfc(z) low and bf16 exp(-bf16(bf16(z)^2))
+    high), the gather by the 16 input bits, and the backward's products
+    that mix x and g in the kernel's order, each rounded to bf16.  Over all
+    65,536 bf16 x against a seeded bf16 g with +-0, +-inf and NaN: bit-equal
+    to the twins."""
+    x, g = _all_bf16_and_cotangent()
+    fwd, ec, e = gelu._bf16_tables(torch.device("cpu"))
+    bits = _u16(x).astype(np.int64)
+    if way == "forward":
+        got = (_u16(fwd)[bits].astype(np.uint32) << 16).view(np.float32)
+        want = gelu.gelu_erf_ref(x).float().numpy()
+        assert not _unequal(got, want).any()
+        return
+    word = ((ec.numpy().view(np.uint32) >> 16)
+            | (e.numpy().view(np.uint32) & np.uint32(0xFFFF0000)))
+    w = word[bits]
+    ec_x = (w << 16).view(np.float32)
+    e_x = (w & np.uint32(0xFFFF0000)).view(np.float32)
+    xf, gf = x.float().numpy(), g.float().numpy()
+    with np.errstate(invalid="ignore", over="ignore"):
+        t = _bf16_round(_bf16_round(_bf16_round(xf * np.float32(0.5)) * gf)
+                        * np.float32(-1.125))
+        left = -_bf16_round(_bf16_round(t * e_x) * np.float32(0.70703125))
+        right = _bf16_round(_bf16_round(gf * ec_x) * np.float32(0.5))
+        got = _bf16_round(left + right)
+    want = gelu.gelu_erf_bwd_ref(x, g).float().numpy()
+    assert not _unequal(got, want).any()
+    assert np.isnan(want).sum() > 0 and (want[np.isfinite(want)] != 0).any()
+
+
+@pytest.mark.parametrize("kind", ["table_negated_index", "bwd_factors_swapped",
+                                  "bwd_e_unrounded_z"])
+def test_table_design_wrong_twins_differ(kind):
+    """``chip_smoke.gelu_wrong``'s faults of G's table design (the forward
+    table read at -x, erfc and exp swapped in the packed word, the exp of
+    the unrounded z^2) each differ from the twin on more than 100 of the
+    65,536 bf16 inputs (the last moves the exp's bf16 value for ~1,100 x,
+    and 401 outputs), as phase 30 holds them on the card."""
+    from chip_smoke import gelu_wrong
+
+    x, g = _all_bf16_and_cotangent()
+    if kind == "table_negated_index":
+        got, want = gelu_wrong(x, kind), gelu.gelu_erf_ref(x)
+    else:
+        got, want = gelu_wrong(x, kind, g), gelu.gelu_erf_bwd_ref(x, g)
+    assert _unequal(got.float().numpy(), want.float().numpy()).sum() > 100
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_pair_saves_x_only(dtype):
     """``gelu_erf`` runs the forward op, saves only x, and its backward is
