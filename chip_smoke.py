@@ -269,18 +269,28 @@ JAX.  Phases, each printing one result line:
    G held to its twins there
    (0 unequal) in bf16 and fp32: the whole tensor, a length off the vector
    width, a view off 16-byte alignment; (b) Q1
-   (``csrc/quantize_rows.cu``) and Q2 (``csrc/int8_gemm.cu``) against
-   their twins bit for bit at ViT-B's four products (qkv, proj, fc1 in
-   bf16, fc2 in fp32, M 12,560), a ragged M and Q2's edges (M 1, M 63, N
+   (``csrc/quantize_rows.cu``: both operands of a product in one launch)
+   and Q2 (``csrc/int8_gemm.cu``) against their twins bit for bit at
+   ViT-B's four products (qkv, proj, fc1 in bf16, fc2 in fp32, each with
+   its fp32 weight, M 12,560), a ragged M and Q2's edges (M 1, M 63, N
    1000, K 96), with and without the bias, the wrong twins of
-   ``quant_wrong`` unequal, timed beside ``torch._int_mm`` + rescale and
-   the twins; (c)
+   ``quant_wrong`` and Q1's of ``q1_wrong`` unequal, timed beside
+   ``torch._int_mm`` + rescale and the twins; Q1's GELU entry (fc1's fp32
+   output through the tanh or the erf GELU with fc2's weight) bit for bit
+   at 12,560, 1 and 63 rows of 3072 and at K 96, its wrong twins (tanhf,
+   the scale one ulp off, the maximum over half the row) unequal, timed
+   beside the former nine-op torch.tanh chain and G in fp32 (one call,
+   back to back, and Q1's device time in a CUDA graph); rows past Q1's
+   cap refused; the bf16 tanh GELU on the
+   card against the CPU on the same values (a reading); (c)
    ``tools/bench_components_torch.py --int8`` at batch 16 with every
-   kernel's count zeroed before and read after (Q1, Q2, K1, K3, K4, K5
-   launched; no twin on a CUDA tensor), its rows beside phase 29's bf16
-   rows, the int8 multi-scale CAMs against the bf16 ones on the same
-   weights and images (argmax agreement, correlation), and a quantized
-   forward's FLOPs equal on the card and on the CPU.
+   kernel's count zeroed before and read after (Q1's two entries, Q2, K1,
+   K3, K4, K5 launched; one Q1 launch a product, one GELU entry a block's
+   fc2, no fp32 GELU call and no G launch; no twin on a CUDA tensor), its
+   rows beside phase 29's bf16 rows, the int8 multi-scale CAMs against the
+   bf16 ones on the same weights and images (argmax agreement,
+   correlation), a quantized forward's FLOPs equal on the card and on the
+   CPU, and the same forward with the exact GELU (its GELU entry, no G).
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -1838,6 +1848,32 @@ def phase26(dev, expected, bare, weights):
 
 
 @contextlib.contextmanager
+def fp32_gelu_calls():
+    """Within: the calls of the encoder's GELUs (``models/vit.py``'s
+    ``gelu_tanh`` and ``gelu_erf``), counted by input dtype in the dict
+    yielded; an int8 ``Mlp`` takes its GELU inside fc2's quantization and
+    makes none."""
+    from collections import Counter
+
+    from dupl_tpu_torch.models import vit
+
+    calls = Counter()
+    originals = vit.gelu_tanh, vit.gelu_erf
+
+    def counting(fn):
+        def wrapped(x):
+            calls[str(x.dtype).removeprefix("torch.")] += 1
+            return fn(x)
+        return wrapped
+
+    vit.gelu_tanh, vit.gelu_erf = map(counting, originals)
+    try:
+        yield calls
+    finally:
+        vit.gelu_tanh, vit.gelu_erf = originals
+
+
+@contextlib.contextmanager
 def twin_guard():
     """Within: the plain twins of the kernels note each call that is handed
     a CUDA tensor (a twin must never see one) in the list yielded."""
@@ -1853,6 +1889,7 @@ def twin_guard():
              (par_cuda, "affinity_ref"), (par_cuda, "propagate_ref"),
              (crf_cuda, "kernel_apply_ref"), (gelu, "gelu_erf_ref"),
              (gelu, "gelu_erf_bwd_ref"), (quant, "quantize_rows_ref"),
+             (quant, "quantize_pair_ref"), (quant, "gelu_quantize_pair_ref"),
              (quant, "int8_linear_ref")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
 
@@ -2628,19 +2665,83 @@ def gelu_wrong(x, kind, g=None):
         gelu.fma_f32, gelu._erfc_xla = keep
 
 
-def quant_wrong(x, w, kind):
-    """Wrong twins of Q1 + Q2, without the bias: the scale as max|x| / 127
-    (``divide_by_127``), the rescale as y * (s_a * s_w) (``rescale_once``),
-    the last 32 columns of k left out (``last_k_tile_dropped``); and faults
-    of Q2's design: the first 32-column K slice read again in place of the
-    second (``k_stage_read_twice``, a ring stage read in the wrong phase),
-    the row scales of the two 8-row halves of each 16-row group exchanged
-    (``row_scale_shifted``), columns 0-127 and 128-255 of the output
-    exchanged (``n_tiles_swapped``)."""
+def gelu_edge_values(n):
+    """n f32 values at the edges of the f32 GELUs (CPU): subnormals and the
+    normal boundary, ±0, x on both sides of the tanh GELU's branch at |v| =
+    0x1.a36e2ep-12, of its clamp at ±0x1.ffec88p+2 and of |v| = 20, of the
+    erf GELU's |z| = 1 and 2, and magnitudes over the exponent range up to
+    2^20."""
+    import numpy as np
+    import torch
+
+    from dupl_tpu_torch.ops import gelu
+
+    rs = np.random.RandomState(20)
+    tiny = 2.0 ** -126
+    vals = [0.0, -0.0, tiny, -tiny, 2 * tiny, -3 * tiny]
+    vals += list(rs.uniform(-tiny, tiny, 200))
+    for target in (gelu._TANH_SMALL, gelu._TANH_CLAMP, 20.0):
+        r = np.roots([gelu._TANH_S * gelu._TANH_C3, 0, gelu._TANH_S, -target])
+        x0 = float(r[np.isreal(r)].real[0])
+        vals += [sgn * x0 * (1 + d * 2.0 ** -23) for sgn in (1, -1)
+                 for d in range(-40, 41)]
+    for z in (1.0, 2.0):    # |z| = |x| sqrt(1/2)
+        x0 = z / gelu._SQRT_HALF[torch.float32]
+        vals += [sgn * x0 * (1 + d * 2.0 ** -23) for sgn in (1, -1)
+                 for d in range(-40, 41)]
+    mags = np.exp2(rs.uniform(-149, 20, n))
+    out = np.array(vals + list(mags * np.where(rs.rand(n) < 0.5, -1, 1)),
+                   np.float32)[:n]
+    return torch.from_numpy(out)
+
+
+Q1_WRONG = ("scale_one_ulp_off", "max_over_half_row", "tanhf")
+
+
+def q1_wrong(x, kind):
+    """Wrong twins of Q1 on one operand x (R, K) -> (q, s): the scale one
+    ulp above the recipe's (``scale_one_ulp_off``), the maximum taken over
+    the first half of the row (``max_over_half_row``, a reduction that
+    stops at one warp of a row's two), and, for the fused fc2 entry, x
+    through the tanh GELU with the framework's tanh (``tanhf``: torch.tanh,
+    tanhf on the card) in place of XLA's."""
     import torch
 
     from dupl_tpu_torch.ops import quant
 
+    xf = x.float()
+    if kind == "tanhf":
+        def c(v):
+            return torch.tensor(v, dtype=xf.dtype, device=xf.device)
+
+        inner = c(math.sqrt(2 / math.pi)) * (xf + c(0.044715) * (xf * (xf * xf)))
+        return quant.quantize_rows_ref(xf * (c(0.5) * (c(1.0) + torch.tanh(inner))))
+    if kind == "scale_one_ulp_off":
+        _, s = quant.quantize_rows_ref(xf)
+        s = torch.nextafter(s, torch.full_like(s, math.inf))
+    else:
+        assert kind == "max_over_half_row"
+        _, s = quant.quantize_rows_ref(xf[:, :xf.shape[1] // 2].contiguous())
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def quant_wrong(x, w, kind):
+    """Wrong twins of Q1 + Q2, without the bias: the scale as max|x| / 127
+    (``divide_by_127``), the rescale as y * (s_a * s_w) (``rescale_once``),
+    the last 32 columns of k left out (``last_k_tile_dropped``); faults
+    of Q2's design: the first 32-column K slice read again in place of the
+    second (``k_stage_read_twice``, a ring stage read in the wrong phase),
+    the row scales of the two 8-row halves of each 16-row group exchanged
+    (``row_scale_shifted``), columns 0-127 and 128-255 of the output
+    exchanged (``n_tiles_swapped``); and x quantized by a wrong twin of Q1
+    (:data:`Q1_WRONG`; with ``tanhf``, the product of the GELU of x)."""
+    import torch
+
+    from dupl_tpu_torch.ops import quant
+
+    if kind in Q1_WRONG:
+        return quant.int8_linear_ref(*q1_wrong(x, kind),
+                                     *quant.quantize_rows_ref(w))
     if kind == "divide_by_127":
         def qrows(t):
             t = t.float()
@@ -2679,16 +2780,20 @@ def phase30(dev, smi, voc29):
     hidden shape (12,560 x 3072 bf16; one call, and back to back), by
     erfc branch and in fp32, and held to its twins there in
     bf16 and fp32, whole, at a length off the vector width and on a view
-    off 16-byte alignment; (b) Q1 and Q2 against their twins bit for bit at
-    ViT-B's four products (M 12,560), a ragged M and Q2's edges, the wrong
-    twins of :func:`quant_wrong` outside, timed beside ``torch._int_mm`` +
-    rescale;
+    off 16-byte alignment; (b) Q1's pair and Q2 against their twins bit
+    for bit at ViT-B's four products (M 12,560), a ragged M and Q2's
+    edges, the wrong twins of :func:`quant_wrong` and :func:`q1_wrong`
+    outside, timed beside ``torch._int_mm`` + rescale; Q1's GELU entry
+    (tanh and erf) at fc2's shape, its edges and one value a row, its
+    wrong twins outside, timed beside the former f32 tanh chain; rows past
+    Q1's cap refused; the bf16 tanh GELU, card against CPU (a reading);
     (c) ``tools/bench_components_torch.py --int8`` at batch 16 with the
     counts of every kernel zeroed before and read after, its rows beside
     phase 29's bf16 ones, the int8 CAMs against the bf16 ones on the same
-    weights and images (argmax agreement, correlation), and one quantized
-    forward's FLOPs on the card and on the CPU.  Returns the records of
-    the kernels line."""
+    weights and images (argmax agreement, correlation), one Q1 launch a
+    product and no fp32 GELU call, one quantized forward's FLOPs on the
+    card and on the CPU, and the same forward with the exact GELU.
+    Returns the records of the kernels line."""
     import os
 
     import torch
@@ -2905,22 +3010,51 @@ def phase30(dev, smi, voc29):
                    "m63": (63, 3072, 768, "bfloat16"),
                    "n1000": (1001, 1000, 768, "bfloat16"),
                    "k96": (1001, 768, 96, "bfloat16")})
-    qrec = {}
-    for name, (m, n, k, dt) in shapes.items():
+
+    def operands(m, n, k, dt):
         x = (torch.randn(m, k, generator=g, device=dev)
              * torch.rand(m, 1, generator=g, device=dev) * 4).to(
                  getattr(torch, dt))
         x[min(7, m - 1)] = 0
-        w = torch.randn(n, k, generator=g, device=dev) * 0.02
-        bias = torch.randn(n, generator=g, device=dev) * 0.02
-        qa, sa = quant.quantize_rows_cuda(x)
-        qw, sw = quant.quantize_rows_cuda(w)
-        ra, rsa = quant.quantize_rows_ref(x)
-        rw, rsw = quant.quantize_rows_ref(w)
-        q1_bad = sum(bits_unequal(a_, b_) for a_, b_ in
-                     ((qa.view(torch.int8).to(torch.int16), ra.to(torch.int16)),
-                      (sa, rsa), (qw.to(torch.int16), rw.to(torch.int16)),
-                      (sw, rsw)))
+        return (x, torch.randn(n, k, generator=g, device=dev) * 0.02,
+                torch.randn(n, generator=g, device=dev) * 0.02)
+
+    def unequal(got, want):
+        """Unequal elements of two (q, s, ...) tuples of Q1's outputs."""
+        return sum(bits_unequal(a_.to(torch.int16) if a_.dtype == torch.int8
+                                else a_, b_.to(torch.int16)
+                                if b_.dtype == torch.int8 else b_)
+                   for a_, b_ in zip(got, want))
+
+    def pair_bound(m, n, k, ex, ew):
+        return bound(0, "fp32", m * k * (ex + 1) + n * k * (ew + 1)
+                     + 4 * (m + n))
+
+    def device_ms(calls, reps=24):
+        """Median device time of a call: ``reps`` calls, taken from
+        ``calls`` in turn (each on its own inputs, so that a call finds
+        them out of L2), captured in one CUDA graph and replayed; the
+        host's time to issue them is not in it."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for fn in calls:
+                fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for i in range(reps):
+                calls[i % len(calls)]()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        ms = time_ms(graph.replay, dev, iters=5) / reps
+        del graph
+        return ms
+
+    qrec = {}
+    for name, (m, n, k, dt) in shapes.items():
+        x, w, bias = operands(m, n, k, dt)
+        qa, sa, qw, sw = quant.quantize_pair_cuda(x, w)
+        ra, rsa, rw, rsw = quant.quantize_pair_ref(x, w)
+        q1_bad = unequal((qa, sa, qw, sw), (ra, rsa, rw, rsw))
         y = quant.int8_linear_cuda(qa, sa, qw, sw, bias)
         y0 = quant.int8_linear_cuda(qa, sa, qw, sw)
         q2_bad = (bits_unequal(y, quant.int8_linear_ref(ra, rsa, rw, rsw, bias))
@@ -2940,13 +3074,26 @@ def phase30(dev, smi, voc29):
                                                "n_tiles_swapped")}
             check(all(v > 0 for v in r["wrong_unequal"].values()),
                   f"Q2: a wrong twin is bit-equal {r['wrong_unequal']}")
-        if name in P30_PRODUCTS:
-            esize = x.element_size()
+            r["q1_wrong_unequal"] = {
+                kind: unequal(q1_wrong(x, kind), (qa, sa))
+                for kind in ("scale_one_ulp_off", "max_over_half_row")}
+            check(all(v > 0 for v in r["q1_wrong_unequal"].values()),
+                  f"Q1: a wrong twin is bit-equal {r['q1_wrong_unequal']}")
+        if name in P30_PRODUCTS and name != "fc2":
+            # fc2's operands are quantized by the GELU entry below
             r["q1_ms"], r["q1_ms_back_to_back"] = times(
-                lambda: quant.quantize_rows_cuda(x))
-            r["q1_plain_ms"] = time_ms(lambda: quant.quantize_rows_ref(x), dev)
-            r["q1_bound_ms"], r["q1_bound_by"] = bound(
-                0, "fp32", m * k * esize + m * k + 4 * m)
+                lambda: quant.quantize_pair_cuda(x, w))
+            r["q1_plain_ms"] = time_ms(lambda: quant.quantize_pair_ref(x, w),
+                                       dev)
+            # three sets of operands (79 MB at qkv): past the 50 MB L2
+            sets = [(x, w)] + [operands(m, n, k, dt)[:2] for _ in range(2)]
+            r["q1_device_ms"] = device_ms([
+                lambda a_=a_, b_=b_: quant.quantize_pair_cuda(a_, b_)
+                for a_, b_ in sets])
+            del sets
+            r["q1_bound_ms"], r["q1_bound_by"] = pair_bound(
+                m, n, k, x.element_size(), w.element_size())
+        if name in P30_PRODUCTS:
             r["q2_ms"], r["q2_ms_back_to_back"] = times(
                 lambda: quant.int8_linear_cuda(qa, sa, qw, sw, bias))
             r["q2_plain_ms"] = time_ms(lambda: quant.int8_linear_ref(
@@ -2964,36 +3111,148 @@ def phase30(dev, smi, voc29):
                 print(f"[Q2] torch._int_mm at {name}: {e}", flush=True)
         qrec[name] = r
         del x, w, bias, qa, sa, qw, sw, ra, rsa, rw, rsw, y, y0
+    # Q1's GELU entry: fc1's fp32 output h through either GELU with fc2's
+    # weight, at the main path's shape and at one row, 63 rows and K 96
+    fused = {}
+    for name, (m, k) in (("fc2", (P30_MLP_ROWS, 3072)), ("m1", (1, 3072)),
+                         ("m63", (63, 3072)), ("k96", (1001, 96))):
+        h, w, _ = operands(m, 768, k, "float32")
+        for approximate in (True, False):
+            got = quant.gelu_quantize_pair_cuda(h, w, approximate)
+            fused[f"{name} {'tanh' if approximate else 'erf'}"] = unequal(
+                got, quant.gelu_quantize_pair_ref(h, w, approximate))
+        if name != "fc2":
+            continue
+        # one value a row, the rest 0 (K 96): the row's scale carries
+        # |gelu(value)|, so that the GELU itself is held nearly bit for bit
+        # on 2^16 values, half of them at its edges (subnormals, ±0, both
+        # sides of the small-|v| branch and of the clamp, |v| = 20, large)
+        probe = torch.zeros(1 << 16, 96, device=dev)
+        vals = torch.cat([torch.randn(1 << 15, generator=g, device=dev) * 3,
+                          gelu_edge_values(1 << 15).to(dev)])
+        probe[torch.arange(1 << 16, device=dev),
+              torch.randint(0, 96, (1 << 16,), generator=g, device=dev)] = vals
+        for approximate in (True, False):
+            got = quant.gelu_quantize_pair_cuda(probe, w[:, :96].contiguous(),
+                                                approximate)
+            fused[f"one value a row {'tanh' if approximate else 'erf'}"] = (
+                unequal(got, quant.gelu_quantize_pair_ref(
+                    probe, w[:, :96].contiguous(), approximate)))
+        del probe, vals
+        got = quant.gelu_quantize_pair_cuda(h, w, True)[:2]
+        wrong_fused = {"tanhf": unequal(q1_wrong(h, "tanhf"), got)}
+        gh_ = gelu.gelu_tanh(h)
+        for kind in ("scale_one_ulp_off", "max_over_half_row"):
+            wrong_fused[kind] = unequal(q1_wrong(gh_, kind), got)
+        del gh_, got
+        fb = pair_bound(m, 768, k, 4, 4)
+        f_ms = {a_: times(lambda a_=a_: quant.gelu_quantize_pair_cuda(h, w, a_))
+                for a_ in (True, False)}
+        f_dev = {a_: device_ms([lambda a_=a_: quant.gelu_quantize_pair_cuda(
+            h, w, a_)], reps=8) for a_ in (True, False)}
+
+        def tanhf_chain():
+            """The int8 path's former f32 GELU: nine ops with torch.tanh."""
+            c_ = {v_: torch.tensor(v_, device=dev) for v_ in
+                  (math.sqrt(2 / math.pi), 0.044715, 0.5, 1.0)}
+            inner = c_[math.sqrt(2 / math.pi)] * (
+                h + c_[0.044715] * (h * (h * h)))
+            return h * (c_[0.5] * (c_[1.0] + torch.tanh(inner)))
+        fc2 = {"shape": [m, 768, k], "dtype": "float32",
+               "ms_tanh": f_ms[True][0], "ms_tanh_back_to_back": f_ms[True][1],
+               "ms_erf": f_ms[False][0], "ms_erf_back_to_back": f_ms[False][1],
+               "device_ms_tanh": f_dev[True], "device_ms_erf": f_dev[False],
+               "bound_ms": fb[0], "bound_by": fb[1],
+               "plain_ms": time_ms(lambda: quant.gelu_quantize_pair_ref(
+                   h, w, True), dev, iters=3),
+               "plain_ms_erf": time_ms(lambda: quant.gelu_quantize_pair_ref(
+                   h, w, False), dev, iters=3),
+               "tanhf_chain_ms": times(tanhf_chain),
+               "gelu_erf_ms": times(lambda: gelu.gelu_erf_cuda(h)),
+               "wrong_unequal": wrong_fused}
+        del h, w
+    torch.cuda.synchronize()
+    fc2["unequal"] = fused
+    check(all(v == 0 for v in fused.values()),
+          f"Q1's GELU entry: elements unequal to the twins (bound 0) {fused}")
+    check(all(v > 0 for v in fc2["wrong_unequal"].values()),
+          f"Q1's GELU entry: a wrong twin is bit-equal {fc2['wrong_unequal']}")
+    # past the cap (a row of 24,576 bytes), both entries refuse
+    refused = []
+    for fn in (lambda: quant.quantize_pair_cuda(
+                   torch.zeros(2, 6152, device=dev), torch.zeros(3, 6152, device=dev)),
+               lambda: quant.gelu_quantize_pair_cuda(
+                   torch.zeros(2, 6152, device=dev), torch.zeros(3, 6152, device=dev),
+                   True)):
+        try:
+            fn()
+        except ValueError:
+            refused.append(True)
+    check(len(refused) == 2, "Q1: a row past the cap was not refused")
+    # bf16 gelu_tanh (bench's main path: nine bf16 operations) on the card
+    # against the same inputs on the CPU: a reading, not a gate
+    xb = torch.cat([x16, (torch.randn(1 << 20, generator=g, device=dev)
+                          * 3).to(bf)])
+    fc2["bf16_gelu_tanh_card_vs_cpu"] = bits_unequal(
+        gelu.gelu_tanh(xb).cpu(), gelu.gelu_tanh(xb.cpu())) / xb.numel()
+    del xb
     torch.cuda.empty_cache()
     secs["b"] = time.perf_counter() - t
     q2_regs = build.ptxas_usage("int8_gemm")
-    print(f"[Q1 quantize_rows, Q2 int8_linear] {smi} | bit for bit, with and "
+    q1_regs = build.ptxas_usage("quantize_rows")
+    print(f"[Q1 quantize_pair, Q2 int8_linear] {smi} | bit for bit, with and "
           f"without the bias, at "
           + ", ".join(f"{k_} {v_['shape']} {v_['dtype']}" for k_, v_ in qrec.items())
           + f" | wrong twins unequal {json.dumps(qrec['fc1']['wrong_unequal'])}"
+          f", Q1's {json.dumps(qrec['fc1']['q1_wrong_unequal'])}"
           + " | ms one call on an idle device / a call back to back (Q1; "
-          "Q2; Q2 bound, its share; library; twin) " + ", ".join(
-              f"{k_} {pair((v_['q1_ms'], v_['q1_ms_back_to_back']))}; "
-              f"{pair(q2_)}; {v_['q2_bound_ms']:.4f} ({v_['q2_bound_by']}), "
+          "its bound, share; Q2; Q2 bound, its share; library; twin) "
+          + ", ".join(
+              f"{k_} " + (f"{pair(q1_)}, device {v_['q1_device_ms']:.4f}; "
+                          f"{v_['q1_bound_ms']:.4f}, "
+                          f"{share(v_['q1_bound_ms'], q1_)}, device "
+                          f"{v_['q1_bound_ms'] / v_['q1_device_ms']:.0%}; "
+                          if "q1_ms" in v_ else "(GELU entry); ")
+              + f"{pair(q2_)}; {v_['q2_bound_ms']:.4f} ({v_['q2_bound_by']}), "
               f"{share(v_['q2_bound_ms'], q2_)}; "
               + (pair((v_['library_ms'], v_['library_ms_back_to_back']))
                  if v_['library_ms'] is not None else "None")
               + f"; {v_['q2_plain_ms']:.3f}"
               for k_, v_ in qrec.items() if "q2_ms" in v_
+              for q1_ in [(v_.get('q1_ms'), v_.get('q1_ms_back_to_back'))]
               for q2_ in [(v_['q2_ms'], v_['q2_ms_back_to_back'])])
           + f" | Q2 ptxas (registers, spills) "
-          f"{[(r_, st_, ld_) for _, r_, st_, ld_ in q2_regs]}", flush=True)
+          f"{[(r_, st_, ld_) for _, r_, st_, ld_ in q2_regs]}, Q1 "
+          f"{[(r_, st_, ld_) for _, r_, st_, ld_ in q1_regs]}", flush=True)
+    print(f"[Q1 gelu_quantize_pair] {smi} | fc1's fp32 output through the "
+          f"GELU with fc2's weight: unequal to the twins {json.dumps(fused)} "
+          f"(bound 0); wrong twins unequal {json.dumps(fc2['wrong_unequal'])}"
+          f"; past the cap refused | 12560 x 3072 fp32 + 768 x 3072 fp32, "
+          f"ms one call / back to back: tanh "
+          f"{pair((fc2['ms_tanh'], fc2['ms_tanh_back_to_back']))}, erf "
+          f"{pair((fc2['ms_erf'], fc2['ms_erf_back_to_back']))}, device "
+          f"time tanh {f_dev[True]:.4f}, erf {f_dev[False]:.4f} (bound "
+          f"{fb[0]:.4f}, {fb[1]}; tanh {share(fb[0], f_ms[True])}, device "
+          f"{fb[0] / f_dev[True]:.0%}; erf {share(fb[0], f_ms[False])}, "
+          f"device {fb[0] / f_dev[False]:.0%}) | beside: the former nine-op "
+          f"torch.tanh chain {pair(fc2['tanhf_chain_ms'])}, G fp32 "
+          f"{pair(fc2['gelu_erf_ms'])}, the twins {fc2['plain_ms']:.3f} / "
+          f"{fc2['plain_ms_erf']:.3f} | bf16 gelu_tanh, card against CPU on "
+          f"all bf16 values and 2^20 draws: "
+          f"{fc2['bf16_gelu_tanh_card_vs_cpu']:.6f} of elements unequal "
+          f"(a reading)", flush=True)
 
     # -- (c) the int8 path ----------------------------------------------------
     t = time.perf_counter()
-    counters = {"quantize_rows": quant.quantize_rows_cuda,
+    counters = {"quantize_pair": quant.quantize_pair_cuda,
+                "gelu_quantize_pair": quant.gelu_quantize_pair_cuda,
                 "int8_linear": quant.int8_linear_cuda,
                 "gelu_erf": gelu.gelu_erf_cuda,
                 "exp_attention": attention.exp_attention_cuda,
                 "par_affinity": par_cuda.affinity_cuda,
                 "par_propagate": par_cuda.propagate_cuda,
                 "crf_apply": crf_cuda.kernel_apply_cuda}
-    with twin_guard() as twin_calls:
+    with twin_guard() as twin_calls, fp32_gelu_calls() as gelu_calls:
         for f in counters.values():
             f.launches = 0
         int8 = bench_components_torch.run(["--batch", "16", "--iters", "1",
@@ -3005,6 +3264,17 @@ def phase30(dev, smi, voc29):
           f"bench_components_torch --int8: {int8}")
     check(all(path_launches[k_] > 0 for k_ in counters if k_ != "gelu_erf"),
           f"the int8 path did not launch every kernel: {path_launches}")
+    # one Q1 launch a product, a GELU entry a block's fc2, and no fp32
+    # GELU between fc1 and fc2 (neither the ops of the tanh one nor G)
+    q1_launches = (path_launches["quantize_pair"]
+                   + path_launches["gelu_quantize_pair"])
+    path_launches["fp32_gelu_calls"] = gelu_calls["float32"]
+    check(q1_launches == path_launches["int8_linear"]
+          == 4 * path_launches["gelu_quantize_pair"]
+          and gelu_calls["float32"] == 0 and path_launches["gelu_erf"] == 0,
+          f"the int8 path: Q1 {q1_launches} launches for "
+          f"{path_launches['int8_linear']} products; fp32 GELU calls "
+          f"{gelu_calls}; {path_launches}")
     secs["c"] = time.perf_counter() - t
     torch.cuda.empty_cache()
     # int8 CAMs against bf16 ones: the same seeded weights and images
@@ -3038,7 +3308,25 @@ def phase30(dev, smi, voc29):
         card_flops = flops_utils.count_flops(model.cam_only, xq.to(dev))
     check(card_flops == cpu_flops > 0,
           f"quantized forward FLOPs: card {card_flops}, CPU {cpu_flops}")
-    del model
+    # the same forward with the exact GELU: fc2's quantization takes it
+    from dupl_tpu_torch.models.vit import Mlp
+
+    for mod in model.modules():
+        if isinstance(mod, Mlp):
+            mod.gelu_approximate = False
+    for f in counters.values():
+        f.launches = 0
+    with torch.no_grad(), twin_guard() as twin_calls, \
+            fp32_gelu_calls() as gelu_calls:
+        cam_e = model.cam_only(xq.to(dev))[0]
+        erf_launches = {k_: f.launches for k_, f in counters.items()}
+    erf_launches["fp32_gelu_calls"] = gelu_calls["float32"]
+    check(not twin_calls and bool(torch.isfinite(cam_e).all())
+          and erf_launches["gelu_quantize_pair"] == 2 * 2
+          and erf_launches["gelu_erf"] == gelu_calls["float32"] == 0,
+          f"the int8 forward with the exact GELU (depth 2, both students): "
+          f"{erf_launches}, twins {twin_calls}")
+    del model, cam_e
     secs["c2"] = time.perf_counter() - t
     print(f"[int8 path] tools/bench_components_torch.py --int8, VOC, batch 16 "
           f"| {smi} | launches {json.dumps(path_launches)} | ms "
@@ -3052,14 +3340,17 @@ def phase30(dev, smi, voc29):
     print(f"[int8 vs bf16] multi-scale CAMs of both students, batch 16, the "
           f"same seeded weights and images: argmax agreement {agree:.6f}, "
           f"correlation {corr:.6f} | a quantized cam_only at depth 2, crop "
-          f"224: {card_flops} FLOPs on the card, {cpu_flops} on the CPU",
+          f"224: {card_flops} FLOPs on the card, {cpu_flops} on the CPU; "
+          f"with the exact GELU, launches {json.dumps(erf_launches)}",
           flush=True)
     print(f"[phase 30] s {json.dumps({k_: round(v_, 1) for k_, v_ in secs.items()})}"
           f" | {time.perf_counter() - t30:.1f} s (budget 60)", flush=True)
     rec["quant"] = qrec
     rec["path"] = {"launches": path_launches, "rows": int8,
                    "cam_agreement": agree, "cam_correlation": corr,
-                   "flops_card": card_flops, "flops_cpu": cpu_flops}
+                   "flops_card": card_flops, "flops_cpu": cpu_flops,
+                   "launches_erf_depth2": erf_launches}
+    rec["gelu_quantize_pair"] = fc2
     return rec
 
 
@@ -6047,9 +6338,11 @@ def main() -> int:
     by_name["par_propagate"]["c324"] = k4w
     by_name["crf_apply"]["v33"] = k5w
     # Phase 30: G (its launches: the serving round's; the backward's: a
-    # full-phase training step of phase 12), Q1 and Q2 (their launches: the
-    # int8 path's run); times at the MLP's hidden width and at fc1's shape
+    # full-phase training step of phase 12), Q1's two entries and Q2 (their
+    # launches: the int8 path's run); times at the MLP's hidden width, the
+    # pair at qkv's shape, the GELU entry at fc2's and Q2 at fc1's
     g30, fc1 = rec30["gelu_erf"], rec30["quant"]["fc1"]
+    qkv30, f30 = rec30["quant"]["qkv"], rec30["gelu_quantize_pair"]
     kernels += [
         {"name": "gelu_erf", "route": "cuda",
          "source": "dupl_tpu_torch/csrc/gelu_erf.cu",
@@ -6071,19 +6364,40 @@ def main() -> int:
                                    "library_ms_bwd_back_to_back",
                                    "ms_by_branch", "ms_bwd_by_branch", "fp32",
                                    "registers")}},
-        {"name": "quantize_rows", "route": "cuda",
+        {"name": "quantize_pair", "route": "cuda",
          "source": "dupl_tpu_torch/csrc/quantize_rows.cu",
          "replaces": "dupl_tpu/ops/quant.py:36-43 (an XLA fusion; no Pallas "
                      "kernel)",
-         "launches": rec30["path"]["launches"]["quantize_rows"],
-         "max_abs_err": 0.0, "ms": fc1["q1_ms"],
-         "ms_back_to_back": fc1["q1_ms_back_to_back"],
-         "plain_ms": fc1["q1_plain_ms"], "bound_ms": fc1["q1_bound_ms"],
-         "bound_by": fc1["q1_bound_by"], "library_ms": None,
+         "launches": rec30["path"]["launches"]["quantize_pair"],
+         "max_abs_err": 0.0, "ms": qkv30["q1_ms"],
+         "ms_back_to_back": qkv30["q1_ms_back_to_back"],
+         "plain_ms": qkv30["q1_plain_ms"], "bound_ms": qkv30["q1_bound_ms"],
+         "bound_by": qkv30["q1_bound_by"], "library_ms": None,
+         "wrong_unequal": fc1["q1_wrong_unequal"],
+         "unequal_by_shape": {k_: v_["q1_unequal"]
+                              for k_, v_ in rec30["quant"].items()},
+         "device_ms": qkv30["q1_device_ms"],
          "by_product": {k_: {f: v_[f] for f in ("shape", "dtype", "q1_ms",
                                                 "q1_ms_back_to_back",
+                                                "q1_device_ms",
                                                 "q1_plain_ms", "q1_bound_ms")}
                         for k_, v_ in rec30["quant"].items() if "q1_ms" in v_}},
+        {"name": "gelu_quantize_pair", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/quantize_rows.cu",
+         "replaces": "dupl_tpu/models/vit.py:90-91 (nn.gelu and fc2's "
+                     "quantization, dupl_tpu/ops/quant.py:36-43: XLA "
+                     "fusions; no Pallas kernel)",
+         "launches": rec30["path"]["launches"]["gelu_quantize_pair"],
+         "max_abs_err": 0.0, "ms": f30["ms_tanh"],
+         "ms_back_to_back": f30["ms_tanh_back_to_back"],
+         "plain_ms": f30["plain_ms"], "bound_ms": f30["bound_ms"],
+         "bound_by": f30["bound_by"], "library_ms": None,
+         **{k_: f30[k_] for k_ in ("shape", "ms_erf", "ms_erf_back_to_back",
+                                   "device_ms_tanh", "device_ms_erf",
+                                   "plain_ms_erf", "tanhf_chain_ms",
+                                   "gelu_erf_ms",
+                                   "wrong_unequal", "unequal",
+                                   "bf16_gelu_tanh_card_vs_cpu")}},
         {"name": "int8_linear", "route": "cuda",
          "source": "dupl_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "dupl_tpu/ops/quant.py:45-48 (an XLA int8 dot; no "
@@ -6104,7 +6418,7 @@ def main() -> int:
                                                 "library_ms_back_to_back")}
                         for k_, v_ in rec30["quant"].items() if "q2_ms" in v_}},
     ]
-    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 14,
+    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 15,
           "a kernel of a main path never launched")
     print(f"[chip_smoke] phases 1-30 took {time.perf_counter() - t_main:.1f} s"
           f" (limit 1200)", flush=True)

@@ -40,8 +40,9 @@
 // entries.  A window of the table staged in shared memory by every block
 // tied this forward and lost 9% backward on the card (PERF.md).
 //
-// fp32: the expansion, forward and backward as separate kernels (the
-// backward's registers no longer limit the forward's residency).
+// fp32: the expansion (csrc/gelu_xla.cuh, shared with Q1's fused GELU),
+// forward and backward as separate kernels (the backward's registers no
+// longer limit the forward's residency).
 //
 // Bound.  Per element: 2 or 4 bytes read (twice that for the backward's x
 // and g) and as many written.  bf16 is bound by these bytes; fp32 by them
@@ -59,6 +60,8 @@
 #include <mutex>
 #include <type_traits>
 
+#include "gelu_xla.cuh"
+
 namespace {
 
 __device__ __forceinline__ float bf(float v) {
@@ -73,78 +76,7 @@ __device__ __forceinline__ float bf_value(uint32_t bits) {
   return __uint_as_float(bits << 16);
 }
 
-// XLA's f32 exp on the CPU: clamp, n = floor(x log2 e + 1/2) in
-// [-127, 127], r = x - n ln2 (two parts), 1 + r + r^2 P(r), times 2^n.
-__device__ __forceinline__ float exp_xla(float x) {
-  x = x < -0x1.5f3334p+6f ? -0x1.5f3334p+6f : x;   // NaN stays NaN
-  x = x > 0x1.633334p+6f ? 0x1.633334p+6f : x;
-  float n = floorf(__fmaf_rn(x, 0x1.715476p+0f, 0.5f));
-  n = n < -127.0f ? -127.0f : n;
-  n = n > 127.0f ? 127.0f : n;
-  float r = __fmaf_rn(-n, 0x1.63p-1f, x);
-  r = __fmaf_rn(-n, -0x1.bd0106p-13f, r);
-  float p = __fmaf_rn(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
-  p = __fmaf_rn(p, r, 0x1.11121p-7f);
-  p = __fmaf_rn(p, r, 0x1.555382p-5f);
-  p = __fmaf_rn(p, r, 0x1.555554p-3f);
-  p = __fmaf_rn(p, r, 0.5f);
-  const float y = __fadd_rn(__fmaf_rn(p, __fmul_rn(r, r), r), 1.0f);
-  return __fmul_rn(y, __int_as_float((static_cast<int>(n) + 127) << 23));
-}
-
-// 1 - z P(z^2), |z| < 1
-__device__ __forceinline__ float erfc_small(float z, float z2) {
-  float a = __fmaf_rn(z2, 0x1.496a32p-14f, -0x1.a3f7p-11f);
-  a = __fmaf_rn(a, z2, 0x1.5405b2p-8f);
-  a = __fmaf_rn(a, z2, -0x1.b7f90ep-6f);
-  a = __fmaf_rn(a, z2, 0x1.ce2cf8p-4f);
-  a = __fmaf_rn(a, z2, -0x1.81273ep-2f);
-  a = __fmaf_rn(a, z2, 0x1.20dd74p+0f);
-  return __fmaf_rn(-z, a, 1.0f);
-}
-
-// exp(-z^2) / |z| * Q or R (1 / z^2), reflected for z < 0; e = exp(-z^2)
-__device__ __forceinline__ float erfc_large(float z, float z2, float e) {
-  const float az = fabsf(z);
-  const float q = __fmul_rn(e, __frcp_rn(az));
-  const float w = __frcp_rn(z2);
-  float a;
-  if (az < 2.0f) {
-    a = __fmaf_rn(w, 0x1.7d39e8p-6f, -0x1.1c10dp-3f);
-    a = __fmaf_rn(a, w, 0x1.7997ap-2f);
-    a = __fmaf_rn(a, w, -0x1.2a39fp-1f);
-    a = __fmaf_rn(a, w, 0x1.3df3c6p-1f);
-    a = __fmaf_rn(a, w, -0x1.fa518p-2f);
-    a = __fmaf_rn(a, w, 0x1.5ca8e2p-2f);
-    a = __fmaf_rn(a, w, -0x1.18b1p-2f);
-    a = __fmaf_rn(a, w, 0x1.20adccp-1f);
-  } else {
-    a = __fmaf_rn(w, -0x1.4f4906p+3f, 0x1.9f4538p+3f);
-    a = __fmaf_rn(a, w, -0x1.dfb694p+2f);
-    a = __fmaf_rn(a, w, 0x1.75e3f4p+1f);
-    a = __fmaf_rn(a, w, -0x1.03e86cp+0f);
-    a = __fmaf_rn(a, w, 0x1.aff87cp-2f);
-    a = __fmaf_rn(a, w, -0x1.20d8bap-2f);
-    a = __fmaf_rn(a, w, 0x1.20dd72p-1f);
-  }
-  float y = __fmul_rn(q, a);
-  if (-z2 < -0x1.62e43p+6f) y = 0.0f;
-  return z < 0.0f ? __fsub_rn(2.0f, y) : y;
-}
-
-// XLA's f32 erfc
-__device__ __forceinline__ float erfc_xla(float z) {
-  const float z2 = __fmul_rn(z, z);
-  if (fabsf(z) < 1.0f) return erfc_small(z, z2);
-  return erfc_large(z, z2, exp_xla(-z2));
-}
-
 constexpr float kSqrtHalfBf16 = 0.70703125f;
-constexpr float kSqrtHalfF32 = 0x1.6a09e6p-1f;
-
-__device__ __forceinline__ float fwd_f32(float x) {
-  return __fmul_rn(__fmul_rn(x, 0.5f), erfc_xla(__fmul_rn(-x, kSqrtHalfF32)));
-}
 
 __device__ __forceinline__ float bwd_f32(float x, float g) {
   const float t = __fmul_rn(__fmul_rn(__fmul_rn(x, 0.5f), g),

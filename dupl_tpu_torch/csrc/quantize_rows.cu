@@ -1,104 +1,265 @@
-// Kernel Q1: dynamic per-row int8 quantization for Hopper (sm_90a):
+// Kernel Q1: the dynamic per-row int8 quantization of both operands of a
+// w8a8 product, in one launch, for Hopper (sm_90a):
 //     s[r]    = max(amax_k |x[r, k]| * f32(1/127), 1e-8)
 //     q[r, k] = clamp(round_half_even(x[r, k] / s[r]), -127, 127)
-// for x (R, K) bf16 or fp32 -> q (R, K) int8, s (R, 1) fp32, bit for bit
-// with quantize_rows_ref (dupl_tpu_torch/ops/quant.py), which is the
-// jitted JAX package's quantization (dupl_tpu/ops/quant.py:
-// quantized_matmul: XLA turns max|x| / 127.0 into a product with f32(1/127)
-// and keeps x / s an IEEE division).  It quantizes the activations and the
-// weights (N, K) of every w8a8 product of the int8 inference path.
+// for the activations x (M, K) and the weight w (N, K) (nn.Linear's layout),
+// each bf16 or fp32 -> q int8, s (rows, 1) fp32, bit for bit with
+// quantize_rows_ref (dupl_tpu_torch/ops/quant.py), which is the jitted JAX
+// package's quantization (dupl_tpu/ops/quant.py:quantized_matmul: XLA
+// turns max|x| / 127.0 into a product with f32(1/127) and keeps x / s an
+// IEEE division).  A second entry (fc2 of an int8 Mlp) takes fc1's fp32
+// output h in place of x and quantizes gelu(h), the GELU taken in
+// registers as the jitted JAX package takes it (csrc/gelu_xla.cuh: XLA's
+// tanh GELU, or kernel G's erf expansion); the fp32 GELU tensor is never
+// written.
 //
 // Replaces no Pallas kernel: the JAX package leaves this to XLA's fused
-// loops.  Design: one warp a row, eight rows a block; the warp reads its
-// row in 16-byte chunks for the maximum (a butterfly of shuffles), then
-// again (from L1 / L2) to divide (__fdiv_rn: no fast math), round (rintf),
-// clamp and store the int8 values as 8- or 4-byte words.
+// loops.
 //
 // Bound: the bytes, each input read once (2 or 4 bytes an element) and one
-// byte an element and four a row written; a division an element on the
-// fp32 pipes is far below that.
+// byte an element and four a row written.  Design: a row is read once.
+// A block of 256 threads takes rows of one operand; a row has 8 to 256
+// threads (a power of two, the fewest that hold it in kChunks 16-byte
+// chunks each), and each thread issues all its loads (L1::no_allocate)
+// before it computes on any of them.  The maximum is a butterfly of
+// shuffles, and across the warps of a row one exchange in shared memory.
+// The values are then quantized from registers, packed four to a word by
+// cvt.pack.sat and stored as 8-byte (bf16) or 4-byte (fp32) words of int8.
+// The blocks of x come first in the grid, those of w after them.  x / s:
+// the product with the row's correctly rounded reciprocal is within
+// 2^-16 + 2^-18 of the rounded quotient's value (|x / s| <= 127.000003);
+// where it lies 2^-15 or nearer a half-integer the rounding could differ,
+// and the IEEE division is taken instead.  With the GELU, the elementwise
+// work (about 40 fp32 instructions an element for the tanh one, more for
+// the erf one, whose branches diverge) weighs as much as the bytes.
+//
+// Rows of at most kThreads * kChunks * 16 = 24,576 bytes: K <= 6144 in fp32
+// (ViT-H's hidden 5120), 12,288 in bf16; the wrapper refuses wider ones.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gelu_xla.cuh"
+
 namespace {
 
-constexpr int kRowsPerBlock = 8;
-constexpr float kInv127 = 0x1.020408p-7f;   // f32(1/127)
+constexpr int kThreads = 256;
+constexpr int kChunks = 6;  // 16-byte chunks a thread holds at most
+constexpr int kMaxRowBytes = kThreads * kChunks * 16;
+constexpr float kInv127 = 0x1.020408p-7f;     // f32(1/127)
 constexpr float kMinScale = 0x1.5798eep-27f;  // f32(1e-8)
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+enum Gelu { kNone = 0, kTanh = 1, kErf = 2 };
+
+// One operand: rows (rows, k) of bf16 or fp32, `tpr` threads a row.
+struct Operand {
+  const void* x;
+  int8_t* q;
+  float* s;
+  int rows;
+  int tpr;
+};
+
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
-__device__ __forceinline__ uint32_t quant(float v, float s) {
-  float q = rintf(__fdiv_rn(v, s));
-  q = q < -127.0f ? -127.0f : q;
-  q = q > 127.0f ? 127.0f : q;
-  return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
+// round_half_even(v / s) as an int; r = 1 / s.  In [-127, 127]: |v| <=
+// amax and s >= amax f32(1/127) (1 - 2^-24) bound |v / s| by 127.000003.
+__device__ __forceinline__ int quant(float v, float s, float r) {
+  float y = __fmul_rn(v, r);
+  if (fabsf(y - rintf(y)) >= 0.5f - 0x1p-15f) y = __fdiv_rn(v, s);
+  return __float2int_rn(y);
 }
 
-// kVec elements of T make one 16-byte chunk: 8 bf16 or 4 fp32
+// Four ints as the bytes of a word, a lowest, each saturated to int8:
+// cvt.pack.sat puts its second operand in byte 0, its first in byte 1 and
+// the low half of its third above them.
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  uint32_t hi, w;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(hi) : "r"(d), "r"(c), "r"(0u));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(w) : "r"(b), "r"(a), "r"(hi));
+  return w;
+}
+
+template <int kGelu>
+__device__ __forceinline__ uint32_t activation(uint32_t bits) {
+  const float v = __uint_as_float(bits);
+  if constexpr (kGelu == kTanh) return __float_as_uint(gelu_tanh_f32(v));
+  else return __float_as_uint(fwd_f32(v));
+}
+
+// A chunk's values as floats: 8 bf16 or 4 fp32 (T is __nv_bfloat16 or
+// float).
 template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ s, int rows, int k) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * k);
-  const int chunks = k / kVec;
-  float amax = 0.0f;
-  for (int c = lane; c < chunks; c += 32) {
-    alignas(16) T v[kVec];
-    *reinterpret_cast<uint4*>(v) = xr[c];
+__device__ __forceinline__ void unpack(const uint4& c, float* f) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) amax = fmaxf(amax, fabsf(to_f(v[i])));
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      f[i] = __uint_as_float(w[i]);
+    }
   }
+}
+
+// The block's rows of one operand; k elements a row (a multiple of 8).
+// Each thread keeps its chunks as loaded (or, with the GELU, as its fp32
+// results) in registers from the load to the store.
+template <typename T, int kGelu>
+__device__ __forceinline__ void quantize_block(const Operand& op, int block,
+                                               int k, float* red) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kGelu == kNone || kVec == 4, "the GELU takes fp32 rows");
+  const int rows_per_block = kThreads / op.tpr;
+  const int row = block * rows_per_block + threadIdx.x / op.tpr;
+  const int lane = threadIdx.x % op.tpr;
+  const bool live = row < op.rows;
+  const int chunks = k / kVec;
+  const uint4* xr = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(op.x) + static_cast<int64_t>(live ? row : 0) * k);
+  uint4 raw[kChunks];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = lane + j * op.tpr;
+    if (live && c < chunks) raw[j] = ld_stream(xr + c);
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = lane + j * op.tpr;
+    if (live && c < chunks) {
+      if constexpr (kGelu != kNone) {
+        raw[j].x = activation<kGelu>(raw[j].x);
+        raw[j].y = activation<kGelu>(raw[j].y);
+        raw[j].z = activation<kGelu>(raw[j].z);
+        raw[j].w = activation<kGelu>(raw[j].w);
+      }
+      float f[kVec];
+      unpack<T>(raw[j], f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) amax = fmaxf(amax, fabsf(f[i]));
+    }
+  }
+  // a row's threads are op.tpr consecutive lanes of a warp, or whole warps
 #pragma unroll
   for (int off = 16; off; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (off < op.tpr) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (op.tpr > 32) {                    // the same for the whole block
+    const int warps = op.tpr / 32;
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0) red[warp] = amax;
+    __syncthreads();
+    const int first = warp / warps * warps;
+    for (int i = 0; i < warps; ++i) amax = fmaxf(amax, red[first + i]);
+  }
+  if (!live) return;
   float sc = __fmul_rn(amax, kInv127);
   sc = sc < kMinScale ? kMinScale : sc;
-  int8_t* qr = q + static_cast<int64_t>(row) * k;
-  for (int c = lane; c < chunks; c += 32) {
-    alignas(16) T v[kVec];
-    *reinterpret_cast<uint4*>(v) = xr[c];
+  const float rc = __frcp_rn(sc);
+  int8_t* qr = op.q + static_cast<int64_t>(row) * k;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = lane + j * op.tpr;
+    if (c >= chunks) break;
+    float f[kVec];
+    unpack<T>(raw[j], f);
     uint32_t w[kVec / 4];
 #pragma unroll
-    for (int j = 0; j < kVec / 4; ++j)
-      w[j] = quant(to_f(v[4 * j]), sc) | quant(to_f(v[4 * j + 1]), sc) << 8 |
-             quant(to_f(v[4 * j + 2]), sc) << 16 |
-             quant(to_f(v[4 * j + 3]), sc) << 24;
+    for (int i = 0; i < kVec / 4; ++i)
+      w[i] = pack4(quant(f[4 * i], sc, rc), quant(f[4 * i + 1], sc, rc),
+                   quant(f[4 * i + 2], sc, rc), quant(f[4 * i + 3], sc, rc));
     if constexpr (kVec == 8)
       reinterpret_cast<uint2*>(qr)[c] = make_uint2(w[0], w[1]);
     else
       reinterpret_cast<uint32_t*>(qr)[c] = w[0];
   }
-  if (lane == 0) s[row] = sc;
+  if (lane == 0) op.s[row] = sc;
+}
+
+// Blocks [0, x_blocks) quantize x (through the GELU kGelu), the rest w.
+template <typename TX, typename TW, int kGelu>
+__global__ void __launch_bounds__(kThreads)
+quantize_pair_kernel(Operand x, Operand w, int x_blocks, int k) {
+  __shared__ float red[kThreads / 32];
+  if (static_cast<int>(blockIdx.x) < x_blocks)
+    quantize_block<TX, kGelu>(x, blockIdx.x, k, red);
+  else
+    quantize_block<TW, kNone>(w, blockIdx.x - x_blocks, k, red);
+}
+
+// Threads a row: the fewest (a power of two from 8) that hold its chunks;
+// 0 past the cap.
+int threads_per_row(int k, int esize) {
+  const int chunks = k * esize / 16;
+  for (int tpr = 8; tpr <= kThreads; tpr *= 2)
+    if (tpr * kChunks >= chunks) return tpr;
+  return 0;
+}
+
+// The blocks of one operand, 256 / tpr rows a block.
+int blocks_for(const Operand& op) {
+  const int rows_per_block = kThreads / op.tpr;
+  return (op.rows + rows_per_block - 1) / rows_per_block;
+}
+
+template <typename TX, typename TW>
+void launch(int gelu, const Operand& x, const Operand& w, int k,
+            cudaStream_t st) {
+  const int xb = blocks_for(x), blocks = xb + blocks_for(w);
+  if constexpr (sizeof(TX) == 4) {     // the GELU entries take fp32 x
+    if (gelu == kTanh) {
+      quantize_pair_kernel<TX, TW, kTanh><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
+      return;
+    }
+    if (gelu == kErf) {
+      quantize_pair_kernel<TX, TW, kErf><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
+      return;
+    }
+  }
+  quantize_pair_kernel<TX, TW, kNone><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
 }
 
 }  // namespace
 
-// x (rows, k) contiguous, 16-byte aligned, k a multiple of 8; q 8-byte
-// aligned
-extern "C" int dupl_quantize_rows(const void* x, void* q, void* s, int rows,
-                                  int k, int bf16, void* stream) {
-  if (rows < 1 || k < 8 || k % 8 ||
-      (reinterpret_cast<uintptr_t>(x) % 16) || (reinterpret_cast<uintptr_t>(q) % 8))
+// x (rows_x, k) and w (rows_w, k) contiguous and 16-byte aligned, bf16 or
+// fp32 each (x_bf16, w_bf16), k a multiple of 8 with a row of at most
+// 24,576 bytes; qx, qw 8-byte aligned.  gelu: 0 none, 1 the tanh GELU, 2 the
+// erf GELU of x, which must then be fp32.
+extern "C" int dupl_quantize_pair(const void* x, const void* w, void* qx,
+                                  void* sx, void* qw, void* sw, int rows_x,
+                                  int rows_w, int k, int x_bf16, int w_bf16,
+                                  int gelu, void* stream) {
+  const int tx = threads_per_row(k, x_bf16 ? 2 : 4);
+  const int tw = threads_per_row(k, w_bf16 ? 2 : 4);
+  const auto misaligned = [](const void* p, int a) {
+    return reinterpret_cast<uintptr_t>(p) % a != 0;
+  };
+  if (rows_x < 0 || rows_w < 0 || rows_x + rows_w < 1 || k < 8 || k % 8 ||
+      !tx || !tw || gelu < kNone || gelu > kErf || (gelu && x_bf16) ||
+      misaligned(x, 16) || misaligned(w, 16) || misaligned(qx, 8) ||
+      misaligned(qw, 8))
     return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(kMaxRowBytes == 24576, "ops/quant.py:MAX_ROW_BYTES");
+  const Operand ox{x, static_cast<int8_t*>(qx), static_cast<float*>(sx), rows_x, tx};
+  const Operand ow{w, static_cast<int8_t*>(qw), static_cast<float*>(sw), rows_w, tw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  int8_t* qp = static_cast<int8_t*>(q);
-  float* sp = static_cast<float*>(s);
-  if (bf16)
-    quantize_rows_kernel<__nv_bfloat16><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), qp, sp, rows, k);
+  if (x_bf16 && w_bf16)
+    launch<__nv_bfloat16, __nv_bfloat16>(gelu, ox, ow, k, st);
+  else if (x_bf16)
+    launch<__nv_bfloat16, float>(gelu, ox, ow, k, st);
+  else if (w_bf16)
+    launch<float, __nv_bfloat16>(gelu, ox, ow, k, st);
   else
-    quantize_rows_kernel<float><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        static_cast<const float*>(x), qp, sp, rows, k);
+    launch<float, float>(gelu, ox, ow, k, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,7 +71,8 @@ OPS = {"exp_attention": "exp_attention",
        "crf_apply": "crf_apply", "par_affinity": "par_affinity",
        "par_propagate": "par_propagate",
        "gelu_erf": "gelu_erf", "gelu_erf_bwd": "gelu_erf",
-       "quantize_rows": "quantize_rows", "int8_linear": "int8_gemm"}
+       "quantize_pair": "quantize_rows", "gelu_quantize_pair": "quantize_rows",
+       "int8_linear": "int8_gemm"}
 
 
 def _digest(src: Path) -> str:

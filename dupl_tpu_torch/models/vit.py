@@ -12,7 +12,8 @@ the residual stream runs in ``stream_dtype``; LayerNorm statistics are fp32.
 ``quant=True`` (``ModelConfig.quantized_inference``, inference only) makes
 the four products of every block w8a8 (``ops/quant.py``: kernels Q1 and Q2
 on the card), fp32 out with the bias added in fp32, as the reference's
-``QDense``; the exact GELU then runs on fc1's fp32 output.  The exact GELU
+``QDense``; fc2's quantization then takes the GELU of fc1's fp32 output
+itself (one kernel on the card).  The exact GELU
 rounds as the jitted reference does (``ops/gelu.py``: kernel G on the card).
 ``ViT.forward(x, stream_dtype=...)`` runs the same parameters with another
 stream dtype (the trainer's no-grad CAM passes run a bf16 stream beside the
@@ -25,7 +26,6 @@ which is what the reference's ``siamese_network.state_dict()`` holds.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dupl_tpu_torch.ops.attention import dot_attention
-from dupl_tpu_torch.ops.gelu import gelu_erf
+from dupl_tpu_torch.ops.gelu import gelu_erf, gelu_tanh
 from dupl_tpu_torch.ops.image import resize_bicubic
 from dupl_tpu_torch.ops.quant import quantized_matmul
 from dupl_tpu_torch.parallel import tensor_parallel
@@ -69,7 +69,9 @@ class Linear(nn.Linear):
     ``QDense(quant=True)``): the dynamic int8 product
     (``ops/quant.py:quantized_matmul``), fp32 out, the bias added in fp32;
     not with tensor parallelism (the reference's abs-max scales would span
-    a row-parallel weight's shards)."""
+    a row-parallel weight's shards).  With ``quant``, ``gelu`` ("tanh" or
+    "erf") takes the GELU of the float32 input inside the input's
+    quantization (fc2 of an int8 ``Mlp``: one kernel on the card)."""
 
     tp = None
     tp_role = None
@@ -81,14 +83,17 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
         self.quant = quant
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gelu: Optional[str] = None) -> torch.Tensor:
         cd = self.compute_dtype
         if self.quant:
             if self.tp is not None:
                 raise ValueError("int8 inference (quantized_inference) is not "
                                  "ported to tensor parallelism "
                                  "(--model-parallel > 1)")
-            return quantized_matmul(x, self.weight, self.bias)
+            return quantized_matmul(x, self.weight, self.bias, gelu=gelu)
+        if gelu is not None:
+            raise ValueError("Linear: gelu is taken only with quant")
         if self.tp is None:
             y = F.linear(x.to(cd), self.weight.to(cd))
         else:
@@ -112,20 +117,6 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """tanh-approximate GELU as ``jax.nn.gelu(approximate=True)`` computes
-    it: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` one operation
-    at a time in ``x``'s dtype, the constants rounded to it and ``x^3`` as
-    ``x * (x * x)``.  In bf16 this rounds where the JAX package rounds
-    (``F.gelu(approximate="tanh")`` rounds once, and differs in the last
-    bit on ~40% of elements)."""
-    def c(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
-
-    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * (x * x)))
-    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
-
-
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype,
                  gelu_approximate: bool, quant: bool = False):
@@ -144,6 +135,8 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
+        if self.fc2.quant:      # the GELU inside fc2's quantization
+            return self.fc2(h, gelu="tanh" if self.gelu_approximate else "erf")
         return self.fc2(gelu_tanh(h) if self.gelu_approximate else gelu_erf(h))
 
 

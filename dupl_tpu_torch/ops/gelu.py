@@ -1,4 +1,5 @@
-"""The exact (erf) GELU as the jitted JAX package computes it: kernel G.
+"""The GELUs as the jitted JAX package computes them: the exact (erf) one,
+kernel G, and the tanh one.
 
 ``jax.nn.gelu(x, approximate=False)`` is ``0.5 * x * erfc(-x * sqrt(1/2))``.
 Under ``jax.jit`` (the JAX package always runs its model jitted) XLA fuses
@@ -36,12 +37,24 @@ G's own code builds on the device, as the twins read ``_bf16_tables``) on
 CUDA tensors.  :func:`gelu_erf` pairs them
 in a ``torch.autograd.Function`` that saves only ``x``.  Their flop formula
 is 0: elementwise work is not counted (``utils/flops.py``).
+
+:func:`gelu_tanh` is ``jax.nn.gelu(x, approximate=True)`` as jitted JAX
+computes it.  In bf16 that is nine operations rounded one at a time.  In
+f32 XLA expands ``tanh`` into its own rational approximation, read from the
+LLVM IR and the machine code of the jitted function on the CPU (jax 0.9.0):
+``v = fma(x^3, 0.044715, x) * sqrt(2/pi)``; ``v`` itself below |v| =
+0x1.a36e2ep-12; else ``v`` clamped to +-0x1.ffec88p+2 and ``v P(v^2) /
+Q(v^2)`` with each Horner step one FMA and an IEEE division; +-1 from |v|
+= 20; then ``x ((t + 1) 0.5)``.  XLA's CPU flushes subnormal inputs and
+results to zero, and so does the f32 twin (the card's kernel, the fused
+GELU of ``ops/quant.py``'s fc2 quantization, does the same).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -281,6 +294,60 @@ def gelu_erf_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         e = _exp_xla(-(z * z))
         right = (g * _erfc_xla(z, e)) * 0.5
         return fma_f32(-(t * e), s, right)   # XLA contracts the last step
+
+
+# XLA's f32 tanh inside the jitted tanh GELU (the hex literals of its LLVM
+# IR): the inner cubic's coefficient and sqrt(2/pi); below _TANH_SMALL
+# tanh(v) is v; the clamp; the numerator's and denominator's Horner
+# coefficients in v^2, highest first
+_TANH_C3, _TANH_S = _hex("0x1.6e4e26p-5", "0x1.988454p-1")
+_TANH_SMALL, _TANH_CLAMP = _hex("0x1.a36e2ep-12", "0x1.ffec88p+2")
+_TANH_P = _hex("-0x1.3e4b8p-52", "0x1.c266fcp-43", "-0x1.7a6ffep-34",
+               "0x1.b80082p-25", "0x1.f28694p-17", "0x1.4e1bdap-11",
+               "0x1.40b3b8p-8")
+_TANH_Q = _hex("0x1.41a7bp-20", "0x1.f12bacp-14", "0x1.29540ap-9",
+               "0x1.40b3bap-8")
+_F32_TINY = 2.0 ** -126
+
+
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal f32 values to zero of the same sign, as XLA's CPU does."""
+    return torch.where(t.abs() < _F32_TINY, t * 0.0, t)
+
+
+def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """The jitted f32 tanh GELU, bit for bit (module docstring)."""
+    x = _flush(x)
+    v = fma_f32((x * x) * x, _TANH_C3, x) * _TANH_S
+    vc = v.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    v2 = vc * vc
+    p = fma_f32(v2, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = fma_f32(p, v2, c)
+    q = fma_f32(v2, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = fma_f32(q, v2, c)
+    t = torch.where(v.abs() < _TANH_SMALL, v, (vc * p) / q)
+    t = torch.where(v.abs() >= 20.0, torch.copysign(torch.ones_like(v), v), t)
+    return _flush(x * ((t + 1.0) * 0.5))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU as jitted ``jax.nn.gelu(approximate=True)``
+    computes it.  f32: XLA's expansion (module docstring).  Other dtypes:
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` one operation at
+    a time in ``x``'s dtype, the constants rounded to it and ``x^3`` as
+    ``x * (x * x)``; in bf16 this rounds where the JAX package rounds
+    (``F.gelu(approximate="tanh")`` rounds once, and differs in the last
+    bit on ~40% of elements)."""
+    if x.dtype == _F32:
+        return _gelu_tanh_f32(x)
+
+    def c(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * (x * x)))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
 @functools.lru_cache(maxsize=None)

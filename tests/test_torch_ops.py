@@ -53,9 +53,14 @@ def _cases():
         "gelu_erf_fp32": (_randn(3, 7, 16, grad=True),),
         "gelu_erf_bwd": (_randn(3, 7, 16, dtype=bf, grad=True),
                          _randn(3, 7, 16, dtype=bf, seed=1)),
-        "quantize_rows": (_randn(10, 64, dtype=bf, grad=True),),
-        "int8_linear": (*torch.ops.dupl.quantize_rows(_randn(10, 64)),
-                        *torch.ops.dupl.quantize_rows(_randn(16, 64, seed=1)),
+        "quantize_pair": (_randn(10, 64, dtype=bf, grad=True),
+                          _randn(16, 64, seed=1)),
+        "gelu_quantize_pair": (_randn(10, 64, grad=True),
+                               _randn(16, 64, seed=1), True),
+        "gelu_quantize_pair_erf": (_randn(10, 64, grad=True),
+                                   _randn(16, 64, seed=1), False),
+        "int8_linear": (*torch.ops.dupl.quantize_pair(_randn(10, 64),
+                                                      _randn(16, 64, seed=1)),
                         _randn(16, grad=True)),
     }
 
@@ -63,6 +68,7 @@ def _cases():
 @pytest.mark.parametrize("case", sorted(_cases()))
 def test_opcheck(case):
     name = case.removesuffix("_bf16").removesuffix("_fp32")
+    name = name.removesuffix("_erf") if name.endswith("pair_erf") else name
     op = getattr(torch.ops.dupl, name).default
     torch.library.opcheck(op, _cases()[case])
 

@@ -1,10 +1,13 @@
 """The int8 inference path (``dupl_tpu_torch/ops/quant.py``, kernels Q1 and
 Q2's plain twins) against the jitted JAX package
 (``dupl_tpu/ops/quant.py:quantized_matmul``, ``QDense(quant=True)``): the
-quantization and the product bit for bit, wrong twins that are not, the
-``quantized_inference`` dual student against the JAX one on the same
-weights, ``tools/bench_components_torch.py --int8``, the sealed int8
-serving program, and the refusals (training, tensor parallelism)."""
+quantization of both operands (and of fc2's input through the GELU) and
+the product bit for bit, wrong twins that are not, the int8 ``Mlp`` bit for
+bit with either GELU, one Q1 call a product and no GELU op between fc1
+and fc2, the ``quantized_inference`` dual student against the JAX one on
+the same weights, ``tools/bench_components_torch.py --int8``, the sealed
+int8 serving program, and the refusals (training, tensor parallelism, rows
+past Q1's cap)."""
 
 import importlib.util
 from pathlib import Path
@@ -20,12 +23,14 @@ from dupl_tpu.config import ModelConfig as JModelConfig
 from dupl_tpu.config import voc_config as j_voc_config
 from dupl_tpu.engine import checkpoint as ckpt
 from dupl_tpu.models.network import DualStudent as JDualStudent
+from dupl_tpu.models.vit import Mlp as JMlp
 from dupl_tpu.ops.quant import quantized_matmul as j_quantized_matmul
 from dupl_tpu_torch.config import DataConfig, ModelConfig, voc_config
 from dupl_tpu_torch.engine import export
 from dupl_tpu_torch.engine.train import Trainer
 from dupl_tpu_torch.models.convert import load_weights
 from dupl_tpu_torch.models.network import DualStudent
+from dupl_tpu_torch.models.vit import Mlp
 from dupl_tpu_torch.ops import quant
 from dupl_tpu_torch.utils import flops
 
@@ -38,26 +43,38 @@ _J_QMM = jax.jit(j_quantized_matmul)
 _J_QMM_BIAS = jax.jit(lambda x, w, b: j_quantized_matmul(x, w) + b)
 
 
-@jax.jit
-def _j_quantize(x):
-    """The activation quantization of ``dupl_tpu/ops/quant.py:36-38``,
-    jitted: (x8, s_a)."""
+def _quantize(x):
+    """The activation quantization of ``dupl_tpu/ops/quant.py:36-38``:
+    (x8, s_a)."""
     x2 = x.reshape(-1, x.shape[-1]).astype(jnp.float32)
     s_a = jnp.max(jnp.abs(x2), axis=1, keepdims=True) / 127.0
     s_a = jnp.maximum(s_a, 1e-8)
     return jnp.clip(jnp.round(x2 / s_a), -127, 127).astype(jnp.int8), s_a
 
 
-# (M, K, N): ragged M, K a multiple of 32 as the card's kernels take it
-SHAPES = [(50, 64, 96), (130, 128, 32), (257, 256, 64)]
+_j_quantize = jax.jit(_quantize)
+# fc2's input: the GELU of fc1's fp32 output, then its quantization, in one
+# jitted function as the JAX Mlp runs them
+_J_GELU_QUANTIZE = {a: jax.jit(lambda h, a=a: _quantize(jax.nn.gelu(
+    h, approximate=a))) for a in (True, False)}
+_J_GELU_QMM_BIAS = {a: jax.jit(lambda h, w, b, a=a: j_quantized_matmul(
+    jax.nn.gelu(h, approximate=a), w) + b) for a in (True, False)}
+
+
+# (M, K, N): ragged M, K a multiple of 32 as the card's kernels take it;
+# one row, 63 rows, K 96, and the widths of ViT-B's products (768, 3072)
+SHAPES = [(50, 64, 96), (130, 128, 32), (257, 256, 64), (1, 768, 64),
+          (63, 3072, 32), (70, 96, 40)]
 
 
 def _operands(m, k, n, dtype, seed=0):
-    """x (M, K) with a zero row (the 1e-8 floor) and rows of other scales,
-    in ``dtype``; w (K, N) fp32 as JAX holds it; bias (N,)."""
+    """x (M, K) with a zero row past M 3 (the 1e-8 floor) and rows of
+    other scales, in ``dtype``; w (K, N) fp32 as JAX holds it; bias
+    (N,)."""
     rs = np.random.RandomState(seed)
     x = rs.randn(m, k).astype(np.float32) * rs.uniform(0.1, 4, (m, 1))
-    x[3] = 0.0
+    if m > 3:
+        x[3] = 0.0
     x = x.astype(np.float32)
     w = (rs.randn(k, n) * 0.05).astype(np.float32)
     w[:, 5] = 0.0                                   # a zero weight column
@@ -72,19 +89,20 @@ def _operands(m, k, n, dtype, seed=0):
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_bit_equal_to_jitted_jax(shape, dtype):
-    """quantize_rows (activations, and weights as nn.Linear's (N, K)) and
-    quantized_matmul, with and without the bias, equal the jitted JAX
-    functions bit for bit."""
+    """quantize_pair (the activations, bf16 or fp32, and the fp32 weight as
+    nn.Linear's (N, K)), gelu_quantize_pair (fc2's fp32 input through
+    either GELU) and quantized_matmul with and without the GELU and the
+    bias equal the jitted JAX functions bit for bit."""
     m, k, n = shape
     xj, xt, w, b = _operands(m, k, n, dtype)
-    q, s = quant.quantize_rows(xt)
+    wt = torch.from_numpy(np.ascontiguousarray(w.T))
+    q, s, qw, sw = quant.quantize_pair(xt, wt)
     jq, js = _j_quantize(xj)
     assert q.dtype == torch.int8 and s.shape == (m, 1)
     assert np.array_equal(q.numpy(), np.asarray(jq))
     assert np.array_equal(s.numpy(), np.asarray(js))
-    assert s[3].item() == np.float32(1e-8) and not q[3].any()
-    wt = torch.from_numpy(np.ascontiguousarray(w.T))
-    qw, sw = quant.quantize_rows(wt)
+    if m > 3:
+        assert s[3].item() == np.float32(1e-8) and not q[3].any()
     jqw, jsw = _j_quantize(jnp.asarray(w.T))
     assert np.array_equal(qw.numpy(), np.asarray(jqw))
     assert np.array_equal(sw.numpy(), np.asarray(jsw))
@@ -94,35 +112,150 @@ def test_bit_equal_to_jitted_jax(shape, dtype):
     got = quant.quantized_matmul(xt[None], wt, torch.from_numpy(b))[0]
     want = _J_QMM_BIAS(xj, jnp.asarray(w), jnp.asarray(b))
     assert np.array_equal(got.numpy(), np.asarray(want))
+    # fc2's entry: h is fc1's fp32 output (here the draws in fp32)
+    h, hj = xt.float(), xj.astype(jnp.float32)
+    for approximate in (True, False):
+        gq, gs, gqw, gsw = quant.gelu_quantize_pair(h, wt, approximate)
+        jgq, jgs = _J_GELU_QUANTIZE[approximate](hj)
+        assert np.array_equal(gq.numpy(), np.asarray(jgq))
+        assert np.array_equal(gs.numpy(), np.asarray(jgs))
+        assert torch.equal(gqw, qw) and torch.equal(gsw, sw)
+        got = quant.quantized_matmul(
+            h, wt, torch.from_numpy(b),
+            gelu="tanh" if approximate else "erf")
+        want = _J_GELU_QMM_BIAS[approximate](hj, jnp.asarray(w),
+                                             jnp.asarray(b))
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_rows_past_the_cap_are_refused(dtype):
+    """Q1 holds a row of at most 24,576 bytes (K 6144 in fp32, 12,288 in
+    bf16): a row 8 elements wider is refused on every device, by the pair
+    and by the GELU entry, whichever operand it is; so is a K off the
+    multiple of 8, and a GELU input that is not fp32."""
+    cap = quant.MAX_ROW_BYTES // torch.empty((), dtype=dtype).element_size()
+    got = quant.quantize_pair(torch.randn(3, cap).to(dtype),
+                              torch.randn(4, cap).to(dtype))
+    assert got[0].shape == (3, cap) and got[2].shape == (4, cap)
+    wide = torch.randn(3, cap + 8).to(dtype)
+    with pytest.raises(ValueError, match="past Q1's cap"):
+        quant.quantize_pair(wide, torch.randn(4, cap + 8).to(dtype))
+    if dtype == torch.bfloat16:     # an fp32 weight at the bf16 cap
+        with pytest.raises(ValueError, match="a row of w"):
+            quant.quantize_pair(torch.randn(3, cap).to(dtype),
+                                torch.randn(4, cap))
+        with pytest.raises(TypeError, match="float32"):
+            quant.gelu_quantize_pair(torch.randn(3, 64).to(dtype),
+                                     torch.randn(4, 64), True)
+    else:
+        with pytest.raises(ValueError, match="past Q1's cap"):
+            quant.gelu_quantize_pair(wide, torch.randn(4, cap + 8), False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant.quantize_pair(torch.randn(3, 60), torch.randn(4, 60))
 
 
 @pytest.mark.parametrize("kind", ["divide_by_127", "rescale_once",
                                   "last_k_tile_dropped", "k_stage_read_twice",
-                                  "row_scale_shifted", "n_tiles_swapped"])
+                                  "row_scale_shifted", "n_tiles_swapped",
+                                  "scale_one_ulp_off", "max_over_half_row",
+                                  "tanhf"])
 def test_wrong_twins_are_not_bit_equal(kind):
     """At M 1000, K 768, N 256 in bf16, each wrong twin of
     ``chip_smoke.quant_wrong`` (the ones phase 30 holds on the card: the
-    JAX source read literally, and Q2's own faults: a K stage read twice,
-    the row scales of 8-row halves exchanged, two 128-column output tiles
-    exchanged) differs from the jitted JAX product on many elements."""
+    JAX source read literally; Q2's own faults: a K stage read twice, the
+    row scales of 8-row halves exchanged, two 128-column output tiles
+    exchanged; Q1's: the scale one ulp off, the maximum over half the row)
+    differs from the jitted JAX product on many elements; so does the
+    fused fc2 entry's ``tanhf`` (torch's tanh in the GELU) on fp32 h from
+    the jitted product of the GELU of h."""
     from chip_smoke import quant_wrong
 
-    xj, xt, w, _ = _operands(1000, 768, 256, jnp.bfloat16, seed=1)
-    want = np.asarray(_J_QMM(xj, jnp.asarray(w)))
+    dtype = jnp.float32 if kind == "tanhf" else jnp.bfloat16
+    xj, xt, w, b = _operands(1000, 768, 256, dtype, seed=1)
+    if kind == "tanhf":
+        want = np.asarray(_J_GELU_QMM_BIAS[True](xj, jnp.asarray(w),
+                                                 jnp.zeros_like(b)))
+    else:
+        want = np.asarray(_J_QMM(xj, jnp.asarray(w)))
     got = quant_wrong(xt, torch.from_numpy(np.ascontiguousarray(w.T)), kind)
     assert (got.numpy() != want).sum() > 100
 
 
 def test_flop_formulas():
     """Q2 counts the products' 2 M N K (what a matmul of the same shapes
-    counts), Q1 nothing; the int8 ops refuse nothing on the CPU."""
+    counts), Q1's entries nothing; the int8 ops refuse nothing on the
+    CPU."""
     xt = torch.randn(70, 64)
     wt = torch.randn(48, 64)
-    qa, sa = quant.quantize_rows(xt)
-    qw, sw = quant.quantize_rows(wt)
-    assert flops.count_flops(quant.quantize_rows, xt) == 0
+    qa, sa, qw, sw = quant.quantize_pair(xt, wt)
+    assert flops.count_flops(quant.quantize_pair, xt, wt) == 0
+    assert flops.count_flops(quant.gelu_quantize_pair, xt, wt, True) == 0
     assert flops.count_flops(quant.int8_linear, qa, sa, qw, sw) == \
         2 * 70 * 48 * 64 == flops.count_flops(torch.matmul, xt, wt.t())
+
+
+@pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
+def test_int8_mlp_bit_equal_to_jax(approximate):
+    """A float32 int8 ``Mlp`` (width 64, hidden 256, 2048 rows, biases
+    drawn) equals the JAX package's jitted ``Mlp(quant=True)`` on the same
+    weights bit for bit with either GELU (with torch's f32 tanh in the
+    tanh GELU, 20.7% of the outputs differed)."""
+    d, hidden, rows = 64, 256, 2048
+    rs = np.random.RandomState(11)
+    x = rs.randn(rows, d).astype(np.float32)
+    jm = JMlp(hidden, d, jnp.float32, approximate, quant=True)
+    p = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))["params"]
+    for name, n in (("fc1", hidden), ("fc2", d)):
+        p[name]["bias"] = (rs.randn(n) * 0.1).astype(np.float32)
+    want = np.asarray(jax.jit(jm.apply)({"params": p}, jnp.asarray(x)))
+    mlp = Mlp(d, hidden, torch.float32, approximate, quant=True)
+    with torch.no_grad():
+        for name in ("fc1", "fc2"):
+            lin = getattr(mlp, name)
+            lin.weight.copy_(torch.from_numpy(p[name]["kernel"].T.copy()))
+            lin.bias.copy_(torch.from_numpy(p[name]["bias"]))
+        got = mlp(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
+def test_int8_block_quantizes_once_a_product(approximate):
+    """A quantized ``Block`` runs Q1 once a product (three
+    ``dupl::quantize_pair``, one ``dupl::gelu_quantize_pair``) beside four
+    ``dupl::int8_linear``; between fc1's product and fc2's it runs the GELU
+    entry and views alone, and no op of its own computes a GELU."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dupl_tpu_torch.models.vit import Block
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    block = Block(64, 4, 4.0, torch.float32, approximate, quant=True).eval()
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 20, 64)
+                         .astype(np.float32))
+    with torch.no_grad(), Record() as rec:
+        block(x)
+    ops = rec.ops
+    count = {name: ops.count(f"dupl::{name}") for name in (
+        "quantize_pair", "gelu_quantize_pair", "int8_linear", "gelu_erf")}
+    assert count == {"quantize_pair": 3, "gelu_quantize_pair": 1,
+                     "int8_linear": 4, "gelu_erf": 0}, count
+    products = [i for i, name in enumerate(ops) if name == "dupl::int8_linear"]
+    between = set(ops[products[2] + 1:products[3]])
+    assert between - {"aten::view", "aten::_unsafe_view", "aten::reshape",
+                      "aten::alias"} == {"dupl::gelu_quantize_pair"}, between
+    assert not {"aten::tanh", "aten::erf", "aten::erfc",
+                "aten::gelu"} & set(ops)
 
 
 # ------------------------------------------------ the dual student, int8
@@ -169,11 +302,16 @@ def _image(seed=0, batch=2, size=CROP):
 INT8_REL = {"float32": (2e-2, 1e-3), "bfloat16": (5e-2, 1e-2)}
 
 
-@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16", "bench"])
 def test_int8_dual_student_matches_jax(weights, compute):
+    """``bench``: bench_config's model (bf16 compute and stream, the tanh
+    GELU, fused into fc2's quantization), held to the bf16 bounds."""
     params, path = weights
-    over = ({} if compute == "float32" else
-            dict(compute_dtype="bfloat16", stream_dtype="bfloat16"))
+    over = {"float32": {},
+            "bfloat16": dict(compute_dtype="bfloat16",
+                             stream_dtype="bfloat16"),
+            "bench": dict(compute_dtype="bfloat16", stream_dtype="bfloat16",
+                          gelu_approximate=True)}[compute]
     _, jcfg = _cfgs(**over)
     jmodel = JDualStudent(jcfg.model)
     x = _image()
@@ -194,8 +332,9 @@ def test_int8_dual_student_matches_jax(weights, compute):
         got = got.float().numpy()
         assert got.shape == want.shape
         err = np.abs(got - want) / np.abs(want).max()
-        assert err.max() <= INT8_REL[compute][0], err.max()
-        assert err.mean() <= INT8_REL[compute][1], err.mean()
+        bound = INT8_REL["float32" if compute == "float32" else "bfloat16"]
+        assert err.max() <= bound[0], err.max()
+        assert err.mean() <= bound[1], err.mean()
     # the scale-1.0 pass and the fused one share features exactly
     assert torch.equal(cam, fcam) and torch.equal(cam_aux, fcam_aux)
 
@@ -242,15 +381,17 @@ def test_bench_components_int8_on_cpu(capsys):
 
 def test_sealed_int8_serving_matches_live(weights, tmp_path):
     """export_serving of the int8 model, written and read back: the live
-    program's labels bit for bit, with Q1 and Q2 in the sealed graph."""
+    program's labels bit for bit, with Q1's two entries and Q2 in the
+    sealed graph and no GELU op of its own."""
     _, path = weights
     cfg, _ = _cfgs()
     exported, meta = export.export_serving(
         cfg, _port(path), batch_size=2, scales=(1.0,), crf=True,
         device="cpu")
     targets = {str(n.target) for n in exported.graph.nodes}
-    assert {"dupl.quantize_rows.default",
+    assert {"dupl.quantize_pair.default", "dupl.gelu_quantize_pair.default",
             "dupl.int8_linear.default"} <= targets
+    assert "dupl.gelu_erf.default" not in targets
     art = str(tmp_path / "int8.duplsrv")
     export.save_artifact(art, exported, meta)
     loaded, _ = export.load_artifact(art)
