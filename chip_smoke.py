@@ -38,9 +38,14 @@ JAX.  Phases, each printing one result line:
 7. K3 (PAR affinity) against its plain twin at (16, 224, 224, 3): smooth,
    noisy and uint8-quantised images, and a ragged small case; the same bits
    from call to call; four wrong twins (``par_affinity_wrong``) outside the
-   bound on the smooth and uint8 images; one call and back to back;
+   bound on the smooth and uint8 images; one call and back to back; K3's
+   global-memory instantiation (dilation sets past the shared-memory ones:
+   ``P7_PAST_CAP``, (1, 2, 4, 8, 12, 24, 48) and (2, 64)) on the uint8
+   image at the same bound, the same bits twice, timed;
 8. K4 (PAR propagation) against its plain twin at 16 x 224^2, 10 rounds:
-   C = 40 in fp32 and bf16, C = 84 in fp32, and a ragged case;
+   C = 40 in fp32 and bf16, C = 84 in fp32, and a ragged case; its
+   global-memory instantiation at C 40, fp32 and bf16, on phase 7's
+   affinities of ``P7_PAST_CAP``, at the same bounds, timed;
 9. the pseudo-label slice: ``make_pseudo_label_fn`` with the same model at
    batch 16, crop 448 (multi-scale CAM of both students, PAR, fast CRF):
    two warm-up calls, five timed calls; well-formed labels, and K1, K3, K4
@@ -212,7 +217,15 @@ JAX.  Phases, each printing one result line:
    and 11's bounds; (b) the run's checkpoint restored into the bare
    ``Trainer`` equals its gathered weights bit for bit; (c) ms a step, peak
    memory and parameter bytes of each rank beside the bare run's (a rank
-   holds half of the tensor-parallel leaves);
+   holds half of the tensor-parallel leaves); (d) after their steps the two
+   ranks run the int8 CAM stage (``p26_int8``: bench_config's int8 model at
+   depth ``P24_DEPTH``, ``cam_only`` and both students'
+   ``multi_scale_cam_with_outputs`` on 2 images of 448^2), each row-parallel
+   product's maxima and int32 sums all-reduced over gloo (MAX on fp32 and
+   SUM on int32 CUDA tensors, checked on their own): CAMs, aux CAMs and
+   class scores bit-equal to the parent's one-process run, seg within
+   ``P26_INT8_SEG``, the launches of Q1's and Q2's entries and K1 as
+   ``p26_int8_expected`` counts them, no twin on a CUDA tensor;
 27. the run operations at full width: (a) ``utils/tb.cam_grids``, the
    training run's CAM-grid pass (``production_config("voc")``, seeded
    weights, a uint8 batch of 4 at crop 448): three uint8 grids of (896,
@@ -280,9 +293,14 @@ JAX.  Phases, each printing one result line:
    at 12,560, 1 and 63 rows of 3072 and at K 96, its wrong twins (tanhf,
    the scale one ulp off, the maximum over half the row) unequal, timed
    beside the former nine-op torch.tanh chain and G in fp32 (one call,
-   back to back, and Q1's device time in a CUDA graph); rows past Q1's
-   cap refused; the bf16 tanh GELU on the
-   card against the CPU on the same values (a reading); (c)
+   back to back, and Q1's device time in a CUDA graph); the bf16 tanh GELU
+   on the card against the CPU on the same values (a reading); (b2)
+   ``p30_two_pass``: Q1's two-pass entries (``row_absmax_pair``,
+   ``quantize_pair_given``), ``int8_matmul_i32`` and ``int8_rescale``
+   against their twins bit for bit at K 8192 in fp32 (with and without
+   each GELU) and 16,384 in bf16 and at a model rank's shares of ViT-B/16's
+   proj and fc2 at TP 2, one wrong twin each unequal, timed at the shares
+   beside their bounds, ``torch._int_mm`` and the one-process product; (c)
    ``tools/bench_components_torch.py --int8`` at batch 16 with every
    kernel's count zeroed before and read after (Q1's two entries, Q2, K1,
    K3, K4, K5 launched; one Q1 launch a product, one GELU entry a block's
@@ -298,8 +316,10 @@ its memory rate, whichever is larger; kernel times are medians of one call
 between two CUDA events, and the attention entries, G, Q1 and Q2 add
 ``ms_back_to_back``, rounds of back-to-back calls, K1 and K2 also
 ``host_us``; K1, K3, K4 and
-K5 also ``launches_bench``, their launches a ``bench_torch.py`` call), and last
-``{"ok": true, "device": {...}}``.
+K5 also ``launches_bench``, their launches a ``bench_torch.py`` call; Q1's
+two-pass entries, ``int8_matmul_i32`` and ``int8_rescale`` their launches
+on a rank of phase 26's int8 run and their times at its fc2 share; K3 and
+K4 also ``past_cap``), and last ``{"ok": true, "device": {...}}``.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 2.
 """
@@ -704,6 +724,10 @@ def write_corun_tree(root, n_train=32, n_val=16, seed=0, num_fg=CORUN_FG):
 # rank), so the worst leaf's relative L2 gap of the first steps is held to
 # P24_LEAF_REL: sound runs read 0.38-0.61% there (the bare run against
 # itself 0.41-0.51%), a factor of 2 reads 50%.
+# Phases 7 and 8: dilation sets past K3's and K4's shared-memory
+# instantiations (more than 6, or one over 40), which take their
+# global-memory ones.
+P7_PAST_CAP = ((1, 2, 4, 8, 12, 24, 48), (2, 64))
 P24_FIRST_REL, P24_LATER_REL, P24_GRAD_COS = 1e-3, 1e-2, 0.999
 P24_LEAF_REL = 2e-2
 # Phases 24-26 run at full width on the first P24_DEPTH of ViT-B/16's 12
@@ -1357,6 +1381,21 @@ def phase25(dev, bodies):
 # terms' magnitudes).  K1 and K2 are then held to their twins on a rank's own
 # block-0 operands at phases 3 and 11's bounds (row ulps: K1 1 at the maximum
 # and 1e-3 on average, K2 2 and 0.01).
+# After their steps the two ranks run the int8 CAM stage (``p26_int8``):
+# bench_config's int8 model at ViT-B/16 width, depth P24_DEPTH, sharded over
+# the model group, whose row-parallel products all-reduce their maxima and
+# then their exact int32 sums over gloo (which copies the CUDA tensors
+# through the host), so that its CAMs, aux CAMs and class scores equal the
+# parent's one-process run bit for bit; its seg, whose decoder convolutions
+# sum bf16 products' fp32 partials over the ranks, within P26_INT8_SEG (max,
+# mean of the output's largest magnitude: tests/test_torch_quant.py's bf16
+# INT8_REL).  A rank's launches: each of its P26_INT8_FORWARDS encoder
+# passes runs, a block, quantize_pair and int8_linear for qkv and fc1 and
+# row_absmax_pair, quantize_pair_given, int8_matmul_i32 and int8_rescale
+# for proj and fc2 (two collectives each), K1 once.
+P26_INT8_BATCH = 2
+P26_INT8_FORWARDS = 8    # cam_only of 2 students + 3 scales x 2 students
+P26_INT8_SEG = (5e-2, 1e-2)
 P26_N_MODEL = 2
 P26_BARE_FIRST_REL, P26_BARE_LATER_REL = 1e-2, 5e-2
 P26_BARE_GRAD_COS, P26_BARE_LEAF_REL = 0.99, 0.3
@@ -1549,6 +1588,112 @@ def p26_mm_check(dev):
     return out
 
 
+P26_INT8_COUNTERS = ("quantize_pair", "gelu_quantize_pair", "int8_linear",
+                     "row_absmax_pair", "quantize_pair_given",
+                     "int8_matmul_i32", "int8_rescale", "exp_attention",
+                     "gelu_erf")
+
+
+def p26_int8(dev, weights, d=None):
+    """The int8 CAM stage at ViT-B/16 width and depth P24_DEPTH
+    (``bench_config("voc", quantized_inference=True)``, ``weights`` of
+    phase 24): ``cam_only`` and each student's
+    ``multi_scale_cam_with_outputs`` at the recipe's scales on
+    P26_INT8_BATCH seeded images of 448^2, twice (the second run is read
+    and timed); with ``d`` the model sharded over its model group.  Returns
+    the outputs on the host, the launches of the second run (the counts
+    zeroed just before it) and its ms."""
+    import torch
+
+    from dupl_tpu_torch.config import bench_config
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.ops import attention, gelu, quant
+    from dupl_tpu_torch.ops import cam as cam_ops
+    from dupl_tpu_torch.parallel import tensor_parallel
+
+    cfg = bench_config("voc", quantized_inference=True)
+    with torch.device("meta"):
+        model = shallow(DualStudent(cfg.model), P24_DEPTH)
+    model = model.to_empty(device=dev)
+    model.load_state_dict(weights)
+    model.eval()
+    if d is not None:
+        tensor_parallel.shard_model(model, d)
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(P26_INT8_BATCH, 448, 448, 3, generator=g, device=dev)
+    home = {"exp_attention": attention, "gelu_erf": gelu}
+    counters = {name: getattr(home.get(name, quant), f"{name}_cuda")
+                for name in P26_INT8_COUNTERS}
+
+    def run():
+        with torch.no_grad():
+            cam, cam_aux = model.cam_only(x)
+            msc = [cam_ops.multi_scale_cam_with_outputs(
+                s.forward_with_cams, s.cam_only, x, cfg.cam_scales,
+                merge_size=(224, 224)) for s in (model.branch1, model.branch2)]
+        return {"cam": cam, "cam_aux": cam_aux,
+                "msc_cam": torch.stack([m[0] for m in msc]),
+                "msc_aux": torch.stack([m[1] for m in msc]),
+                "cls": torch.stack([m[2].cls for m in msc]),
+                "seg": torch.stack([m[2].seg for m in msc])}
+
+    run()
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t = time.perf_counter()
+    with twin_guard() as twin_calls:
+        out = run()
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    check(not twin_calls, f"the int8 CAM stage ran plain twins on CUDA "
+          f"tensors: {twin_calls}")
+    launches = {k: f.launches for k, f in counters.items()}
+    del model
+    return {k: v.float().cpu() for k, v in out.items()}, launches, ms
+
+
+def p26_int8_expected(tp: bool):
+    """:func:`p26_int8`'s launches, one process or a rank of the model
+    group."""
+    n = P26_INT8_FORWARDS * P24_DEPTH
+    row = {"row_absmax_pair": 2 * n, "quantize_pair_given": 2 * n,
+           "int8_matmul_i32": 2 * n, "int8_rescale": 2 * n}
+    return {"quantize_pair": (2 if tp else 3) * n,
+            "gelu_quantize_pair": 0 if tp else n,
+            "int8_linear": (2 if tp else 4) * n,
+            **{k: (v if tp else 0) for k, v in row.items()},
+            "exp_attention": n, "gelu_erf": 0}
+
+
+def p26_int8_gaps(ref, got):
+    """Elements unequal to the one-process run, a key each, and seg's gap
+    (max, mean) over its largest magnitude."""
+    import torch
+
+    unequal = {k: int((got[k] != ref[k]).sum()) for k in ref if k != "seg"}
+    gap = (got["seg"] - ref["seg"]).abs() / ref["seg"].abs().max()
+    return unequal, [float(gap.max()), float(gap.mean())], bool(
+        torch.isfinite(got["cam"]).all())
+
+
+def p26_collectives(dev, d):
+    """gloo's all-reduce on CUDA tensors over the model group, as the int8
+    products run it: MAX on fp32, SUM on int32 (values that fill its
+    range); whether both gave the right values on the card."""
+    import torch
+    import torch.distributed as dist
+
+    r = d.model_rank
+    mx = torch.tensor([1.5 * r, -float(r), 2.0], device=dev)
+    sm = torch.tensor([r + 1, -(1 << 30), 7], dtype=torch.int32, device=dev)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=d.model_group)
+    dist.all_reduce(sm, group=d.model_group)
+    return (mx.is_cuda and sm.is_cuda and sm.dtype == torch.int32
+            and mx.tolist() == [1.5, 0.0, 2.0]
+            and sm.tolist() == [3, -(1 << 31), 14])
+
+
 def p26_kernels(grabbed):
     """K1 and K2 on a rank's own operands (its block-0 q, k and v of the
     first differentiated pass, k and v strided views of its local qkv, and
@@ -1641,6 +1786,11 @@ def p26_rank(rank, world, port, results, ref_path, expected, ckpt_dir):
         check(len(grabbed) == 4, f"rank {rank}: no block-0 operands of "
               f"shape {shape} with a cotangent")
         kern = p26_kernels(grabbed)
+        # the int8 CAM stage, sharded, against the parent's one process
+        collectives_ok = p26_collectives(dev, d)
+        int8_out, int8_launches, int8_ms = p26_int8(dev, ref["weights"], d)
+        unequal, seg_gap, finite = p26_int8_gaps(ref["int8"], int8_out)
+        del int8_out
         if rank == 0:     # through a file: a queue would share 0.7 GB
             torch.save(run["saved"], ckpt_dir + ".gathered.pt")
         gaps, grad_gaps = {}, {}
@@ -1655,7 +1805,10 @@ def p26_rank(rank, world, port, results, ref_path, expected, ckpt_dir):
             "gaps": gaps, "recs": run["recs"], "recs32": run32["recs"],
             "grad_gaps": grad_gaps, "peak_gib": run["peak_gib"],
             "base_gib": run["base_gib"], "param_bytes": run["param_bytes"],
-            "kernels": kern}))
+            "kernels": kern, "int8": {
+                "unequal": unequal, "seg_gap": seg_gap, "finite": finite,
+                "launches": int8_launches, "ms": int8_ms,
+                "collectives_ok": collectives_ok}}))
     finally:
         d.close()
 
@@ -1704,12 +1857,16 @@ def phase26(dev, expected, bare, weights):
     faults = {f: one_step(fault=f) for f in P26_FAULTS}
     bare32 = p24_arm(dev, p26_fp32(cfg), weights, expected, Dist(),
                      per_phase=1)
+    int8_one, int8_launches, int8_ms = p26_int8(dev, weights)
+    check(int8_launches == p26_int8_expected(False),
+          f"phase 26: the one-process int8 CAM stage's launches "
+          f"{int8_launches}, want {p26_int8_expected(False)}")
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "refs.pt")
         torch.save({name: {"recs": run["recs"], "grads": run["grads"]}
                     for name, run in (("bare", bare), ("split", split),
                                       ("bare32", bare32))}
-                   | {"weights": weights}, ref_path)
+                   | {"weights": weights, "int8": int8_one}, ref_path)
         del split["grads"], bare32["grads"]
         ckpt_dir = os.path.join(tmp, "ckpt")
         ranks = spawn_ranks(p26_rank, P26_N_MODEL,
@@ -1813,6 +1970,35 @@ def phase26(dev, expected, bare, weights):
           + f" | checkpoint of step {step_restored} restored into the bare "
           f"Trainer equals the gathered weights bit for bit | phase 26 took "
           f"{time.perf_counter() - t26:.1f} s", flush=True)
+    i8 = [x["int8"] for x in ranks]
+    print(f"[tensor parallel int8] bench_config's int8 model (tanh GELU, bf16 "
+          f"stream), ViT-B/16 at depth {P24_DEPTH}, {P26_INT8_BATCH} images "
+          f"of 448^2: cam_only and both students' multi_scale_cam_with_outputs "
+          f"(1.0 / 0.5 / 1.5 x flip) on the two ranks, each row-parallel "
+          f"product's maxima (fp32, MAX) and int32 sums (SUM) all-reduced "
+          f"over gloo, which copies the CUDA tensors through the host "
+          f"(both checked on the card: {[x['collectives_ok'] for x in i8]}) "
+          f"| elements unequal to the parent's one-process run (bound 0): "
+          + "; ".join(f"rank {r} {json.dumps(x['unequal'])}"
+                      for r, x in enumerate(i8))
+          + f" | seg gap (max, mean of its largest magnitude; bound "
+          f"{list(P26_INT8_SEG)}) {[x['seg_gap'] for x in i8]} | launches a "
+          f"rank {json.dumps(i8[0]['launches'])}, one process "
+          f"{json.dumps(int8_launches)} | ms (the second run) one process "
+          f"{int8_ms:.1f}, ranks {[round(x['ms'], 1) for x in i8]}",
+          flush=True)
+    want_tp = p26_int8_expected(True)
+    for r, x in enumerate(i8):
+        check(x["collectives_ok"], f"TP rank {r}: gloo's MAX on fp32 or SUM "
+              f"on int32 CUDA tensors gave wrong values")
+        check(x["finite"] and all(v == 0 for v in x["unequal"].values()),
+              f"TP rank {r}: the int8 CAM stage differs from one process "
+              f"{x['unequal']}")
+        check(x["seg_gap"][0] <= P26_INT8_SEG[0]
+              and x["seg_gap"][1] <= P26_INT8_SEG[1],
+              f"TP rank {r}: int8 seg gap {x['seg_gap']}")
+        check(x["launches"] == want_tp, f"TP rank {r}: int8 launches "
+              f"{x['launches']}, want {want_tp}")
     loose = dict(first=P26_BARE_FIRST_REL, later=P26_BARE_LATER_REL,
                  cos=P26_BARE_GRAD_COS, leaf=P26_BARE_LEAF_REL)
     for f, g in faults.items():
@@ -1844,7 +2030,7 @@ def phase26(dev, expected, bare, weights):
     return ({phase_of(cfg, r["step"]): r["launches"]
              for r in ranks[0]["recs"]},
             max(x["kernels"]["k1_err"] for x in ranks),
-            max(x["kernels"]["k2_err"] for x in ranks))
+            max(x["kernels"]["k2_err"] for x in ranks), i8[0]["launches"])
 
 
 @contextlib.contextmanager
@@ -1890,7 +2076,9 @@ def twin_guard():
              (crf_cuda, "kernel_apply_ref"), (gelu, "gelu_erf_ref"),
              (gelu, "gelu_erf_bwd_ref"), (quant, "quantize_rows_ref"),
              (quant, "quantize_pair_ref"), (quant, "gelu_quantize_pair_ref"),
-             (quant, "int8_linear_ref")]
+             (quant, "int8_linear_ref"), (quant, "row_absmax_pair_ref"),
+             (quant, "quantize_pair_given_ref"),
+             (quant, "int8_matmul_i32_ref"), (quant, "int8_rescale_ref")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in twins]
 
     def counting(name, fn):
@@ -2576,6 +2764,21 @@ P30_MLP_ROWS = 16 * 785        # bench_config's 16 images at scale 1.0
 # ViT-B's four products a block: name -> (N, K, activation dtype)
 P30_PRODUCTS = {"qkv": (2304, 768, "bfloat16"), "proj": (768, 768, "bfloat16"),
                 "fc1": (3072, 768, "bfloat16"), "fc2": (768, 3072, "float32")}
+# Q1's two passes, Q2's int32 product and the rescale (phase 30 (b2)):
+# rows past the one-launch entries' cap (K 8192 in fp32, 16,384 in bf16,
+# M 1001, N 768) and a model rank's shares of ViT-B/16's row-parallel
+# products at TP 2 (proj: K 384 of bf16 attention output; fc2: K 1536 of
+# fc1's fp32 output through the GELU), each quantized by the maxima of the
+# whole K, as the model group's all-reduce gives them.  name -> (M, N, K of
+# the whole row, K of the share, x dtype, GELU)
+P30_TWO_PASS = {"k8192": (1001, 768, 8192, 8192, "float32", None),
+                "k8192_tanh": (1001, 768, 8192, 8192, "float32", "tanh"),
+                "k8192_erf": (1001, 768, 8192, 8192, "float32", "erf"),
+                "k16384": (1001, 768, 16384, 16384, "bfloat16", None),
+                "proj_tp2": (P30_MLP_ROWS, 768, 768, 384, "bfloat16", None),
+                "fc2_tp2": (P30_MLP_ROWS, 768, 3072, 1536, "float32", "tanh"),
+                "fc2_tp2_erf": (P30_MLP_ROWS, 768, 3072, 1536, "float32",
+                                "erf")}
 # fp32 instructions an element of G's fp32 forward: about 12 below |z| = 1
 # (the 7-step Horner scheme, 1 - z P, two products), about 30 beyond (the
 # exp's 12, two reciprocals counted as one each, the 8- or 9-step scheme,
@@ -2773,6 +2976,123 @@ def quant_wrong(x, w, kind):
     return torch.cat([y[:, 128:256], y[:, :128], y[:, 256:]], dim=1)
 
 
+def p30_two_pass(dev, g, bound, times, time_ms, unequal):
+    """Phase 30 (b2): at each shape of :data:`P30_TWO_PASS`, Q1's two
+    passes (``row_absmax_pair``; ``quantize_pair_given`` on the whole K's
+    maxima), ``int8_matmul_i32`` and ``int8_rescale`` (with and without the
+    bias) against their twins bit for bit, one wrong twin each unequal (the
+    maxima over half the row, the wrong maxima, the last 32 columns of
+    K left out, the rescale as acc * (sa * sw); the wrong maxima: the
+    share's own, or on the whole K the weight's 1/128 high); at the
+    tensor-parallel
+    shapes each timed (one call, back to back) beside its bound, the
+    library's ``torch._int_mm`` for the int32 product and the one-process
+    ``quantize_pair`` + ``int8_linear`` on the whole K."""
+    import torch
+
+    from dupl_tpu_torch.ops import quant
+
+    out = {}
+    for name, (m, n, k_all, k, dt, gelu) in P30_TWO_PASS.items():
+        x_all = (torch.randn(m, k_all, generator=g, device=dev)
+                 * torch.rand(m, 1, generator=g, device=dev) * 4)
+        x_all[min(7, m - 1)] = 0
+        x_all = x_all.to(getattr(torch, dt))
+        w_all = torch.randn(n, k_all, generator=g, device=dev) * 0.02
+        bias = torch.randn(n, generator=g, device=dev) * 0.02
+        # the whole K's maxima (the model group's all-reduce), the share
+        # the first k columns
+        ax, aw = quant.row_absmax_pair_ref(x_all, w_all, gelu)
+        x, w = x_all[:, :k].contiguous(), w_all[:, :k].contiguous()
+        del x_all, w_all
+        bad = {}
+        got_a = quant.row_absmax_pair_cuda(x, w, gelu)
+        want_a = quant.row_absmax_pair_ref(x, w, gelu)
+        bad["row_absmax_pair"] = unequal(got_a, want_a)
+        got_q = quant.quantize_pair_given_cuda(x, w, ax, aw, gelu)
+        want_q = quant.quantize_pair_given_ref(x, w, ax, aw, gelu)
+        bad["quantize_pair_given"] = unequal(got_q, want_q)
+        qa, sa, qw, sw = want_q
+        acc = quant.int8_matmul_i32_cuda(qa, qw)
+        want_acc = quant.int8_matmul_i32_ref(qa, qw)
+        bad["int8_matmul_i32"] = int((acc != want_acc).sum())
+        bad["int8_rescale"] = sum(
+            bits_unequal(quant.int8_rescale_cuda(want_acc, sa, sw, b_),
+                         quant.int8_rescale_ref(want_acc, sa, sw, b_))
+            for b_ in (bias, None))
+        # one wrong twin each
+        half = quant.row_absmax_pair_ref(x[:, :k // 2].contiguous(), w, gelu)
+        # a share quantized by its own maxima (no all-reduce); on the whole
+        # K, the weight's maxima 1/128 high
+        own = quant.quantize_pair_given_ref(
+            x, w, *(want_a if k < k_all else (ax, aw * (1 + 2 ** -7))), gelu)
+        wrong = {
+            "row_absmax_pair": unequal(got_a, half),
+            "quantize_pair_given": unequal(got_q, own),
+            "int8_matmul_i32": int((acc != quant.int8_matmul_i32_ref(
+                qa[:, :-32], qw[:, :-32])).sum()),
+            "int8_rescale": bits_unequal(
+                quant.int8_rescale_cuda(want_acc, sa, sw),
+                want_acc.float() * (sa * sw.reshape(1, -1)))}
+        torch.cuda.synchronize()
+        check(all(v == 0 for v in bad.values()),
+              f"phase 30 (b2) {name}: elements unequal to the twins (bound "
+              f"0) {bad}")
+        check(all(v > 0 for v in wrong.values()),
+              f"phase 30 (b2) {name}: a wrong twin is bit-equal {wrong}")
+        r = {"shape": [m, n, k], "k_whole": k_all, "dtype": dt, "gelu": gelu,
+             "unequal": bad, "wrong_unequal": wrong}
+        if "tp2" in name and (gelu != "erf"):
+            ex, ew = x.element_size(), w.element_size()
+            r["absmax_ms"] = times(lambda: quant.row_absmax_pair_cuda(
+                x, w, gelu))
+            r["absmax_plain_ms"] = time_ms(
+                lambda: quant.row_absmax_pair_ref(x, w, gelu), dev, iters=3)
+            r["absmax_bound_ms"], r["absmax_bound_by"] = bound(
+                0, "fp32", m * k * ex + n * k * ew + 4 * (m + n))
+            r["given_ms"] = times(lambda: quant.quantize_pair_given_cuda(
+                x, w, ax, aw, gelu))
+            r["given_plain_ms"] = time_ms(
+                lambda: quant.quantize_pair_given_ref(x, w, ax, aw, gelu),
+                dev, iters=3)
+            r["given_bound_ms"], r["given_bound_by"] = bound(
+                0, "fp32", m * k * (ex + 1) + n * k * (ew + 1) + 8 * (m + n))
+            r["i32_ms"] = times(lambda: quant.int8_matmul_i32_cuda(qa, qw))
+            r["i32_plain_ms"] = time_ms(
+                lambda: quant.int8_matmul_i32_ref(qa, qw), dev, iters=3)
+            r["i32_bound_ms"], r["i32_bound_by"] = bound(
+                2 * m * n * k, "int8", m * k + n * k + 4 * m * n)
+            try:   # the library yardstick: cuBLASLt's int32 product
+                r["i32_library_ms"] = times(lambda: torch._int_mm(qa, qw.t()))
+            except RuntimeError as e:
+                r["i32_library_ms"] = None
+                print(f"[phase 30 (b2)] torch._int_mm at {name}: {e}",
+                      flush=True)
+            r["rescale_ms"] = times(lambda: quant.int8_rescale_cuda(
+                acc, sa, sw, bias))
+            r["rescale_plain_ms"] = time_ms(
+                lambda: quant.int8_rescale_ref(acc, sa, sw, bias), dev,
+                iters=3)
+            r["rescale_bound_ms"], r["rescale_bound_by"] = bound(
+                0, "fp32", 8 * m * n + 4 * m + 8 * n)
+            # the one-process product on the whole K (the same bytes of a
+            # share's twice): quantize_pair + int8_linear
+            xw, ww = torch.cat([x, x], 1), torch.cat([w, w], 1)
+            if gelu is None:
+                r["one_launch_ms"] = times(lambda: quant.int8_linear_cuda(
+                    *quant.quantize_pair_cuda(xw, ww), bias))
+            else:
+                r["one_launch_ms"] = times(lambda: quant.int8_linear_cuda(
+                    *quant.gelu_quantize_pair_cuda(xw, ww, gelu == "tanh"),
+                    bias))
+            del xw, ww
+        out[name] = r
+        del x, w, bias, ax, aw, got_a, want_a, got_q, want_q, qa, sa, qw, sw
+        del acc, want_acc, half, own
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase30(dev, smi, voc29):
     """(a) Kernel G against its twins on all 65,536 bf16 bit patterns, 2^20
     fp32 values and lengths 1 and 7, forward and backward, and the wrong
@@ -2785,8 +3105,8 @@ def phase30(dev, smi, voc29):
     edges, the wrong twins of :func:`quant_wrong` and :func:`q1_wrong`
     outside, timed beside ``torch._int_mm`` + rescale; Q1's GELU entry
     (tanh and erf) at fc2's shape, its edges and one value a row, its
-    wrong twins outside, timed beside the former f32 tanh chain; rows past
-    Q1's cap refused; the bf16 tanh GELU, card against CPU (a reading);
+    wrong twins outside, timed beside the former f32 tanh chain; the bf16
+    tanh GELU, card against CPU (a reading); (b2) :func:`p30_two_pass`;
     (c) ``tools/bench_components_torch.py --int8`` at batch 16 with the
     counts of every kernel zeroed before and read after, its rows beside
     phase 29's bf16 ones, the int8 CAMs against the bf16 ones on the same
@@ -3177,18 +3497,6 @@ def phase30(dev, smi, voc29):
           f"Q1's GELU entry: elements unequal to the twins (bound 0) {fused}")
     check(all(v > 0 for v in fc2["wrong_unequal"].values()),
           f"Q1's GELU entry: a wrong twin is bit-equal {fc2['wrong_unequal']}")
-    # past the cap (a row of 24,576 bytes), both entries refuse
-    refused = []
-    for fn in (lambda: quant.quantize_pair_cuda(
-                   torch.zeros(2, 6152, device=dev), torch.zeros(3, 6152, device=dev)),
-               lambda: quant.gelu_quantize_pair_cuda(
-                   torch.zeros(2, 6152, device=dev), torch.zeros(3, 6152, device=dev),
-                   True)):
-        try:
-            fn()
-        except ValueError:
-            refused.append(True)
-    check(len(refused) == 2, "Q1: a row past the cap was not refused")
     # bf16 gelu_tanh (bench's main path: nine bf16 operations) on the card
     # against the same inputs on the CPU: a reading, not a gate
     xb = torch.cat([x16, (torch.randn(1 << 20, generator=g, device=dev)
@@ -3227,7 +3535,7 @@ def phase30(dev, smi, voc29):
     print(f"[Q1 gelu_quantize_pair] {smi} | fc1's fp32 output through the "
           f"GELU with fc2's weight: unequal to the twins {json.dumps(fused)} "
           f"(bound 0); wrong twins unequal {json.dumps(fc2['wrong_unequal'])}"
-          f"; past the cap refused | 12560 x 3072 fp32 + 768 x 3072 fp32, "
+          f" | 12560 x 3072 fp32 + 768 x 3072 fp32, "
           f"ms one call / back to back: tanh "
           f"{pair((fc2['ms_tanh'], fc2['ms_tanh_back_to_back']))}, erf "
           f"{pair((fc2['ms_erf'], fc2['ms_erf_back_to_back']))}, device "
@@ -3241,6 +3549,33 @@ def phase30(dev, smi, voc29):
           f"all bf16 values and 2^20 draws: "
           f"{fc2['bf16_gelu_tanh_card_vs_cpu']:.6f} of elements unequal "
           f"(a reading)", flush=True)
+
+    # -- (b2) Q1's two passes, the int32 product, the rescale --------------
+    t = time.perf_counter()
+    rec["two_pass"] = two = p30_two_pass(dev, g, bound, times, time_ms,
+                                         unequal)
+    secs["b2"] = time.perf_counter() - t
+    tp_keys = [k_ for k_, v_ in two.items() if "absmax_ms" in v_]
+    print(f"[Q1 two passes, int8_matmul_i32, int8_rescale] {smi} | each "
+          f"against its twin, bound 0 (the given maxima: the whole K's, the "
+          f"operand a share of it, as TP all-reduces them): unequal "
+          + json.dumps({k_: v_["unequal"] for k_, v_ in two.items()})
+          + " | wrong twins unequal "
+          + json.dumps({k_: v_["wrong_unequal"] for k_, v_ in two.items()})
+          + " | ms one call / back to back (bound, share of one call) at "
+          + "; ".join(
+              f"{k_} {two[k_]['shape']}: absmax {pair(two[k_]['absmax_ms'])}"
+              f" ({two[k_]['absmax_bound_ms']:.4f}), given "
+              f"{pair(two[k_]['given_ms'])} ({two[k_]['given_bound_ms']:.4f})"
+              f", i32 {pair(two[k_]['i32_ms'])} ({two[k_]['i32_bound_ms']:.4f}"
+              f", {two[k_]['i32_bound_by']}; torch._int_mm "
+              + (pair(two[k_]['i32_library_ms'])
+                 if two[k_]['i32_library_ms'] else "None")
+              + f"), rescale {pair(two[k_]['rescale_ms'])} "
+              f"({two[k_]['rescale_bound_ms']:.4f}); one-process "
+              f"quantize_pair + int8_linear {pair(two[k_]['one_launch_ms'])}"
+              for k_ in tp_keys)
+          + f" | {secs['b2']:.1f} s", flush=True)
 
     # -- (c) the int8 path ----------------------------------------------------
     t = time.perf_counter()
@@ -3894,6 +4229,31 @@ def main() -> int:
                 lambda: par_cuda.affinity_cuda(img), back_to_back=True)
             k3["plain_ms"][name] = time_ms(lambda: par_cuda.affinity_ref(img))
     aff40 = par_cuda.affinity_cuda(images7["uint8"])    # feeds phase 8
+    # past the cap: K3's global-memory instantiation at each set of
+    # P7_PAST_CAP on the uint8 image, at the same bound, the same bits twice
+    k3["past_cap"], aff_wide = {}, {}
+    for dil in P7_PAST_CAP:
+        img = images7["uint8"]
+        got = par_cuda.affinity_cuda(img, dil)
+        torch.cuda.synchronize()
+        err = (got - par_cuda.affinity_ref(img, dil)).abs().max().item()
+        key = ",".join(map(str, dil))
+        check(bool(torch.isfinite(got).all()) and err <= 1e-5,
+              f"K3 past the cap, dilations ({key}): error {err:.3g} (bound "
+              f"1e-5)")
+        check(bool(torch.equal(got, par_cuda.affinity_cuda(img, dil))),
+              f"K3 past the cap ({key}): two calls differ")
+        taps = 8 * len(dil)
+        k3["past_cap"][key] = {
+            "err": err,
+            "ms": time_ms(lambda: par_cuda.affinity_cuda(img, dil)),
+            "ms_back_to_back": time_ms(lambda: par_cuda.affinity_cuda(
+                img, dil), back_to_back=True),
+            "plain_ms": time_ms(lambda: par_cuda.affinity_ref(img, dil),
+                                iters=3),
+            "bound_ms": bound_ms(20 * taps * b7 * h7 * h7, "fp32",
+                                 b7 * h7 * h7 * (12 + 4 * taps))}
+        aff_wide[dil] = got
     del images7, smooth, got, want
     k3_share = bound_ms(0, "fp32", 16 * 224 * 224 * (12 + 4 * 48))[0] / \
         k3["ms"]["uint8"]
@@ -3903,7 +4263,13 @@ def main() -> int:
           f"{json.dumps(k3['ms'])} | back to back "
           f"{json.dumps(k3['ms_back_to_back'])} | share of the bound (uint8, "
           f"one call) {k3_share:.3f} | plain ms "
-          f"{json.dumps(k3['plain_ms'])}", flush=True)
+          f"{json.dumps(k3['plain_ms'])} | past the cap (global-memory "
+          f"instantiation, uint8 image; err, ms one call / back to back, "
+          f"bound, twin) " + "; ".join(
+              f"({k_}): {v_['err']:.3g}, {v_['ms']:.3f} / "
+              f"{v_['ms_back_to_back']:.3f}, {v_['bound_ms'][0]:.3f}, "
+              f"{v_['plain_ms']:.2f}" for k_, v_ in k3["past_cap"].items()),
+          flush=True)
 
     # -- 8. K4 against its twin ------------------------------------------------------
     # Peaked posteriors (softmax of 3x Gaussian logits) over the uint8 image's
@@ -3947,10 +4313,53 @@ def main() -> int:
                 warmup=1)
         del masks, m_in, a_in, got, want, err
     del aff40
+    # past the cap: K4's global-memory instantiation on K3's affinities of
+    # each set, C 40, fp32 and bf16, 10 rounds, at the bounds above
+    k4["past_cap"] = {}
+    for dil, img_aff in aff_wide.items():
+        shape = (img_aff.shape[0], img_aff.shape[2], img_aff.shape[3], 40)
+        masks = torch.softmax(3 * torch.randn(shape, generator=g, device=dev),
+                              -1)
+        m_in = masks.permute(0, 3, 1, 2).contiguous()
+        for cdt in ("float32", "bfloat16"):
+            a_in = img_aff.to(getattr(torch, cdt))
+            n0 = par_cuda.propagate_cuda.launches
+            got = par_cuda.propagate_cuda(m_in, a_in, dil).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            want = par_cuda.propagate_ref(masks, img_aff, dil,
+                                          compute_dtype=cdt)
+            err = (got - want).abs()
+            key = f"({','.join(map(str, dil))}),C=40,{cdt}"
+            if cdt == "float32":
+                ok = err.max().item() <= 1e-5 * want.abs().max().item()
+            else:
+                ok = (err / bf16_ulp(want.abs())).max().item() <= 2.0
+            check(ok and par_cuda.propagate_cuda.launches == n0 + 10,
+                  f"K4 past the cap {key}: error {err.max().item():.3g}")
+            taps = 8 * len(dil)
+            pix = shape[0] * shape[1] * shape[2]
+            k4["past_cap"][key] = {
+                "err": err.max().item(),
+                "ms": time_ms(lambda: par_cuda.propagate_cuda(m_in, a_in,
+                                                               dil)),
+                "plain_ms": time_ms(lambda: par_cuda.propagate_ref(
+                    masks, img_aff, dil, compute_dtype=cdt), iters=1,
+                    warmup=0),
+                "bound_ms": bound_ms(
+                    10 * 2 * taps * pix * 40 / (2 if cdt == "bfloat16" else 1),
+                    "fp32", 10 * (4 * pix * 2 * 40
+                                  + pix * taps * a_in.element_size()))}
+            del a_in, got, want, err
+        del masks, m_in
+    del aff_wide
     print(f"[K4 par_propagate] max_abs_err {json.dumps(k4['err'])} | 10 rounds "
           f"| kernel ms {json.dumps(k4['ms'])} | back to back "
           f"{json.dumps(k4['ms_back_to_back'])} | plain ms "
-          f"{json.dumps(k4['plain_ms'])}", flush=True)
+          f"{json.dumps(k4['plain_ms'])} | past the cap (global-memory "
+          f"instantiation, 10 rounds; err, ms, bound, twin) " + "; ".join(
+              f"{k_}: {v_['err']:.3g}, {v_['ms']:.3f}, "
+              f"{v_['bound_ms'][0]:.3f}, {v_['plain_ms']:.1f}"
+              for k_, v_ in k4["past_cap"].items()), flush=True)
 
     # -- 9. the pseudo-label slice ---------------------------------------------------
     from dupl_tpu_torch.engine.export import make_pseudo_label_fn
@@ -6096,8 +6505,8 @@ def main() -> int:
           f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
 
     # -- 26. tensor parallelism ----------------------------------------------------
-    launches26, k1_err26, k2_err26 = phase26(dev, expected24, bare24,
-                                             weights24)
+    launches26, k1_err26, k2_err26, int8_tp26 = phase26(
+        dev, expected24, bare24, weights24)
     del bare24, weights24
 
     # -- 27. the run operations: CAM grids, FLOP counts, the MFU line -------------
@@ -6418,7 +6827,49 @@ def main() -> int:
                                                 "library_ms_back_to_back")}
                         for k_, v_ in rec30["quant"].items() if "q2_ms" in v_}},
     ]
-    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 15,
+    # Phase 30 (b2) and phase 26: Q1's two passes, Q2's int32 product and
+    # the rescale (their launches: a rank's int8 CAM stage under tensor
+    # parallelism), timed at a rank's fc2 share (K 1536 of fc1's fp32
+    # output through the tanh GELU; proj's share beside it)
+    two = rec30["two_pass"]
+    fc2s, projs = two["fc2_tp2"], two["proj_tp2"]
+    split_replaces = ("dupl_tpu/ops/quant.py:36-48 under GSPMD (a "
+                      "row-parallel QDense: XLA's reduce, all-reduce, s32 "
+                      "dot and rescale fusion; no Pallas kernel)")
+
+    def split_entry(name, source, key, library=None):
+        return {"name": name, "route": "cuda",
+                "source": f"dupl_tpu_torch/csrc/{source}",
+                "replaces": split_replaces,
+                "launches": int8_tp26[name], "max_abs_err": 0.0,
+                "ms": fc2s[f"{key}_ms"][0],
+                "ms_back_to_back": fc2s[f"{key}_ms"][1],
+                "plain_ms": fc2s[f"{key}_plain_ms"],
+                "bound_ms": fc2s[f"{key}_bound_ms"],
+                "bound_by": fc2s[f"{key}_bound_by"],
+                "library_ms": None if library is None else library[0],
+                "library_ms_back_to_back": (None if library is None
+                                            else library[1]),
+                "shape": fc2s["shape"],
+                "proj_share": {f: projs.get(f"{key}_{f}") for f in (
+                    "ms", "plain_ms", "bound_ms")},
+                "unequal_by_shape": {k_: v_["unequal"][name]
+                                     for k_, v_ in two.items()},
+                "wrong_unequal": {k_: v_["wrong_unequal"][name]
+                                  for k_, v_ in two.items()}}
+    kernels += [
+        split_entry("row_absmax_pair", "quantize_rows.cu", "absmax"),
+        split_entry("quantize_pair_given", "quantize_rows.cu", "given"),
+        split_entry("int8_matmul_i32", "int8_gemm.cu", "i32",
+                    fc2s["i32_library_ms"]),
+        split_entry("int8_rescale", "int8_gemm.cu", "rescale"),
+    ]
+    by_name = {e["name"]: e for e in kernels}
+    for name in ("quantize_pair", "int8_linear"):
+        by_name[name]["launches_tensor_parallel"] = int8_tp26[name]
+    by_name["par_affinity"]["past_cap"] = k3["past_cap"]
+    by_name["par_propagate"]["past_cap"] = k4["past_cap"]
+    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 19,
           "a kernel of a main path never launched")
     print(f"[chip_smoke] phases 1-30 took {time.perf_counter() - t_main:.1f} s"
           f" (limit 1200)", flush=True)

@@ -53,6 +53,17 @@
 // past the operands with zeros, which add nothing to the sums, and a pair's
 // second tile past M computes zeros and stores nothing.  K is a multiple of
 // 32 and N of 8 (16-byte rows for the tensor maps).
+//
+// Two more entries split the product where its sum spans several
+// processes (a row-parallel product under tensor parallelism, whose K is
+// sharded): dupl_int8_gemm_i32 is the same kernel with the int32
+// accumulators stored as they stand (C (M, N) int32, no rescale), to be
+// summed across the processes, which is exact; dupl_int8_rescale is the
+// epilogue as a kernel of its own on that sum, (f32(C) * sa[m]) * sw[n]
+// or fma(f32(C) * sa[m], sw[n], bias[n]), so that the split product gives
+// the one-process product's bits.  The rescale reads 4 bytes and writes 4
+// an element: it is bound by the bytes, a thread taking four elements of
+// a row (16-byte loads and stores where N is a multiple of 4).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,6 +168,8 @@ __device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
                : "memory");
 }
 
+// kI32: C is int32, the accumulators as they stand (sa, sw, bias unused).
+template <bool kI32>
 __global__ void __launch_bounds__(kThreads, 1) __cluster_dims__(kCluster, 1, 1)
 int8_gemm_kernel(const __grid_constant__ Maps maps, const float* __restrict__ sa,
                  const float* __restrict__ sw, const float* __restrict__ bias,
@@ -284,8 +297,9 @@ int8_gemm_kernel(const __grid_constant__ Maps maps, const float* __restrict__ sa
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row0 = m0 + 64 * half, rw = warp * 16 + g;  // row in the half
-      const float sa0 = row0 + rw < m ? __ldg(sa + row0 + rw) : 0.0f;
-      const float sa1 = row0 + rw + 8 < m ? __ldg(sa + row0 + rw + 8) : 0.0f;
+      // (kI32 reads none of the scales and biases)
+      const float sa0 = !kI32 && row0 + rw < m ? __ldg(sa + row0 + rw) : 0.0f;
+      const float sa1 = !kI32 && row0 + rw + 8 < m ? __ldg(sa + row0 + rw + 8) : 0.0f;
       // the two halves read the same weight scales and biases: opaque
       // copies of the pointers keep the compiler from holding the first
       // half's loads in registers for the second (which spilled)
@@ -297,19 +311,26 @@ int8_gemm_kernel(const __grid_constant__ Maps maps, const float* __restrict__ sa
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * t;  // n % 8 == 0: col + 1 < n with col
-        const float2 w = col < n ? __ldg(reinterpret_cast<const float2*>(swp + col))
-                                 : make_float2(0.0f, 0.0f);
-        const float2 b = bias != nullptr && col < n
+        const float2 w = !kI32 && col < n
+                             ? __ldg(reinterpret_cast<const float2*>(swp + col))
+                             : make_float2(0.0f, 0.0f);
+        const float2 b = !kI32 && bias != nullptr && col < n
                              ? __ldg(reinterpret_cast<const float2*>(bp + col))
                              : make_float2(0.0f, 0.0f);
         const uint32_t chunk = 2 * (j % 4) + (t >> 1);  // 16-byte chunk in the row
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float s = h ? sa1 : sa0;
-          const float y0 = __fmul_rn(__int2float_rn(acc[half][4 * j + 2 * h]), s);
-          const float y1 = __fmul_rn(__int2float_rn(acc[half][4 * j + 2 * h + 1]), s);
-          const float v0 = bias != nullptr ? __fmaf_rn(y0, w.x, b.x) : __fmul_rn(y0, w.x);
-          const float v1 = bias != nullptr ? __fmaf_rn(y1, w.y, b.y) : __fmul_rn(y1, w.y);
+          float v0, v1;
+          if constexpr (kI32) {   // the int32 sums' bits, for the store
+            v0 = __int_as_float(acc[half][4 * j + 2 * h]);
+            v1 = __int_as_float(acc[half][4 * j + 2 * h + 1]);
+          } else {
+            const float s = h ? sa1 : sa0;
+            const float y0 = __fmul_rn(__int2float_rn(acc[half][4 * j + 2 * h]), s);
+            const float y1 = __fmul_rn(__int2float_rn(acc[half][4 * j + 2 * h + 1]), s);
+            v0 = bias != nullptr ? __fmaf_rn(y0, w.x, b.x) : __fmul_rn(y0, w.x);
+            v1 = bias != nullptr ? __fmaf_rn(y1, w.y, b.y) : __fmul_rn(y1, w.y);
+          }
           const uint32_t r = rw + 8 * h;
           st_shared_f2(out + (j / 4) * kBoxBytes + r * 128 + ((chunk ^ (r & 7)) << 4) +
                            ((t & 1) << 3),
@@ -343,7 +364,8 @@ int max_clusters() {
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes;
   int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, int8_gemm_kernel, &cfg) != cudaSuccess ||
+  if (cudaOccupancyMaxActiveClusters(&clusters, int8_gemm_kernel<false>, &cfg) !=
+          cudaSuccess ||
       clusters < 1) {
     cudaGetLastError();  // clear the query's error
     int sms = 132;
@@ -354,13 +376,40 @@ int max_clusters() {
   return clusters;
 }
 
-}  // namespace
+// The rescale: a thread takes kVec consecutive elements of a row.
+template <int kVec>
+__global__ void __launch_bounds__(256)
+int8_rescale_kernel(const int* __restrict__ acc, const float* __restrict__ sa,
+                    const float* __restrict__ sw, const float* __restrict__ bias,
+                    float* __restrict__ out, int64_t total, int n) {
+  const int64_t e0 = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) * kVec;
+  if (e0 >= total) return;
+  const int64_t row = e0 / n;
+  const int col = static_cast<int>(e0 - row * n);
+  const float s = __ldg(sa + row);
+  int a[kVec];
+  if constexpr (kVec == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(acc + e0));
+    a[0] = v.x, a[1] = v.y, a[2] = v.z, a[3] = v.w;
+  } else {
+    a[0] = acc[e0];
+  }
+  float y[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float p = __fmul_rn(__int2float_rn(a[i]), s);
+    y[i] = bias != nullptr ? __fmaf_rn(p, __ldg(sw + col + i), __ldg(bias + col + i))
+                           : __fmul_rn(p, __ldg(sw + col + i));
+  }
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(out + e0) = make_float4(y[0], y[1], y[2], y[3]);
+  else
+    out[e0] = y[0];
+}
 
-// a (m, k), b (n, k) int8 and c (m, n) fp32, 16-byte aligned; k a multiple
-// of 32, n of 8; bias may be null
-extern "C" int dupl_int8_gemm(const void* a, const void* sa, const void* b,
-                              const void* sw, const void* bias, void* c, int m,
-                              int n, int k, void* stream) {
+template <bool kI32>
+int gemm(const void* a, const void* sa, const void* b, const void* sw,
+         const void* bias, void* c, int m, int n, int k, void* stream) {
   if (m < 1 || n < 8 || n % 8 || k < 32 || k % 32 ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c)) % 16)
@@ -369,17 +418,60 @@ extern "C" int dupl_int8_gemm(const void* a, const void* sa, const void* b,
   if (!encode_2d(&maps.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, m, k, k, kBM, kBK) ||
       !encode_2d(&maps.b, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, n, k, k, kBN / kCluster,
                  kBK) ||
-      !encode_2d(&maps.c, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, c, m, n,
-                 static_cast<int64_t>(n) * 4, 64, kBoxCols))
+      !encode_2d(&maps.c, kI32 ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                 c, m, n, static_cast<int64_t>(n) * 4, 64, kBoxCols))
     return static_cast<int>(cudaErrorInvalidValue);
   static uint32_t configured = 0;
-  smem_bytes_once(configured, int8_gemm_kernel, kSmemBytes);
+  smem_bytes_once(configured, int8_gemm_kernel<kI32>, kSmemBytes);
   const int ctiles = ((m + kBM - 1) / kBM + kCluster - 1) / kCluster *
                      ((n + kBN - 1) / kBN);
   const int clusters = ctiles < max_clusters() ? ctiles : max_clusters();
-  int8_gemm_kernel<<<clusters * kCluster, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
+  int8_gemm_kernel<kI32><<<clusters * kCluster, kThreads, kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
       maps, static_cast<const float*>(sa), static_cast<const float*>(sw),
       static_cast<const float*>(bias), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a (m, k), b (n, k) int8 and c (m, n) fp32, 16-byte aligned; k a multiple
+// of 32, n of 8; bias may be null
+extern "C" int dupl_int8_gemm(const void* a, const void* sa, const void* b,
+                              const void* sw, const void* bias, void* c, int m,
+                              int n, int k, void* stream) {
+  return gemm<false>(a, sa, b, sw, bias, c, m, n, k, stream);
+}
+
+// a (m, k), b (n, k) int8 and c (m, n) int32, as dupl_int8_gemm takes them:
+// c = a b^T, the exact int32 sums
+extern "C" int dupl_int8_gemm_i32(const void* a, const void* b, void* c, int m,
+                                  int n, int k, void* stream) {
+  return gemm<true>(a, nullptr, b, nullptr, nullptr, c, m, n, k, stream);
+}
+
+// acc (m, n) int32, sa (m,), sw (n,), bias (n,) or null fp32, out (m, n)
+// fp32, on the device: out = (f32(acc) sa[m]) sw[n], or fma(f32(acc) sa[m],
+// sw[n], bias[n]).  acc and out 16-byte aligned when n % 4 == 0.
+extern "C" int dupl_int8_rescale(const void* acc, const void* sa, const void* sw,
+                                 const void* bias, void* out, int m, int n,
+                                 void* stream) {
+  if (m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = static_cast<int64_t>(m) * n;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(acc) |
+                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int per = vec ? 4 : 1;
+  const unsigned blocks = static_cast<unsigned>((total / per + 255) / 256);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const int*>(acc);
+  const auto* s = static_cast<const float*>(sa);
+  const auto* w = static_cast<const float*>(sw);
+  const auto* bb = static_cast<const float*>(bias);
+  auto* o = static_cast<float*>(out);
+  if (vec)
+    int8_rescale_kernel<4><<<blocks, 256, 0, st>>>(a, s, w, bb, o, total, n);
+  else
+    int8_rescale_kernel<1><<<blocks, 256, 0, st>>>(a, s, w, bb, o, total, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,17 @@
 // softmax's division multiply by reciprocals (1/3, 1/sum), and the exp is
 // ex2.approx of (l - max) log2(e): ulps of a logit or of an output, far
 // inside the card check's 1e-5.
+//
+// Past the cap (more than 6 dilations, or one over 40: a shared-memory
+// halo of PAD 40 is as wide as the tile holds) a second kernel takes any
+// set: a thread a pixel, each tap's three channels read from global memory
+// (through L1; neighbouring pixels share their taps' lines) at clamped
+// coordinates, the dilations and position constants from two small device
+// arrays, any number of 8-tap groups.  It keeps no logits in registers:
+// it sweeps the taps four times (the sums, the maximum, the sum of the
+// exps, the outputs), recomputing each logit, which gives the same bits
+// each time.  Its arithmetic is the first kernel's, with 1/K and 1/(K-1)
+// rounded at run time.  A simple kernel, for sets no recipe uses.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -218,7 +229,102 @@ cudaError_t launch_pad(int nd, const float* img, float* out, int batch, int h,
   }
 }
 
+// ---- past the cap: any dilation set
+
+// Tap k's three channel values at (y, x) under dilation set dil.
+__device__ __forceinline__ void tap_values(const float* ib, const int* dil,
+                                           int k, int y, int x, int h, int w,
+                                           float (&t)[3]) {
+  const int d = __ldg(dil + (k >> 3)), o = k & 7;
+  const int dy = o < 3 ? -1 : o < 5 ? 0 : 1;
+  const int dx = (o == 0 || o == 3 || o == 5) ? -1 : (o == 1 || o == 6) ? 0 : 1;
+  const int yy = min(max(y + dy * d, 0), h - 1);
+  const int xx = min(max(x + dx * d, 0), w - 1);
+  const float* p = ib + (static_cast<int64_t>(yy) * w + xx) * 3;
+  t[0] = __ldg(p);
+  t[1] = __ldg(p + 1);
+  t[2] = __ldg(p + 2);
+}
+
+// A thread a pixel: blocks of 32 columns by kAnyRows rows of one image.
+constexpr int kAnyRows = 8;
+
+__global__ void __launch_bounds__(32 * kAnyRows)
+par_affinity_any_kernel(const float* __restrict__ img, float* __restrict__ out,
+                        int h, int w, float inv_w1, const int* __restrict__ dil,
+                        const float* __restrict__ pos, int nd) {
+  const int b = blockIdx.z;
+  const int x = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int y = blockIdx.y * kAnyRows + (threadIdx.x >> 5);
+  if (x >= w || y >= h) return;
+  const float* ib = img + static_cast<int64_t>(b) * h * w * 3;
+  const int K = 8 * nd;
+  float s1[3] = {0.f, 0.f, 0.f}, s2[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k < K; ++k) {
+    float t[3];
+    tap_values(ib, dil, k, y, x, h, w, t);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      s1[ch] = __fadd_rn(s1[ch], t[ch]);
+      s2[ch] = __fadd_rn(s2[ch], __fmul_rn(t[ch], t[ch]));
+    }
+  }
+  const float inv_k = 1.0f / K, inv_k1 = 1.0f / (K - 1);
+  float xc[3], inv[3];
+  const float* c = ib + (static_cast<int64_t>(y) * w + x) * 3;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    xc[ch] = __ldg(c + ch);
+    const float mean = __fmul_rn(s1[ch], inv_k);
+    const float var = __fmul_rn(
+        fmaxf(__fsub_rn(s2[ch], __fmul_rn(__fmul_rn(static_cast<float>(K),
+                                                    mean), mean)), 0.f),
+        inv_k1);
+    inv[ch] = __fdiv_rn(inv_w1, __fadd_rn(__fsqrt_rn(var), 1e-8f));
+  }
+  auto logit = [&](int k) {
+    float t[3];
+    tap_values(ib, dil, k, y, x, h, w, t);
+    float q;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float z = __fmul_rn(fabsf(__fsub_rn(t[ch], xc[ch])), inv[ch]);
+      q = ch ? __fadd_rn(q, __fmul_rn(z, z)) : __fmul_rn(z, z);
+    }
+    return -__fmul_rn(q, 1.0f / 3);
+  };
+  float mx = -INFINITY;
+  for (int k = 0; k < K; ++k) mx = fmaxf(mx, logit(k));
+  float sum = 0.f;
+  for (int k = 0; k < K; ++k)
+    sum += ex2(__fmul_rn(logit(k) - mx, 1.4426950408889634f));
+  const float rs = __frcp_rn(sum);
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  float* ob = out + static_cast<int64_t>(b) * K * hw + static_cast<int64_t>(y) * w + x;
+  for (int k = 0; k < K; ++k)
+    __stcs(ob + k * hw,
+           fmaf(ex2(__fmul_rn(logit(k) - mx, 1.4426950408889634f)), rs,
+                __ldg(pos + k)));
+}
+
 }  // namespace
+
+// img (B, H, W, 3) and out (B, 8*nd, H, W): float32, contiguous, on the
+// device; dil (nd ints, each >= 1) and pos (8*nd floats) on the device too:
+// any dilation set, by the kernel past the cap.
+extern "C" int dupl_par_affinity_any(const void* img, void* out, int batch,
+                                     int h, int w, int nd, const int* dil,
+                                     const float* pos, float inv_w1,
+                                     void* stream) {
+  if (nd < 1 || batch < 1 || batch > 65535 || h < 1 || w < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((w + 31) / 32, (h + kAnyRows - 1) / kAnyRows, batch);
+  par_affinity_any_kernel<<<grid, 32 * kAnyRows, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), static_cast<float*>(out), h, w, inv_w1,
+      dil, pos, nd);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // img (B, H, W, 3) and out (B, 8*nd, H, W): float32, contiguous, on the
 // device.  dil (nd host ints, 1 <= nd <= 6, each in [1, 40]) and pos (8*nd

@@ -55,6 +55,14 @@
 // from L2, and 6.2 GB of tap reads from shared memory: ~0.2 ms a round at
 // 128 bytes a clock an SM, the floor of this design.  The fill now runs
 // beside the sums instead of before them.
+//
+// Past the cap (more than 6 dilations, or one over 40, whose halo the two
+// stages cannot hold) a second kernel takes any set: a thread an output
+// pixel-channel, each tap read from global memory (through L1) at clamped
+// coordinates, the dilations from a small device array, any number of
+// 8-tap groups, in the same two modes (fp32: fused multiply-adds in tap
+// order; bf16: bf16 products and partial sums within a group of 8 taps,
+// group sums in fp32).  A simple kernel, for sets no recipe uses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -370,7 +378,81 @@ int dispatch(int nd, const float* src, const void* aff, float* dst, int batch,
   }
 }
 
+// ---- past the cap: any dilation set
+
+constexpr int kAnyRows = 8;   // a block: 32 columns by 8 rows of a plane
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kAnyRows)
+par_propagate_any_kernel(const float* __restrict__ src, const T* __restrict__ aff,
+                         float* __restrict__ dst, int channels, int h, int w,
+                         const int* __restrict__ dil, int nd) {
+  const int bc = blockIdx.z;               // image b, channel c
+  const int x = blockIdx.x * kTileW + (threadIdx.x & 31);
+  const int y = blockIdx.y * kAnyRows + (threadIdx.x >> 5);
+  if (x >= w || y >= h) return;
+  const int b = bc / channels;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const float* plane = src + static_cast<int64_t>(bc) * hw;
+  const T* ab = aff + static_cast<int64_t>(b) * 8 * nd * hw +
+                static_cast<int64_t>(y) * w + x;
+  float o = 0.f;
+  for (int g = 0; g < nd; ++g) {
+    const int d = __ldg(dil + g);
+    uint32_t acc = 0;
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      const int dy = t < 3 ? -1 : t < 5 ? 0 : 1;
+      const int dx = (t == 0 || t == 3 || t == 5) ? -1 : (t == 1 || t == 6) ? 0 : 1;
+      const int yy = min(max(y + dy * d, 0), h - 1);
+      const int xx = min(max(x + dx * d, 0), w - 1);
+      const float v = __ldg(plane + static_cast<int64_t>(yy) * w + xx);
+      const T a = ab[(8 * g + t) * hw];
+      if constexpr (sizeof(T) == 4) {
+        o = fmaf(v, a, o);
+      } else {
+        // the value and the affinity in both halves of a bf16x2 word: the
+        // low half's product and sum round as the twin's bf16 operations
+        const uint32_t vv = pack_bf16x2(v, v);
+        const uint16_t ab16 = *reinterpret_cast<const uint16_t*>(&a);
+        const uint32_t p = mul_bf16x2(vv, ab16 | (static_cast<uint32_t>(ab16) << 16));
+        acc = t == 0 ? p : add_bf16x2(acc, p);
+      }
+    }
+    if constexpr (sizeof(T) == 2) {
+      const float f = unpack_bf16x2(acc).x;
+      o = g == 0 ? f : o + f;
+    }
+  }
+  dst[static_cast<int64_t>(bc) * hw + static_cast<int64_t>(y) * w + x] = o;
+}
+
 }  // namespace
+
+// src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) float32 (bf16 == 0)
+// or bfloat16 (bf16 != 0), contiguous, on the device, src != dst; dil (nd
+// ints, each >= 1) on the device: any dilation set, by the kernel past the
+// cap.
+extern "C" int dupl_par_propagate_any(const void* src, const void* aff,
+                                      void* dst, int batch, int channels,
+                                      int h, int w, int nd, const int* dil,
+                                      int bf16, void* stream) {
+  if (nd < 1 || batch < 1 || channels < 1 || h < 1 || w < 1 ||
+      static_cast<int64_t>(batch) * channels > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kAnyRows - 1) / kAnyRows,
+                  batch * channels);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(src);
+  float* d = static_cast<float*>(dst);
+  if (bf16)
+    par_propagate_any_kernel<__nv_bfloat16><<<grid, 32 * kAnyRows, 0, st>>>(
+        s, static_cast<const __nv_bfloat16*>(aff), d, channels, h, w, dil, nd);
+  else
+    par_propagate_any_kernel<float><<<grid, 32 * kAnyRows, 0, st>>>(
+        s, static_cast<const float*>(aff), d, channels, h, w, dil, nd);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) float32 (bf16 == 0)
 // or bfloat16 (bf16 != 0): contiguous, on the device, src != dst.  dil: nd

@@ -34,7 +34,21 @@
 // the erf one, whose branches diverge) weighs as much as the bytes.
 //
 // Rows of at most kThreads * kChunks * 16 = 24,576 bytes: K <= 6144 in fp32
-// (ViT-H's hidden 5120), 12,288 in bf16; the wrapper refuses wider ones.
+// (ViT-H's hidden 5120), 12,288 in bf16.
+//
+// Two more entries take the same quantization in two passes, for rows of
+// any width and for rows whose maxima span several processes (a
+// row-parallel product under tensor parallelism: the maxima of each
+// process's share are all-reduced between the passes):
+//   * dupl_row_absmax_pair: the maxima of |x| (or of |gelu(x)|) a row and of
+//     |w| a row, fp32.  A warp a row, each lane streaming 16-byte chunks
+//     (four loads in flight) and a shuffle butterfly at the end;
+//   * dupl_quantize_pair_given: q and s from given maxima, by the same
+//     recipe (s = max(amax f32(1/127), 1e-8), the division as above).  A
+//     thread a 16-byte chunk; the GELU is taken again in registers, so the
+//     fp32 GELU tensor is not written in either pass.
+// The maximum is exact in any order, so the two passes give the one-launch
+// entry's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,7 +243,208 @@ void launch(int gelu, const Operand& x, const Operand& w, int k,
   quantize_pair_kernel<TX, TW, kNone><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
 }
 
+// ---- the two-pass entries: any row width, maxima that may come from
+// elsewhere
+
+constexpr int kUnroll = 4;  // 16-byte loads a lane has in flight
+
+// The maxima of |x| (through the GELU kGelu) of the block's rows of one
+// operand, a warp a row, into op.s.
+template <typename T, int kGelu>
+__device__ __forceinline__ void absmax_rows(const Operand& op, int block,
+                                            int k) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kGelu == kNone || kVec == 4, "the GELU takes fp32 rows");
+  const int row = block * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= op.rows) return;  // a whole warp: the shuffles below stay full
+  const int chunks = k / kVec;
+  const uint4* xr = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(op.x) + static_cast<int64_t>(row) * k);
+  float amax = 0.0f;
+  for (int c0 = lane; c0 < chunks; c0 += 32 * kUnroll) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (c0 + 32 * u < chunks) raw[u] = ld_stream(xr + c0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c0 + 32 * u >= chunks) break;
+      if constexpr (kGelu != kNone) {
+        raw[u].x = activation<kGelu>(raw[u].x);
+        raw[u].y = activation<kGelu>(raw[u].y);
+        raw[u].z = activation<kGelu>(raw[u].z);
+        raw[u].w = activation<kGelu>(raw[u].w);
+      }
+      float f[kVec];
+      unpack<T>(raw[u], f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) amax = fmaxf(amax, fabsf(f[i]));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (lane == 0) op.s[row] = amax;
+}
+
+// Blocks [0, x_blocks) take x's rows (through the GELU kGelu), the rest w's.
+template <typename TX, typename TW, int kGelu>
+__global__ void __launch_bounds__(kThreads)
+row_absmax_pair_kernel(Operand x, Operand w, int x_blocks, int k) {
+  if (static_cast<int>(blockIdx.x) < x_blocks)
+    absmax_rows<TX, kGelu>(x, blockIdx.x, k);
+  else
+    absmax_rows<TW, kNone>(w, blockIdx.x - x_blocks, k);
+}
+
+// One 16-byte chunk of one operand quantized by its row's given maximum;
+// the row's first chunk writes its scale.
+template <typename T, int kGelu>
+__device__ __forceinline__ void quantize_chunk(const Operand& op,
+                                               const float* amax,
+                                               int64_t chunk, int k) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kGelu == kNone || kVec == 4, "the GELU takes fp32 rows");
+  const int chunks = k / kVec;
+  const int64_t row = chunk / chunks;
+  const int c = static_cast<int>(chunk - row * chunks);
+  uint4 raw = ld_stream(static_cast<const T*>(op.x) + row * k + c * kVec);
+  if constexpr (kGelu != kNone) {
+    raw.x = activation<kGelu>(raw.x);
+    raw.y = activation<kGelu>(raw.y);
+    raw.z = activation<kGelu>(raw.z);
+    raw.w = activation<kGelu>(raw.w);
+  }
+  float sc = __fmul_rn(__ldg(amax + row), kInv127);
+  sc = sc < kMinScale ? kMinScale : sc;
+  const float rc = __frcp_rn(sc);
+  float f[kVec];
+  unpack<T>(raw, f);
+  uint32_t wd[kVec / 4];
+#pragma unroll
+  for (int i = 0; i < kVec / 4; ++i)
+    wd[i] = pack4(quant(f[4 * i], sc, rc), quant(f[4 * i + 1], sc, rc),
+                  quant(f[4 * i + 2], sc, rc), quant(f[4 * i + 3], sc, rc));
+  int8_t* qr = op.q + row * k;
+  if constexpr (kVec == 8)
+    reinterpret_cast<uint2*>(qr)[c] = make_uint2(wd[0], wd[1]);
+  else
+    reinterpret_cast<uint32_t*>(qr)[c] = wd[0];
+  if (c == 0) op.s[row] = sc;
+}
+
+// A thread a chunk: x's chunks (through the GELU kGelu) first, w's after.
+template <typename TX, typename TW, int kGelu>
+__global__ void __launch_bounds__(kThreads)
+quantize_pair_given_kernel(Operand x, Operand w, const float* amax_x,
+                           const float* amax_w, int64_t x_chunks,
+                           int64_t chunks, int k) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < x_chunks)
+    quantize_chunk<TX, kGelu>(x, amax_x, i, k);
+  else if (i < chunks)
+    quantize_chunk<TW, kNone>(w, amax_w, i - x_chunks, k);
+}
+
+// The two-pass kernels' launches for the operand types TX, TW: the maxima
+// (amax_x, amax_w null) or the quantization by given maxima.
+template <typename TX, typename TW>
+void launch_two_pass(int gelu, const Operand& x, const Operand& w, int k,
+                     const float* amax_x, const float* amax_w,
+                     cudaStream_t st) {
+  if (amax_x == nullptr) {
+    constexpr int rows_per_block = kThreads / 32;
+    const int xb = (x.rows + rows_per_block - 1) / rows_per_block;
+    const int blocks = xb + (w.rows + rows_per_block - 1) / rows_per_block;
+    if constexpr (sizeof(TX) == 4) {   // the GELU entries take fp32 x
+      if (gelu == kTanh) {
+        row_absmax_pair_kernel<TX, TW, kTanh><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
+        return;
+      }
+      if (gelu == kErf) {
+        row_absmax_pair_kernel<TX, TW, kErf><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
+        return;
+      }
+    }
+    row_absmax_pair_kernel<TX, TW, kNone><<<blocks, kThreads, 0, st>>>(x, w, xb, k);
+    return;
+  }
+  const int64_t xc = static_cast<int64_t>(x.rows) * (k / (16 / sizeof(TX)));
+  const int64_t all = xc + static_cast<int64_t>(w.rows) * (k / (16 / sizeof(TW)));
+  const unsigned blocks = static_cast<unsigned>((all + kThreads - 1) / kThreads);
+  if constexpr (sizeof(TX) == 4) {
+    if (gelu == kTanh) {
+      quantize_pair_given_kernel<TX, TW, kTanh><<<blocks, kThreads, 0, st>>>(
+          x, w, amax_x, amax_w, xc, all, k);
+      return;
+    }
+    if (gelu == kErf) {
+      quantize_pair_given_kernel<TX, TW, kErf><<<blocks, kThreads, 0, st>>>(
+          x, w, amax_x, amax_w, xc, all, k);
+      return;
+    }
+  }
+  quantize_pair_given_kernel<TX, TW, kNone><<<blocks, kThreads, 0, st>>>(
+      x, w, amax_x, amax_w, xc, all, k);
+}
+
+// Either two-pass entry: amax_x and amax_w null for the maxima (into sx,
+// sw), else the quantization by them.
+int two_pass(const void* x, const void* w, const float* amax_x,
+             const float* amax_w, void* qx, void* sx, void* qw, void* sw,
+             int rows_x, int rows_w, int k, int x_bf16, int w_bf16, int gelu,
+             void* stream) {
+  const bool maxima = amax_x == nullptr;
+  const auto misaligned = [](const void* p, int a) {
+    return reinterpret_cast<uintptr_t>(p) % a != 0;
+  };
+  if (rows_x < 0 || rows_w < 0 || rows_x + rows_w < 1 || k < 8 || k % 8 ||
+      gelu < kNone || gelu > kErf || (gelu && x_bf16) || misaligned(x, 16) ||
+      misaligned(w, 16) || (!maxima && (amax_w == nullptr ||
+                                        misaligned(qx, 8) || misaligned(qw, 8))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Operand ox{x, static_cast<int8_t*>(qx), static_cast<float*>(sx), rows_x, 0};
+  const Operand ow{w, static_cast<int8_t*>(qw), static_cast<float*>(sw), rows_w, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && w_bf16)
+    launch_two_pass<__nv_bfloat16, __nv_bfloat16>(gelu, ox, ow, k, amax_x, amax_w, st);
+  else if (x_bf16)
+    launch_two_pass<__nv_bfloat16, float>(gelu, ox, ow, k, amax_x, amax_w, st);
+  else if (w_bf16)
+    launch_two_pass<float, __nv_bfloat16>(gelu, ox, ow, k, amax_x, amax_w, st);
+  else
+    launch_two_pass<float, float>(gelu, ox, ow, k, amax_x, amax_w, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// x (rows_x, k) and w (rows_w, k) as dupl_quantize_pair takes them, k any
+// multiple of 8 -> amax_x (rows_x,) and amax_w (rows_w,) fp32: the maxima
+// of |gelu(x)| (gelu 1 or 2, x fp32) or of |x|, and of |w|, a row.
+extern "C" int dupl_row_absmax_pair(const void* x, const void* w, void* amax_x,
+                                    void* amax_w, int rows_x, int rows_w,
+                                    int k, int x_bf16, int w_bf16, int gelu,
+                                    void* stream) {
+  return two_pass(x, w, nullptr, nullptr, nullptr, amax_x, nullptr, amax_w,
+                  rows_x, rows_w, k, x_bf16, w_bf16, gelu, stream);
+}
+
+// dupl_quantize_pair's outputs for rows of any width k (a multiple of 8),
+// each row quantized by its given maximum amax_x[r] or amax_w[r] (fp32, on
+// the device) in place of its own.
+extern "C" int dupl_quantize_pair_given(const void* x, const void* w,
+                                        const void* amax_x, const void* amax_w,
+                                        void* qx, void* sx, void* qw, void* sw,
+                                        int rows_x, int rows_w, int k,
+                                        int x_bf16, int w_bf16, int gelu,
+                                        void* stream) {
+  if (amax_x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return two_pass(x, w, static_cast<const float*>(amax_x),
+                  static_cast<const float*>(amax_w), qx, sx, qw, sw, rows_x,
+                  rows_w, k, x_bf16, w_bf16, gelu, stream);
+}
 
 // x (rows_x, k) and w (rows_w, k) contiguous and 16-byte aligned, bf16 or
 // fp32 each (x_bf16, w_bf16), k a multiple of 8 with a row of at most

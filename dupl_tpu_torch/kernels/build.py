@@ -72,7 +72,10 @@ OPS = {"exp_attention": "exp_attention",
        "par_propagate": "par_propagate",
        "gelu_erf": "gelu_erf", "gelu_erf_bwd": "gelu_erf",
        "quantize_pair": "quantize_rows", "gelu_quantize_pair": "quantize_rows",
-       "int8_linear": "int8_gemm"}
+       "row_absmax_pair": "quantize_rows",
+       "quantize_pair_given": "quantize_rows",
+       "int8_linear": "int8_gemm", "int8_matmul_i32": "int8_gemm",
+       "int8_rescale": "int8_gemm"}
 
 
 def _digest(src: Path) -> str:

@@ -67,11 +67,16 @@ class Linear(nn.Linear):
     row-parallel on this rank's share; a row-parallel product is summed
     over the model group before the bias.  ``quant`` (the reference's
     ``QDense(quant=True)``): the dynamic int8 product
-    (``ops/quant.py:quantized_matmul``), fp32 out, the bias added in fp32;
-    not with tensor parallelism (the reference's abs-max scales would span
-    a row-parallel weight's shards).  With ``quant``, ``gelu`` ("tanh" or
-    "erf") takes the GELU of the float32 input inside the input's
-    quantization (fc2 of an int8 ``Mlp``: one kernel on the card)."""
+    (``ops/quant.py:quantized_matmul``), fp32 out, the bias added in fp32.
+    Under tensor parallelism a column-parallel layer takes that product on
+    its rows of the weight (the whole K: its share of the one-device
+    output); a row-parallel one all-reduces the maxima of its shares of K
+    before it quantizes them and the int32 sums before the rescale and the
+    bias (``tensor_parallel.quantized_row_parallel``), so that the model
+    group's output is the one-device product's, bit for bit.  With
+    ``quant``, ``gelu`` ("tanh" or "erf") takes the GELU of the float32
+    input inside the input's quantization (fc2 of an int8 ``Mlp``: one
+    kernel on the card, or one a pass)."""
 
     tp = None
     tp_role = None
@@ -87,10 +92,9 @@ class Linear(nn.Linear):
                 gelu: Optional[str] = None) -> torch.Tensor:
         cd = self.compute_dtype
         if self.quant:
-            if self.tp is not None:
-                raise ValueError("int8 inference (quantized_inference) is not "
-                                 "ported to tensor parallelism "
-                                 "(--model-parallel > 1)")
+            if self.tp_role == "row":
+                return tensor_parallel.quantized_row_parallel(
+                    x, self.weight, self.bias, self.tp, gelu)
             return quantized_matmul(x, self.weight, self.bias, gelu=gelu)
         if gelu is not None:
             raise ValueError("Linear: gelu is taken only with quant")

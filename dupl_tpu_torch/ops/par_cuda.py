@@ -13,6 +13,12 @@
   :func:`propagate_ref`, which follows ``propagate_pallas``:
   fp32, or with ``compute_dtype="bfloat16"`` taps and affinities in bf16,
   products summed in bf16 within groups of 8 taps, group sums in fp32.
+
+K3 and K4 stage a tile's haloed input in shared memory and hold a pixel's
+taps in registers, for 1 to 6 dilations of at most 40 (every recipe's set
+is (1, 2, 4, 8, 12, 24)); any other set of positive integer dilations
+takes each kernel's second instantiation, which reads the taps from global
+memory at clamped coordinates and loops over any number of 8-tap groups.
 """
 
 from __future__ import annotations
@@ -35,10 +41,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _check_dilations(dilations: Sequence[int]) -> None:
-    if not 1 <= len(dilations) <= _MAX_DILATIONS or not all(
-            isinstance(d, int) and 1 <= d <= _MAX_DILATION for d in dilations):
-        raise ValueError(f"PAR kernels take 1 to {_MAX_DILATIONS} integer "
-                         f"dilations in [1, {_MAX_DILATION}], got {dilations}")
+    if not dilations or not all(isinstance(d, int) and d >= 1
+                                for d in dilations):
+        raise ValueError(f"PAR kernels take one or more positive integer "
+                         f"dilations, got {dilations}")
+
+
+def within_cap(dilations: Sequence[int]) -> bool:
+    """Whether K3's and K4's shared-memory instantiations take the set (1
+    to 6 dilations, each at most 40); others take the global-memory ones."""
+    return len(dilations) <= _MAX_DILATIONS and max(dilations) <= _MAX_DILATION
 
 
 def _compute_dtype(name: str) -> torch.dtype:
@@ -124,15 +136,31 @@ def _entries():
     ``csrc/par_propagate.cu``, built on first use."""
     from dupl_tpu_torch.kernels import build
 
-    aff = build.load("par_affinity").dupl_par_affinity
-    aff.restype = ctypes.c_int
-    aff.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
-    prop = build.load("par_propagate").dupl_par_propagate
-    prop.restype = ctypes.c_int
-    prop.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    return aff, prop
+    aff_types = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    prop_types = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    out = {}
+    for lib, name, types in (("par_affinity", "affinity", aff_types),
+                             ("par_propagate", "propagate", prop_types)):
+        for entry in (name, f"{name}_any"):   # past the cap: any dilations
+            fn = getattr(build.load(lib), f"dupl_par_{entry}")
+            fn.restype, fn.argtypes = ctypes.c_int, types
+            out[entry] = fn
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_args(dilations: Tuple[int, ...], device: torch.device,
+                 w1=None, w2=None):
+    """The past-the-cap kernels' arguments for a dilation set: the
+    dilations (int32) and, given ``w1`` and ``w2``, K3's position
+    constants (fp32) as device arrays, made once a set and device."""
+    dil = torch.tensor(dilations, dtype=torch.int32, device=device)
+    if w1 is None:
+        return dil, None
+    return dil, torch.tensor(position_affinity(dilations, w1, w2),
+                             dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,11 +198,18 @@ def _affinity_kernel(imgs: torch.Tensor, dilations: Sequence[int],
     b, h, w, _ = imgs.shape
     out = torch.empty((b, 8 * len(dilations), h, w), dtype=torch.float32,
                       device=imgs.device)
-    dil, pos = _affinity_args(tuple(dilations), float(w1), float(w2))
+    dilations = tuple(dilations)
     with torch.cuda.device(imgs.device):
-        status = _entries()[0](imgs.data_ptr(), out.data_ptr(), b, h, w,
-                               len(dilations), dil, pos, 1.0 / w1,
-                               _raw_stream(imgs.device))
+        if within_cap(dilations):
+            dil, pos = _affinity_args(dilations, float(w1), float(w2))
+            entry = _entries()["affinity"]
+        else:
+            dil, pos = (t.data_ptr() for t in _device_args(
+                dilations, imgs.device, float(w1), float(w2)))
+            entry = _entries()["affinity_any"]
+        status = entry(imgs.data_ptr(), out.data_ptr(), b, h, w,
+                       len(dilations), dil, pos, 1.0 / w1,
+                       _raw_stream(imgs.device))
     build.check(status, "par_affinity")
     affinity_cuda.launches += 1
     return out
@@ -203,17 +238,21 @@ def _propagate_kernel(masks: torch.Tensor, aff: torch.Tensor,
         raise ValueError(f"par propagate: num_iter must be >= 0, got {num_iter}")
     if num_iter == 0:
         return masks.clone()
-    dil = (ctypes.c_int * len(dilations))(*dilations)
+    if within_cap(dilations):
+        dil = (ctypes.c_int * len(dilations))(*dilations)
+        entry = _entries()["propagate"]
+    else:
+        dil = _device_args(tuple(dilations), masks.device)[0].data_ptr()
+        entry = _entries()["propagate_any"]
     bufs = [torch.empty_like(masks) for _ in range(min(num_iter, 2))]
     src = masks
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(num_iter):       # ping-pong: round i reads round i-1
             dst = bufs[i % 2]
-            status = _entries()[1](src.data_ptr(), aff.data_ptr(),
-                                   dst.data_ptr(), b, c, h, w, len(dilations),
-                                   dil, int(aff.dtype == torch.bfloat16),
-                                   stream)
+            status = entry(src.data_ptr(), aff.data_ptr(), dst.data_ptr(),
+                           b, c, h, w, len(dilations), dil,
+                           int(aff.dtype == torch.bfloat16), stream)
             build.check(status, "par_propagate")
             propagate_cuda.launches += 1
             src = dst

@@ -119,7 +119,8 @@ def _worker(rank: int, world: int, port: int, results, job: Job) -> None:
                       MASTER_PORT=str(port))
     d, _ = init_from_env("cpu", n_model=job.n_model)
     try:
-        results.put((rank, run_rank(job, d)))
+        results.put((rank, run_rank(job, d) if isinstance(job, Job)
+                     else job.run(d)))
     finally:
         d.close()
 
@@ -130,9 +131,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_spawned(world: int, job: Job, timeout: float = 600.0) -> List[Dict]:
+def run_spawned(world: int, job, timeout: float = 600.0) -> List:
     """Run ``job`` in ``world`` spawned gloo CPU processes; their
-    :func:`run_rank` results in rank order."""
+    :func:`run_rank` results in rank order.  ``job`` may also be any
+    picklable object with ``n_model`` and ``run(d)``, whose results are
+    returned instead (an inference job)."""
     return spawn_ranks(_worker, world, (job,), timeout)
 
 

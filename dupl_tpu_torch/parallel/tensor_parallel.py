@@ -33,6 +33,16 @@ The layers (:data:`SPECS`):
 * everything else (the patch embedding, ``pos_embed``, ``cls_token``, the
   norms, ``conv8``, the classifiers) is replicated.
 
+With int8 inference (``ModelConfig.quantized_inference``) the products are
+w8a8 (``ops/quant.py``) and computed as the one-device product is, bit for
+bit, as the JAX package's GSPMD partitions ``QDense(quant=True)``: a
+column-parallel layer quantizes its replicated input and its rows of the
+weight over the whole K, so its share of the output is the one-device
+product's; a row-parallel layer (:func:`quantized_row_parallel`) takes the
+maxima of its shares of K, all-reduces them (MAX) in one collective,
+quantizes its shares by them, multiplies them into int32 sums,
+all-reduces those (SUM, exact) and only then rescales and adds the bias.
+
 Activations are replicated at block boundaries, so every rank of a model group runs the
 CAM fusion, PAR, the GMM and the losses on the same values, as the JAX
 package's replicated activations do.  The layout differs from the JAX
@@ -49,6 +59,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from dupl_tpu_torch.ops import quant
 from dupl_tpu_torch.parallel.data_parallel import _buckets
 
 # (name suffix, split dim, blocks): a leaf whose name ends with the suffix is
@@ -210,6 +221,32 @@ def parallel_conv(x: torch.Tensor, w: torch.Tensor, conv: torch.nn.Conv2d,
     if role == "column":
         return _ColumnParallel.apply(x, w, d.model_group, kw)
     return _RowParallel.apply(x.to(w.dtype), w, d.model_group, kw)
+
+
+@torch.no_grad()
+def quantized_row_parallel(x: torch.Tensor, w: torch.Tensor,
+                           bias: Optional[torch.Tensor], d,
+                           gelu: Optional[str] = None) -> torch.Tensor:
+    """The int8 product of a row-parallel layer (inference only): ``x``
+    (..., K / n) this rank's input features (fc2: fc1's fp32 output, whose
+    ``gelu`` is taken inside the quantization), ``w`` (N, K / n) its
+    columns, ``bias`` (N,) replicated -> (..., N) float32 on every rank of
+    the model group, the bits of ``quant.quantized_matmul`` on the whole K.
+    The activation's row maxima and the weight's are all-reduced together
+    (MAX), each rank quantizes its shares by them, and the int32 partial
+    sums are all-reduced (SUM) before the rescale and the bias: a rescale or
+    a bias before the sum would round each rank's share on its own."""
+    x2, wq, b = quant.product_operands(x, w, bias, gelu)
+    amax_x, amax_w = quant.row_absmax_pair(x2, wq, gelu)
+    amax = torch.cat([amax_x, amax_w])
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=d.model_group)
+    m = x2.shape[0]
+    qa, sa, qw, sw = quant.quantize_pair_given(x2, wq, amax[:m], amax[m:],
+                                               gelu)
+    acc = quant.int8_matmul_i32(qa, qw)
+    dist.all_reduce(acc, group=d.model_group)
+    y = quant.int8_rescale(acc, sa, sw, b)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 # ------------------------------------------------------------------ layout

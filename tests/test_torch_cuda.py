@@ -439,12 +439,13 @@ def _smooth_image(b, h, w, dev, seed):
 @pytest.mark.parametrize("b,h,w", [(2, 37, 53), (1, 12, 20), (3, 1, 30),
                                    (1, 64, 1), (2, 224, 224), (1, 33, 65),
                                    (1, 96, 31)])
-@pytest.mark.parametrize("dil", [DIL, (1, 3), (2, 25, 40)])
+@pytest.mark.parametrize("dil", [DIL, (1, 3), (2, 25, 40),
+                                 (1, 2, 4, 8, 12, 24, 48), (2, 64)])
 def test_par_affinity_shapes(dev, b, h, w, dil):
     """K3 against its twin at ragged sizes, tiles that overhang the image
     (K3's tiles are 32 columns by 32 rows), sizes below the largest
     dilation (every tap clamps) and other dilation sets (up to 40, the
-    wider halo): bound 1e-5 on values in [0, 1.01] (kernel and twin round
+    wider halo; past the cap, the global-memory instantiation): bound 1e-5 on values in [0, 1.01] (kernel and twin round
     alike, even where the variance cancels; see chip_smoke.py); two calls
     give the same bits."""
     img = _smooth_image(b, h, w, dev, seed=h * w)
@@ -516,6 +517,30 @@ def test_par_propagate_shapes(dev, c, compute_dtype, b, h, w):
         assert (err <= 2 * ulp).all()
 
 
+@pytest.mark.parametrize("dil", [(1, 2, 4, 8, 12, 24, 48), (2, 64)])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 53, 5), (1, 100, 70, 21)])
+def test_par_propagate_past_the_cap(dev, dil, compute_dtype, b, h, w, c):
+    """K4's global-memory instantiation (more than 6 dilations, or one past
+    40) against its twin at test_par_propagate_shapes's bounds, 10 rounds,
+    10 launches."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    masks = torch.softmax(torch.randn(b, h, w, c, generator=g, device=dev)
+                          * 3, -1)
+    aff = par_cuda.affinity(_smooth_image(b, h, w, dev, seed=c), dil)
+    n0 = par_cuda.propagate_cuda.launches
+    got = par_cuda.propagate(masks, aff, dil, 10, compute_dtype)
+    assert par_cuda.propagate_cuda.launches == n0 + 10
+    want = par_cuda.propagate_ref(masks, aff, dil, 10, compute_dtype)
+    err = (got - want).abs()
+    if compute_dtype == "float32":
+        assert err.max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        assert (err <= 2 * ulp).all()
+
+
 def test_par_refine_card_matches_cpu(dev):
     """PAR on the card (K3, K4) against the CPU (twins): refined values
     within 1e-4 (the affinities differ by fp32 roundings only)."""
@@ -536,7 +561,7 @@ def test_par_kernels_reject_bad_operands(dev):
     with pytest.raises(ValueError, match=r"\(B, H, W, 3\)"):
         par_cuda.affinity_cuda(torch.zeros(1, 8, 8, 4, device=dev), DIL)
     with pytest.raises(ValueError, match="dilations"):
-        par_cuda.affinity_cuda(img, (1, 2, 3, 4, 5, 6, 7))
+        par_cuda.affinity_cuda(img, ())
     with pytest.raises(ValueError, match="dilations"):
         par_cuda.affinity_cuda(img, (0, 2))
     m = torch.zeros(1, 5, 8, 8, device=dev)
@@ -548,7 +573,7 @@ def test_par_kernels_reject_bad_operands(dev):
     with pytest.raises(TypeError):
         par_cuda.propagate_cuda(m, aff.half(), DIL, 2)
     with pytest.raises(ValueError, match="dilations"):
-        par_cuda.propagate_cuda(m, aff, (1, 2, 4, 8, 12, 41), 2)
+        par_cuda.propagate_cuda(m, aff, (1, 2, 4, 8, 12, -1), 2)
     with pytest.raises(ValueError, match="CUDA"):
         par_cuda.propagate_cuda(m, aff.cpu(), DIL, 2)
 

@@ -62,6 +62,18 @@ def _cases():
         "int8_linear": (*torch.ops.dupl.quantize_pair(_randn(10, 64),
                                                       _randn(16, 64, seed=1)),
                         _randn(16, grad=True)),
+        "row_absmax_pair": (_randn(10, 64, grad=True), _randn(16, 64, seed=1),
+                            "tanh"),
+        "quantize_pair_given": (_randn(10, 64, dtype=bf, grad=True),
+                                _randn(16, 64, seed=1),
+                                _randn(10, seed=2).abs(),
+                                _randn(16, seed=3).abs()),
+        "int8_matmul_i32": torch.ops.dupl.quantize_pair(
+            _randn(10, 64), _randn(16, 64, seed=1))[::2],
+        "int8_rescale": (torch.randint(-9999, 9999, (10, 16),
+                                       dtype=torch.int32),
+                         _randn(10, 1).abs(), _randn(16, 1, seed=1).abs(),
+                         _randn(16, grad=True)),
     }
 
 

@@ -240,3 +240,36 @@ def test_affinity_bound_tells_wrong_twins(image, kind):
     want = par_cuda.affinity_ref(x, DIL)
     err = (par_affinity_wrong(x, kind, DIL) - want).abs().max().item()
     assert err > 1e-5, (kind, image, err)
+
+
+@pytest.mark.parametrize("dilations", [(1, 2, 4, 8, 12, 24, 48), (2, 64)],
+                         ids=["seven", "two_to_64"])
+def test_par_refine_past_the_kernel_cap_matches_jax(dilations):
+    """Dilation sets past the shared-memory instantiations of K3 and K4 (7
+    dilations; one of 64, past the halo of 40), which the card takes by
+    their global-memory instantiations: the port's par_refine (CPU: the
+    twins) against ``par_refine(use_pallas=False)``, 10 rounds, and K3's
+    twin against the XLA ``rgb_affinity`` at the noise bounds and against
+    ``affinity_pallas`` (interpret mode) at ``SMOOTH_ATOL``: the taps of 48
+    and 64 reach past the 56^2 image and clamp onto its edges, so repeated
+    values enter the variance, whose cancellation shows the summation order
+    as on a smooth image (the Pallas kernel's order 4.6e-6 from the twin's
+    at (2, 64), the twin 6.6e-7 from XLA's)."""
+    assert not par_cuda.within_cap(dilations)
+    imgs = _noise((1, 56, 56, 3), seed=10)
+    masks = torch.softmax(torch.from_numpy(_noise((1, 56, 56, 6), seed=11))
+                          * 4, -1)
+    got = tpar.par_refine(torch.from_numpy(imgs), masks, dilations,
+                          num_iter=10)
+    want = jpar.par_refine(jnp.asarray(imgs), jnp.asarray(masks.numpy()),
+                           dilations, num_iter=10, use_pallas=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    aff = par_cuda.affinity_ref(torch.from_numpy(imgs), dilations).numpy()
+    pallas = np.asarray(affinity_pallas(jnp.asarray(imgs), dilations,
+                                        interpret=True))
+    xla = np.moveaxis(np.asarray(jpar.rgb_affinity(jnp.asarray(imgs),
+                                                   dilations)), -1, 1)
+    assert aff.shape == pallas.shape == (1, 8 * len(dilations), 56, 56)
+    np.testing.assert_allclose(aff, xla, rtol=RTOL, atol=ATOL)
+    assert np.abs(aff - pallas).max() <= SMOOTH_ATOL

@@ -6,8 +6,8 @@ the product bit for bit, wrong twins that are not, the int8 ``Mlp`` bit for
 bit with either GELU, one Q1 call a product and no GELU op between fc1
 and fc2, the ``quantized_inference`` dual student against the JAX one on
 the same weights, ``tools/bench_components_torch.py --int8``, the sealed
-int8 serving program, and the refusals (training, tensor parallelism, rows
-past Q1's cap)."""
+int8 serving program, Q1's two passes (any row width) composed against its
+one-launch twin, and the refusal of training."""
 
 import importlib.util
 from pathlib import Path
@@ -128,32 +128,75 @@ def test_bit_equal_to_jitted_jax(shape, dtype):
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
                          ids=["fp32", "bf16"])
 def test_rows_past_the_cap_are_refused(dtype):
-    """Q1 holds a row of at most 24,576 bytes (K 6144 in fp32, 12,288 in
-    bf16): a row 8 elements wider is refused on every device, by the pair
-    and by the GELU entry, whichever operand it is; so is a K off the
-    multiple of 8, and a GELU input that is not fp32."""
-    cap = quant.MAX_ROW_BYTES // torch.empty((), dtype=dtype).element_size()
-    got = quant.quantize_pair(torch.randn(3, cap).to(dtype),
-                              torch.randn(4, cap).to(dtype))
-    assert got[0].shape == (3, cap) and got[2].shape == (4, cap)
-    wide = torch.randn(3, cap + 8).to(dtype)
-    with pytest.raises(ValueError, match="past Q1's cap"):
-        quant.quantize_pair(wide, torch.randn(4, cap + 8).to(dtype))
-    if dtype == torch.bfloat16:     # an fp32 weight at the bf16 cap
-        with pytest.raises(ValueError, match="a row of w"):
-            quant.quantize_pair(torch.randn(3, cap).to(dtype),
-                                torch.randn(4, cap))
-        with pytest.raises(TypeError, match="float32"):
-            quant.gelu_quantize_pair(torch.randn(3, 64).to(dtype),
-                                     torch.randn(4, 64), True)
-    else:
-        with pytest.raises(ValueError, match="past Q1's cap"):
-            quant.gelu_quantize_pair(wide, torch.randn(4, cap + 8), False)
+    """Rows past Q1's one-launch cap (24,576 bytes, :data:`quant.MAX_ROW_BYTES`),
+    which it refused until its two-pass entries took them: K 8192 in fp32
+    and 16,384 in bf16 (32 kB rows).  ``quantized_matmul`` with and without
+    the bias, and the product of each GELU of fp32 h (K 16,384 in fp32 for
+    the bf16 case: 64 kB rows), equal the jitted JAX functions bit for bit;
+    the one-launch op itself still refuses such rows (its kernel holds 24,576
+    bytes a row), so they take ``row_absmax_pair`` and
+    ``quantize_pair_given``; and a K off the multiple of 8, or a GELU input
+    that is not fp32, is refused."""
+    k = 8192 if dtype == jnp.float32 else 16_384
+    xj, xt, w, b = _operands(6, k, 16, dtype, seed=7)
+    wt = torch.from_numpy(np.ascontiguousarray(w.T))
+    assert not quant._one_launch(xt, wt)
+    with pytest.raises(ValueError, match="one-launch"):
+        torch.ops.dupl.quantize_pair(xt, wt)
+    got = quant.quantized_matmul(xt, wt)
+    assert np.array_equal(got.numpy(), np.asarray(_J_QMM(xj, jnp.asarray(w))))
+    got = quant.quantized_matmul(xt, wt, torch.from_numpy(b))
+    want = _J_QMM_BIAS(xj, jnp.asarray(w), jnp.asarray(b))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    h, hj = xt.float(), xj.astype(jnp.float32)
+    for approximate in (True, False):
+        got = quant.quantized_matmul(h, wt, torch.from_numpy(b),
+                                     gelu="tanh" if approximate else "erf")
+        want = _J_GELU_QMM_BIAS[approximate](hj, jnp.asarray(w),
+                                             jnp.asarray(b))
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(TypeError, match="float32"):
+        quant.gelu_quantize_pair(torch.randn(3, 64).bfloat16(),
+                                 torch.randn(4, 64), True)
     with pytest.raises(ValueError, match="multiple of 8"):
         quant.quantize_pair(torch.randn(3, 60), torch.randn(4, 60))
+
+
+@pytest.mark.parametrize("dtype,gelu", [(torch.bfloat16, None),
+                                        (torch.float32, None),
+                                        (torch.float32, "tanh"),
+                                        (torch.float32, "erf")],
+                         ids=["bf16", "fp32", "fp32-tanh", "fp32-erf"])
+def test_two_passes_compose_to_the_one_launch_twin(dtype, gelu):
+    """Q1's two-pass twins (``row_absmax_pair_ref``, then
+    ``quantize_pair_given_ref`` on those maxima) give
+    ``quantize_rows_ref``'s bits (through the GELU with ``gelu``: fp32 x
+    only), at a width the one-launch entry holds and one past it, with a
+    zero row (the 1e-8 floor); maxima raised above a row's own give that
+    row other scales (what a model group's all-reduced maxima do)."""
+    rs = np.random.RandomState(5)
+    for k in (96, 13_000 if dtype == torch.float32 else 16_000):
+        x = torch.from_numpy(rs.randn(9, k).astype(np.float32)
+                             * rs.uniform(0.1, 4, (9, 1))).to(dtype)
+        x[4] = 0
+        w = torch.from_numpy(rs.randn(5, k).astype(np.float32) * 0.05)
+        amax = quant.row_absmax_pair(x, w, gelu)
+        assert [a.shape for a in amax] == [(9,), (5,)]
+        got = quant.quantize_pair_given(x, w, *amax, gelu)
+        g = x if gelu is None else quant._gelu_of(x, gelu)
+        want = quant.quantize_pair_ref(g, w)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        if gelu is None:
+            assert all(torch.equal(a, b) for a, b in zip(
+                quant.quantize_pair(x, w), want))
+        raised = quant.quantize_pair_given(x, w, amax[0] * 2, amax[1], gelu)
+        live = torch.arange(9) != 4          # the zero row keeps the floor
+        assert torch.equal(raised[1][live], want[1][live] * 2)
+        assert not torch.equal(raised[0], want[0])
 
 
 @pytest.mark.parametrize("kind", ["divide_by_127", "rescale_once",
@@ -353,16 +396,41 @@ def test_int8_forward_counts_the_bf16_forwards_flops(weights):
 
 
 def test_training_and_tensor_parallel_refuse_int8(weights):
+    """Training with ``quantized_inference`` is refused; tensor parallelism
+    is not (it was until int8 inference was ported to it): over a gloo
+    process group of one, a column-parallel and a row-parallel int8 layer
+    (its maxima and int32 sums all-reduced) give the plain layer's bits,
+    with the GELU inside fc2's quantization too (tests/test_torch_int8_tp.py
+    holds two ranks to one process)."""
+    from dupl_tpu_torch.parallel import dryrun, mesh
+
     _, path = weights
     cfg, _ = _cfgs()
     trainer = Trainer(cfg, model=_port(path), device="cpu")
     state = trainer.init_state(init=False)
     with pytest.raises(ValueError, match="inference only"):
         trainer.grad_step(state, {})
-    lin = _port(path).branch1.encoder.blocks[0].attn.qkv
-    lin.tp, lin.tp_role = object(), "column"
-    with pytest.raises(ValueError, match="--model-parallel"):
-        lin(torch.zeros(1, 4, lin.in_features))
+    blk = _port(path).branch1.encoder.blocks[0]
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(2, 5, blk.attn.qkv.in_features)
+                         .astype(np.float32))
+    h = torch.from_numpy(rs.randn(2, 5, blk.mlp.fc2.in_features)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = [blk.attn.qkv(x), blk.attn.proj(x), blk.mlp.fc2(h, gelu="erf")]
+    d = mesh.init_group(0, 1, "cpu",
+                        init_method=f"tcp://127.0.0.1:{dryrun.free_port()}")
+    try:
+        for lin, role in ((blk.attn.qkv, "column"), (blk.attn.proj, "row"),
+                          (blk.mlp.fc2, "row")):
+            lin.tp, lin.tp_role = d, role
+        with torch.no_grad():
+            got = [blk.attn.qkv(x), blk.attn.proj(x),
+                   blk.mlp.fc2(h, gelu="erf")]
+    finally:
+        d.close()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_bench_components_int8_on_cpu(capsys):

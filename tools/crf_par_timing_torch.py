@@ -1,5 +1,6 @@
-"""Times the PAR affinity K3 (``csrc/par_affinity.cu``), the CRF
-kernel-apply K5 (``csrc/crf_apply.cu``) and its bf16-exp variant P3
+"""Times the PAR affinity K3 (``csrc/par_affinity.cu``), the PAR
+propagation K4 (``csrc/par_propagate.cu``), the CRF kernel-apply K5
+(``csrc/crf_apply.cu``) and its bf16-exp variant P3
 (``csrc/crf_apply_bf16.cu``) of one or more checkouts in turn, beside
 ptxas's registers and spills and a digest of the machine code (SASS, from
 ``cuobjdump``) of every instantiation, so that a change to one of them, or
@@ -14,12 +15,15 @@ ROOT's kernels into ROOT/build.  Give the roots in turns (parent, change,
 change, parent) to see the spread.  Shapes: K3 at ``chip_smoke.py`` phase
 7's uint8 image (B 16, 224^2, 48 taps), a training step's B 4, and B 16
 with the same taps in another order (K3's path for dilations other than
-the recipe's); K5 at phase 4's B 2, N 200,704, Ns 3,136, V 22 and 82; P3 and K5 at the P3 tool's
+the recipe's); K4 at phase 8's B 16, 224^2, C 40, 10 rounds, fp32 and
+bf16; K5 at phase 4's B 2, N 200,704, Ns 3,136, V 22 and 82; P3 and K5 at the P3 tool's
 B 16, V 22 (``tools/crf_apply_experiment_torch.py``'s operands).  Times are
 medians of one call between two CUDA events, of rounds of back-to-back
 calls (~5 ms each), as ``chip_smoke.py``'s ``time_ms``, and for K3 of
 CUDA-graph replays (the device's time alone).  Prints the card's name and
-power limit, one JSON line per ROOT, then a table.  Needs a card.
+power limit, one JSON line per ROOT, then a table, and whether each root
+keeps every instantiation (SASS digest) of the first root's.  Needs a
+card.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from attn_fwd_timing_torch import _sass_digests, _time_ms  # noqa: E402
 
-KERNELS = ("par_affinity", "crf_apply", "crf_apply_bf16")
+KERNELS = ("par_affinity", "par_propagate", "crf_apply", "crf_apply_bf16")
 
 
 def _graph_ms(fn, reps=20, iters=7):
@@ -81,7 +85,8 @@ def measure(root: str) -> dict:
         raise SystemExit("crf_par_timing: needs a CUDA card")
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rec = {"root": root, "ptxas": {}, "sass": {}, "k3": {}, "k5": {}, "p3": {}}
+    rec = {"root": root, "ptxas": {}, "sass": {}, "k3": {}, "k4": {},
+           "k5": {}, "p3": {}}
     for name in KERNELS:
         rec["sass"][name] = _sass_digests(build.build(name))
         rec["ptxas"][name] = build.ptxas_usage(name)
@@ -106,7 +111,16 @@ def measure(root: str) -> dict:
 
         rec["k3"][f"B={b},224x224,dilations={','.join(map(str, dil))}"] = [
             _time_ms(k3), _time_ms(k3, back_to_back=True), _graph_ms(k3)]
-    del img, x
+    aff = par_cuda.affinity_cuda(img)
+    masks = torch.softmax(3 * torch.randn(16, 40, 224, 224, generator=g,
+                                          device=dev), 1)
+    for dt in (torch.float32, torch.bfloat16):
+        a = aff.to(dt)
+        rec["k4"][f"B=16,224x224,C=40,{str(dt)[6:]}"] = [
+            _time_ms(lambda: par_cuda.propagate_cuda(masks, a)),
+            _time_ms(lambda: par_cuda.propagate_cuda(masks, a),
+                     back_to_back=True)]
+    del img, x, aff, masks, a
     for v in (22, 82):
         ops = crf_tool.make_inputs(2, 200704, 3136, dev, v=v)
         rec["k5"][f"B=2,N=200704,Ns=3136,V={v}"] = [
@@ -146,12 +160,16 @@ def main(argv=None) -> int:
     for rec in recs:
         times = " | ".join(
             f"{kern} {shape}: {' / '.join(f'{x:.4f}' for x in t)}"
-            for kern in ("k3", "k5", "p3") for shape, t in rec[kern].items())
+            for kern in ("k3", "k4", "k5", "p3")
+            for shape, t in rec[kern].items())
         regs = " ".join(f"{r}({st},{ld})" for name in KERNELS
                         for _, r, st, ld in rec["ptxas"][name])
         sass = " ".join(f"{name}: {' '.join(rec['sass'][name])}"
                         for name in KERNELS)
         print(f"{rec['root']} | {times} | {regs} | {sass}")
+    for name in KERNELS:
+        print(f"{name}: every instantiation of the first root's in each root "
+              f"{[set(recs[0]['sass'][name]) <= set(r['sass'][name]) for r in recs]}")
     return 0
 
 

@@ -171,7 +171,10 @@ def main(argv=None) -> int:
     print(f"results bit-equal across the roots: {same}")
     for name in LIBS:
         print(f"{name} SASS equal across the roots: "
-              f"{all(r['sass'][name] == recs[0]['sass'][name] for r in recs)}")
+              f"{all(r['sass'][name] == recs[0]['sass'][name] for r in recs)}"
+              f"; every instantiation of the first root's in each root (a "
+              f"change that only adds kernels keeps them): "
+              f"{[set(recs[0]['sass'][name]) <= set(r['sass'][name]) for r in recs]}")
     print("root | kernel shape: ms of one call / ms a call back to back "
           "| registers (spill stores, loads) per instantiation")
     for rec in recs:
