@@ -5,8 +5,8 @@ kernel-experiment tools, the training run, the recipe's COCO inputs
 training across processes, the sealed serving artifacts, tensor
 parallelism, the run operations (CAM grids, FLOP counts, MFU), a whole
 training run held to the CPU's in lockstep, the measurement programs
-(``bench_torch.py`` and the three dissection tools), and the exact GELU
-and the int8 inference path.
+(``bench_torch.py`` and the three dissection tools), the exact GELU and
+the int8 inference path, and float16 compute (G's and K4's f16 modes).
 
     python3 chip_smoke.py
 
@@ -308,7 +308,25 @@ JAX.  Phases, each printing one result line:
    rows beside phase 29's bf16 rows, the int8 multi-scale CAMs against the
    bf16 ones on the same weights and images (argmax agreement,
    correlation), a quantized forward's FLOPs equal on the card and on the
-   CPU, and the same forward with the exact GELU (its GELU entry, no G).
+   CPU, and the same forward with the exact GELU (its GELU entry, no G);
+31. float16 where the JAX package takes it: (a) kernel G's f16 mode
+   forward and backward against its twins on all 65,536 f16 bit patterns
+   (a cotangent from 2^-24 to 2^15 with ±0, ±inf and NaN), at lengths 1
+   and 7 and at the MLP's hidden shape (whole, a tail, a view off 16-byte
+   alignment), 0 unequal, the wrong twins of ``gelu_f16_wrong`` (one
+   rounding, the erfc of the unrounded z, the backward without its f16
+   FMA) unequal; timed (one call, back to back, a CUDA graph) beside its
+   bf16 mode, ``F.gelu`` on f16 and the twins; (b) K4's f16 mode against
+   its twin, 0 unequal, at 16 x 224^2, C 40, 10 rounds, at the recipe's
+   dilations and at (1, 2, 4, 8, 12, 24, 48) (its global-memory
+   instantiation), and a ragged case, unequal to the bf16 twin, timed
+   beside its bf16 and fp32 modes; (c) the f16 path at full width (exact
+   GELU, PAR in f16): a serving dispatch of 8 from
+   ``InferenceSession.from_weights`` and a pseudo-label call of 16, the
+   counts zeroed before and read after (G 12 launches a student forward,
+   as K1, all in f16; K4 10, all in f16), timed in turns beside the
+   recipe's bf16; the same calls at crop 224 and 4 of 12 blocks on the
+   card and on the CPU (labels at least 98% equal).
 
 Then a JSON line with every kernel's launches, error, times and bound (the
 least time the card could take: operations over its peak rate or bytes over
@@ -319,7 +337,8 @@ between two CUDA events, and the attention entries, G, Q1 and Q2 add
 K5 also ``launches_bench``, their launches a ``bench_torch.py`` call; Q1's
 two-pass entries, ``int8_matmul_i32`` and ``int8_rescale`` their launches
 on a rank of phase 26's int8 run and their times at its fc2 share; K3 and
-K4 also ``past_cap``), and last ``{"ok": true, "device": {...}}``.
+K4 also ``past_cap``; G's and K4's f16 modes as ``gelu_erf_f16`` and
+``par_propagate_f16``), and last ``{"ok": true, "device": {...}}``.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 2.
 """
@@ -2817,7 +2836,7 @@ def gelu_wrong(x, kind, g=None):
                 "bwd_e_unrounded_z"):
         assert x.dtype == torch.bfloat16, "the tables are G's bf16 design"
         fwd_tab, ec_tab, e_tab = gelu._bf16_tables(x.device)
-        i = gelu._bf16_index(x)
+        i = gelu._table_index(x)
         if kind == "table_negated_index":
             return fwd_tab[i ^ 0x8000]
         ec, e = ec_tab[i], e_tab[i]
@@ -2866,6 +2885,21 @@ def gelu_wrong(x, kind, g=None):
         return gelu.gelu_erf_ref(x)
     finally:
         gelu.fma_f32, gelu._erfc_xla = keep
+
+
+def g_registers():
+    """ptxas's registers of each of kernel G's instantiations, by dtype,
+    direction and vector width (``csrc/gelu_erf.cu``'s mangled names)."""
+    from dupl_tpu_torch.kernels import build
+
+    regs = {}
+    for e_, r_, _, _ in build.ptxas_usage("gelu_erf"):
+        m_ = re.search(r"gelu_kernelI(\w)Lb(\d)ELi(\d+)ELb(\d)E", e_)
+        regs[("build_tables_f16" if "f16" in e_ else "build_tables")
+             if m_ is None else " ".join((
+                 "fp32" if m_[1] == "f" else "f16" if m_[4] == "1" else "bf16",
+                 "bwd" if m_[2] == "1" else "fwd", f"vec{m_[3]}"))] = r_
+    return regs
 
 
 def gelu_edge_values(n):
@@ -3262,12 +3296,7 @@ def phase30(dev, smi, voc29):
         "ms_bwd": f32_bwd_ms[0], "ms_bwd_back_to_back": f32_bwd_ms[1],
         "bound_ms_bwd": gbb32[0], "bound_by_bwd": gbb32[1]}
     del hf, ghf
-    g30["registers"] = {}
-    for e_, r_, _, _ in build.ptxas_usage("gelu_erf"):
-        m_ = re.search(r"gelu_kernelI(\w)Lb(\d)ELi(\d+)E", e_)
-        g30["registers"]["build_tables" if m_ is None else " ".join((
-            "bf16" if m_[1] == "t" else "fp32", "bwd" if m_[2] == "1" else "fwd",
-            f"vec{m_[3]}"))] = r_
+    g30["registers"] = g_registers()
     # the same at the main path's size: the whole tensors, a length with
     # n % 8 != 0 (the scalar tail) and a view 2 or 4 bytes past 16-byte
     # alignment (the elementwise instantiation), in bf16 and in fp32
@@ -3686,6 +3715,512 @@ def phase30(dev, smi, voc29):
                    "flops_card": card_flops, "flops_cpu": cpu_flops,
                    "launches_erf_depth2": erf_launches}
     rec["gelu_quantize_pair"] = fc2
+    return rec
+
+
+# Phase 31: float16 where the JAX package takes it.  Kernel G's f16 mode and
+# K4's are held to their twins bit for bit (0 unequal elements, NaN equal to
+# NaN), and the f16 serving dispatch and pseudo-label call run at full width
+# beside the recipe's bf16 ones.
+P31_G_WRONG = ("one_rounding", "z_unrounded", "bwd_no_fma")
+P31_K4_DILATIONS = ((1, 2, 4, 8, 12, 24), (1, 2, 4, 8, 12, 24, 48))
+P31_CPU_DEPTH = 4      # blocks of the card-against-CPU calls, as phase 24's
+P31_TANH_CPU_ROWS = 2048   # rows of the MLP's hidden shape the CPU recomputes
+
+
+def gelu_tanh_f16_nine_ops(x):
+    """The f16 tanh GELU as the port computed it before its f16 recipe:
+    nine f16 operations with ``torch.tanh``, the eager JAX function's
+    recipe."""
+    import torch
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * (x * x)))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def gelu_f16_wrong(x, kind, g=None):
+    """Wrong twins of kernel G's f16 mode: ``one_rounding`` (the f32 GELU
+    rounded once to f16), ``z_unrounded`` (the erfc of the unrounded f32
+    ``-x s``, bf16's recipe) and, backward on the cotangent ``g``,
+    ``bwd_no_fma`` (the last product and the sum rounded on their own,
+    where XLA's CPU code makes one f16 FMA)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dupl_tpu_torch.ops import gelu
+
+    f16 = torch.float16
+    if kind == "one_rounding":
+        return F.gelu(x.float()).half()
+    if kind == "z_unrounded":
+        z = (-x).float() * gelu._SQRT_HALF[f16]
+        return (x * 0.5) * gelu._erfc_xla(z).half()
+    assert kind == "bwd_no_fma"
+    _, ec, e = gelu._f16_tables(x.device)
+    i = gelu._table_index(x)
+    t = (((x * 0.5) * g) * gelu._NEG_TWO_OVER_SQRT_PI[f16]) * e[i]
+    return -(t * gelu._SQRT_HALF[f16]) + (g * ec[i]) * 0.5
+
+
+def phase31(dev, smi):
+    """(a) Kernel G's f16 mode against its twins on all 65,536 f16 bit
+    patterns (a cotangent of magnitudes 2^-24 to 2^15 with ±0, ±inf, NaN),
+    at lengths 1 and 7, and at the MLP's hidden shape (12,560 x 3072:
+    whole, a length off the vector width, a view off 16-byte alignment),
+    forward and backward, 0 unequal; the wrong twins of
+    :func:`gelu_f16_wrong` unequal; timed there (one call, back to back, a
+    CUDA graph) beside its bf16 mode, ``F.gelu`` on f16 and the twins.
+    (b) K4's f16 mode against its twin, 0 unequal, at 16 x 224^2, C 40, 10
+    rounds on K3's affinity of phase 7's uint8 image, in both
+    instantiations (``P31_K4_DILATIONS``: the recipe's, and one past the
+    cap), and on a ragged case; unequal to the bf16 twin; timed beside its
+    bf16 and fp32 modes.  (c) The f16 path at full width (ViT-B/16 dual
+    student, crop 448, exact GELU, PAR in f16) through its entry points: a
+    serving dispatch of 8 (``InferenceSession.from_weights``) and a
+    pseudo-label call of 16 (``make_pseudo_label_fn``), each with the
+    counts zeroed before and read after (G launches 12 a student forward,
+    as K1, all in f16; K4 10 times, all in f16), timed in turns beside the
+    recipe's bf16 (PAR fp32; for pseudo-labels also PAR bf16); then the
+    same calls at crop 224 and ``P31_CPU_DEPTH`` blocks on the card and on
+    the CPU (the twins): labels at least 98% equal.  (e) The f16 tanh GELU
+    (``gelu_tanh``: torch operations, no kernel), forward and its autograd
+    backward, on the card against the CPU on all 65,536 f16 patterns and on
+    ``P31_TANH_CPU_ROWS`` rows of a call at the MLP's hidden shape, 0
+    unequal; the former nine-operation chain unequal; both timed there.
+    Returns the records of the kernels line."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dupl_tpu_torch.config import (DataConfig, ModelConfig, ParConfig,
+                                       voc_config)
+    from dupl_tpu_torch.engine.export import make_pseudo_label_fn
+    from dupl_tpu_torch.engine.profile import pseudo_label_inputs
+    from dupl_tpu_torch.engine.serve import InferenceSession
+    from dupl_tpu_torch.models.convert import (init_weights, load_model,
+                                               state_dict_to_jax)
+    from dupl_tpu_torch.models.network import DualStudent
+    from dupl_tpu_torch.ops import attention, crf_cuda, gelu, par_cuda
+    from dupl_tpu_torch.utils import flops as flops_utils
+    from dupl_tpu_torch.utils.timing import time_ms
+
+    rates = (flops_utils.device_rates(torch.cuda.get_device_name(0))
+             or flops_utils.H100_SXM)
+
+    def bound(ops, rate, nbytes):
+        o, b = 1e3 * ops / rates[rate], 1e3 * nbytes / rates["hbm_bytes_per_s"]
+        return (o, "operations") if o >= b else (b, "bytes")
+
+    def times(fn):
+        """(ms of one call on an idle device, ms a call back to back)"""
+        return time_ms(fn, dev), time_ms(fn, dev, back_to_back=True)
+
+    def graph_ms(fn, reps=24):
+        """Median device time of a call: ``reps`` calls captured in one
+        CUDA graph and replayed (the host's time to issue them left out)."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        ms = time_ms(graph.replay, dev, iters=5) / reps
+        del graph
+        return ms
+
+    def max_err(got, want):
+        d = (got.float() - want.float()).abs()
+        return float(d[torch.isfinite(d)].max()) if d.numel() else 0.0
+
+    t31 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(31)
+    f16, bf16 = torch.float16, torch.bfloat16
+    rec, secs = {}, {}
+
+    # -- (a) G's f16 mode ------------------------------------------------------
+    x = torch.arange(65536, dtype=torch.int32, device=dev).to(
+        torch.int16).view(f16)
+    sign = torch.where(torch.rand(65536, generator=g, device=dev) < 0.5,
+                       -1.0, 1.0)
+    gx = (torch.exp2(torch.rand(65536, generator=g, device=dev) * 39 - 24)
+          * sign).to(f16)
+    gx[:5] = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan],
+                          device=dev).to(f16)
+    ga = {"all": [bits_unequal(gelu.gelu_erf_cuda(x), gelu.gelu_erf_ref(x)),
+                  bits_unequal(gelu.gelu_erf_bwd_cuda(x, gx),
+                               gelu.gelu_erf_bwd_ref(x, gx))]}
+    for n_ in (1, 7):
+        for at, sl in (("start", slice(0, n_)), ("end", slice(-n_, None))):
+            xv, gv = x[sl], gx[sl]
+            ga[f"n{n_} {at}"] = [
+                bits_unequal(gelu.gelu_erf_cuda(xv), gelu.gelu_erf_ref(xv)),
+                bits_unequal(gelu.gelu_erf_bwd_cuda(xv, gv),
+                             gelu.gelu_erf_bwd_ref(xv, gv))]
+    wrong = {k_: bits_unequal(gelu_f16_wrong(x, k_, gx),
+                              gelu.gelu_erf_bwd_cuda(x, gx)
+                              if k_.startswith("bwd") else
+                              gelu.gelu_erf_cuda(x))
+             for k_ in P31_G_WRONG}
+    torch.cuda.synchronize()
+    check(all(n == 0 for v in ga.values() for n in v),
+          f"G f16: elements unequal to the twins (forward, backward; bound "
+          f"0) {ga}")
+    check(all(n > 0 for n in wrong.values()),
+          f"G f16: a wrong twin is bit-equal to the kernel {wrong}")
+    h = (torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev) * 1.5).to(f16)
+    gh = torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev).to(f16)
+    big = {}
+    hf, ghf = h.view(-1), gh.view(-1)
+    for cut, (xv, gv) in (("whole", (h, gh)), ("tail", (hf[:-3], ghf[:-3])),
+                          ("unaligned", (hf[1:], ghf[1:]))):
+        big[cut] = [bits_unequal(gelu.gelu_erf_cuda(xv), gelu.gelu_erf_ref(xv)),
+                    bits_unequal(gelu.gelu_erf_bwd_cuda(xv, gv),
+                                 gelu.gelu_erf_bwd_ref(xv, gv))]
+    check(all(n == 0 for v in big.values() for n in v),
+          f"G f16 at the MLP's hidden shape: unequal to the twins {big}")
+    n_el = h.numel()
+    gb, gbb = bound(0, "fp32", 4 * n_el), bound(0, "fp32", 6 * n_el)
+    hr = h.clone().requires_grad_(True)
+    out_lib = F.gelu(hr)
+    hb, ghb = h.to(bf16), gh.to(bf16)
+    g16 = {
+        "unequal": ga, "unequal_main_shape": big, "wrong_unequal": wrong,
+        "shape": [P30_MLP_ROWS, 3072], "dtype": "float16",
+        "max_abs_err": max_err(gelu.gelu_erf_cuda(h), gelu.gelu_erf_ref(h)),
+        "times": times(lambda: gelu.gelu_erf_cuda(h)),
+        "graph_ms": graph_ms(lambda: gelu.gelu_erf_cuda(h)),
+        "bwd_times": times(lambda: gelu.gelu_erf_bwd_cuda(h, gh)),
+        "bwd_graph_ms": graph_ms(lambda: gelu.gelu_erf_bwd_cuda(h, gh)),
+        "bf16_times": times(lambda: gelu.gelu_erf_cuda(hb)),
+        "bf16_bwd_times": times(lambda: gelu.gelu_erf_bwd_cuda(hb, ghb)),
+        "library_times": times(lambda: F.gelu(h)),
+        "library_graph_ms": graph_ms(lambda: F.gelu(h)),
+        "library_bwd_times": times(lambda: torch.autograd.grad(
+            out_lib, hr, gh, retain_graph=True)),
+        "plain_ms": time_ms(lambda: gelu.gelu_erf_ref(h), dev),
+        "plain_ms_bwd": time_ms(lambda: gelu.gelu_erf_bwd_ref(h, gh), dev,
+                                iters=3, warmup=1),
+        "bound_ms": gb[0], "bound_by": gb[1],
+        "bound_ms_bwd": gbb[0], "bound_by_bwd": gbb[1], "registers": {}}
+    g16["registers"] = {k_: v_ for k_, v_ in g_registers().items()
+                        if "f16" in k_}
+    del hr, out_lib, h, gh, hf, ghf, xv, gv, hb, ghb
+    torch.cuda.empty_cache()
+    secs["a"] = time.perf_counter() - t31
+
+    def pair(t):
+        return f"{t[0]:.4f} / {t[1]:.4f}"
+
+    print(f"[G gelu_erf f16] {smi} | every f16 bit pattern (cotangent "
+          f"2^-24..2^15 with ±0, ±inf, NaN), lengths 1 and 7: [forward, "
+          f"backward] unequal to the twins {json.dumps(ga)} (bound 0) | MLP "
+          f"hidden (12560 x 3072) {json.dumps(big)} | wrong twins unequal "
+          f"{json.dumps(wrong)} | ms one call / back to back: forward "
+          f"{pair(g16['times'])}, graph {g16['graph_ms']:.4f} (bound "
+          f"{gb[0]:.4f}, {gb[1]}); backward {pair(g16['bwd_times'])}, graph "
+          f"{g16['bwd_graph_ms']:.4f} (bound {gbb[0]:.4f}) | bf16 mode "
+          f"{pair(g16['bf16_times'])}, backward {pair(g16['bf16_bwd_times'])}"
+          f" | F.gelu on f16 {pair(g16['library_times'])}, graph "
+          f"{g16['library_graph_ms']:.4f}, its autograd backward "
+          f"{pair(g16['library_bwd_times'])} | twins {g16['plain_ms']:.3f}, "
+          f"backward {g16['plain_ms_bwd']:.3f} | ptxas registers "
+          f"{json.dumps(g16['registers'])}", flush=True)
+
+    # -- (b) K4's f16 mode -----------------------------------------------------
+    t = time.perf_counter()
+    b4, s4, c4 = 16, 224, 40
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, s4, device=dev),
+                            torch.linspace(0, 1, s4, device=dev), indexing="ij")
+    smooth = torch.stack([0.5 + 0.4 * torch.sin(5 * xx + 3 * yy), yy,
+                          0.3 + 0.5 * xx * yy], -1).expand(b4, s4, s4, 3)
+    img = ((smooth + 0.002 * torch.randn(b4, s4, s4, 3, generator=g,
+                                         device=dev)).clamp(0, 1)
+           * 255).round() / 255
+    masks = torch.softmax(3 * torch.randn(b4, s4, s4, c4, generator=g,
+                                          device=dev), -1)
+    m_in = masks.permute(0, 3, 1, 2).contiguous()
+    k4 = {"unequal": {}, "unequal_bf16_twin": {}, "max_abs_err": 0.0,
+          "ms": {}, "ms_back_to_back": {}, "plain_ms": {}, "bound": {},
+          "bf16": {}, "fp32": {}}
+    for dil in P31_K4_DILATIONS:
+        aff = par_cuda.affinity_cuda(img.contiguous(), dil)
+        a16 = aff.to(f16)
+        got = par_cuda.propagate_cuda(m_in, a16, dil)
+        want = par_cuda.propagate_ref(masks, aff, dil,
+                                      compute_dtype="float16").permute(
+                                          0, 3, 1, 2)
+        twin16 = par_cuda.propagate_ref(masks, aff, dil,
+                                        compute_dtype="bfloat16").permute(
+                                            0, 3, 1, 2)
+        key = f"({','.join(map(str, dil))}),B={b4},{s4}x{s4},C={c4}"
+        k4["unequal"][key] = bits_unequal(got, want.contiguous())
+        k4["unequal_bf16_twin"][key] = bits_unequal(got, twin16.contiguous())
+        k4["max_abs_err"] = max(k4["max_abs_err"], max_err(got, want))
+        check(bool(torch.isfinite(got).all()) and k4["unequal"][key] == 0
+              and k4["unequal_bf16_twin"][key] > 0,
+              f"K4 f16 {key}: {k4['unequal'][key]} elements unequal to the "
+              f"twin (bound 0), {k4['unequal_bf16_twin'][key]} to the bf16 "
+              f"twin (must be > 0)")
+        k4["ms"][key], k4["ms_back_to_back"][key] = times(
+            lambda: par_cuda.propagate_cuda(m_in, a16, dil))
+        for name, dt in (("bf16", bf16), ("fp32", torch.float32)):
+            a_ = aff.to(dt)
+            k4[name][key] = times(lambda: par_cuda.propagate_cuda(m_in, a_,
+                                                                  dil))
+        k4["plain_ms"][key] = time_ms(lambda: par_cuda.propagate_ref(
+            masks, aff, dil, compute_dtype="float16"), dev, iters=1, warmup=0)
+        taps, pix = 8 * len(dil), b4 * s4 * s4
+        # 10 rounds of a product and a sum a tap and pixel-channel on f16x2
+        # (counted at twice the fp32 rate, as phase 29 counts bf16x2); the
+        # fp32 masks read and written once, the f16 affinity read once
+        k4["bound"][key] = bound(10 * 2 * taps * pix * c4 / 2, "fp32",
+                                 4 * pix * 2 * c4 + 2 * pix * taps)
+        del aff, a16, a_, got, want, twin16
+    rimg = torch.rand(3, 37, 53, 3, generator=g, device=dev)
+    raff = par_cuda.affinity_cuda(rimg)
+    rm = torch.softmax(3 * torch.randn(3, 37, 53, 5, generator=g, device=dev),
+                       -1)
+    k4["unequal"]["ragged B=3,37x53,C=5"] = bits_unequal(
+        par_cuda.propagate_cuda(rm.permute(0, 3, 1, 2).contiguous(),
+                                raff.to(f16)),
+        par_cuda.propagate_ref(rm, raff, compute_dtype="float16").permute(
+            0, 3, 1, 2).contiguous())
+    check(k4["unequal"]["ragged B=3,37x53,C=5"] == 0,
+          f"K4 f16 ragged case: {k4['unequal']} unequal")
+    del masks, m_in, img, smooth, rimg, raff, rm
+    torch.cuda.empty_cache()
+    secs["b"] = time.perf_counter() - t
+    print(f"[K4 par_propagate f16] {smi} | 10 rounds, phase 7's uint8 image"
+          f"'s affinity: unequal to the twin {json.dumps(k4['unequal'])} "
+          f"(bound 0), to the bf16 twin {json.dumps(k4['unequal_bf16_twin'])}"
+          f" (> 0) | ms one call / back to back (bound): " + "; ".join(
+              f"{k_} f16 {pair((k4['ms'][k_], k4['ms_back_to_back'][k_]))} "
+              f"({k4['bound'][k_][0]:.3f}, {k4['bound'][k_][1]}), bf16 "
+              f"{pair(k4['bf16'][k_])}, fp32 {pair(k4['fp32'][k_])}, twin "
+              f"{k4['plain_ms'][k_]:.1f}" for k_ in k4["ms"]), flush=True)
+
+    # -- (c) the f16 path at full width ----------------------------------------
+    t = time.perf_counter()
+    cfgs = {"float16": voc_config(model=ModelConfig(compute_dtype="float16"),
+                                  par=ParConfig(compute_dtype="float16")),
+            "bfloat16": voc_config()}
+    check(all(c_.model.backbone == "deit_base_patch16"
+              and not c_.model.gelu_approximate
+              and c_.data.crop_size == 448 for c_ in cfgs.values()),
+          "phase 31: not the ViT-B/16 VOC recipe with the exact GELU")
+    counters = {"exp_attention": attention.exp_attention_cuda,
+                "gelu_erf": gelu.gelu_erf_cuda,
+                "crf_apply": crf_cuda.kernel_apply_cuda,
+                "par_affinity": par_cuda.affinity_cuda,
+                "par_propagate": par_cuda.propagate_cuda}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+        gelu.gelu_erf_cuda.launches_f16 = par_cuda.propagate_cuda.launches_f16 = 0
+
+    def read():
+        out = {k_: f.launches for k_, f in counters.items()}
+        out["gelu_erf_f16"] = gelu.gelu_erf_cuda.launches_f16
+        out["par_propagate_f16"] = par_cuda.propagate_cuda.launches_f16
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        net = DualStudent(cfgs["bfloat16"].model)
+        init_weights(net, torch.Generator().manual_seed(0))
+        path = os.path.join(tmp, "weights.npz")
+        np.savez(path, **state_dict_to_jax(net.state_dict()))
+        del net
+        sessions = {k_: InferenceSession.from_weights(c_, path, device=dev,
+                                                      batch_size=8)
+                    for k_, c_ in cfgs.items()}
+        images8 = pseudo_label_inputs(8, 448, seed=31)[0]
+        labels = {k_: s_._run(images8) for k_, s_ in sessions.items()}
+        torch.cuda.synchronize()
+        zero()
+        with twin_guard() as twin_calls:
+            lab16 = sessions["float16"]._run(images8)
+        serve_launches = read()
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+        k1_ = serve_launches["exp_attention"]
+        check(k1_ > 0 and k1_ % 12 == 0
+              and serve_launches["gelu_erf"] == k1_
+              == serve_launches["gelu_erf_f16"]
+              and serve_launches["crf_apply"] > 0,
+              f"f16 serving dispatch: G not 12 launches a student forward "
+              f"in f16, as K1: {serve_launches}")
+        check(lab16.shape == (8, 448, 448) and lab16.dtype == np.uint8
+              and int(lab16.max()) <= 20 and np.array_equal(lab16,
+                                                            labels["float16"]),
+              f"f16 serving labels {lab16.shape} {lab16.dtype}, the same "
+              f"call twice unequal")
+        serve_ms = {k_: [] for k_ in sessions}
+        for _ in range(5):
+            for k_, s_ in sessions.items():
+                t0 = time.perf_counter()
+                s_._run(images8)
+                serve_ms[k_].append(1e3 * (time.perf_counter() - t0))
+        serve_agree = float((labels["float16"] == labels["bfloat16"]).mean())
+        del sessions
+        torch.cuda.empty_cache()
+        models = {k_: load_model(c_, path, dev) for k_, c_ in cfgs.items()}
+        pl_cfgs = {"float16": cfgs["float16"],
+                   "bfloat16": cfgs["bfloat16"],
+                   "bfloat16_par_bf16": voc_config(
+                       par=ParConfig(compute_dtype="bfloat16"))}
+        fns = {k_: make_pseudo_label_fn(c_, models[
+            "float16" if k_ == "float16" else "bfloat16"])
+            for k_, c_ in pl_cfgs.items()}
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in pseudo_label_inputs(16, 448, seed=1))
+        outs = {k_: fn(*args) for k_, fn in fns.items()}
+        torch.cuda.synchronize()
+        zero()
+        with twin_guard() as twin_calls:
+            ref16, crf16 = fns["float16"](*args)
+            torch.cuda.synchronize()
+        pl_launches = read()
+        check(not twin_calls, f"plain twins ran on CUDA tensors: {twin_calls}")
+        k1_ = pl_launches["exp_attention"]
+        check(k1_ > 0 and k1_ % 12 == 0 and pl_launches["gelu_erf"] == k1_
+              == pl_launches["gelu_erf_f16"]
+              and pl_launches["par_propagate"] == 10
+              == pl_launches["par_propagate_f16"]
+              and pl_launches["par_affinity"] == 1
+              and pl_launches["crf_apply"] > 0,
+              f"f16 pseudo-label call: {pl_launches}")
+        check(ref16.shape == (2, 16, 448, 448) and crf16.shape == (16, 448, 448)
+              and torch.equal(ref16, outs["float16"][0])
+              and torch.equal(crf16, outs["float16"][1]),
+              "f16 pseudo-labels: malformed, or the same call twice unequal")
+        vals = set(torch.unique(ref16).tolist())
+        check(vals <= set(range(21)) | {255} and 255 in vals
+              and int(crf16.max()) <= 20, f"f16 refined labels {sorted(vals)}")
+        pl_ms = {k_: [] for k_ in fns}
+        for _ in range(3):
+            for k_, fn in fns.items():
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                pl_ms[k_].append(1e3 * (time.perf_counter() - t0))
+        pl_agree = {k_: [float((o_[0] == ref16).float().mean()),
+                         float((o_[1] == crf16).float().mean())]
+                    for k_, o_ in outs.items() if k_ != "float16"}
+        del fns, outs, args, ref16, crf16
+        secs["c"] = time.perf_counter() - t
+        # the same calls at crop 224 on the card and on the CPU (the twins),
+        # the first P31_CPU_DEPTH blocks of each student
+        t = time.perf_counter()
+        del models
+        cfg224 = voc_config(model=ModelConfig(compute_dtype="float16"),
+                            data=DataConfig(crop_size=224),
+                            par=ParConfig(compute_dtype="float16"))
+        img224 = pseudo_label_inputs(1, 224, seed=32)[0]
+        args224 = pseudo_label_inputs(2, 224, seed=2)
+        serve224, pl224 = [], []
+        for d_ in (dev, torch.device("cpu")):
+            m_ = shallow(load_model(cfg224, path, d_), P31_CPU_DEPTH)
+            serve224.append(InferenceSession.from_model(
+                cfg224, m_, device=d_, batch_size=1)._run(img224))
+            pl224.append(tuple(o_.cpu() for o_ in make_pseudo_label_fn(
+                cfg224, m_)(*(torch.from_numpy(a).to(d_) for a in args224))))
+            del m_
+        serve_cpu = float((serve224[0] == serve224[1]).mean())
+        pl_cpu = [float((pl224[0][i] == pl224[1][i]).float().mean())
+                  for i in range(2)]
+    check(serve_cpu >= 0.98 and min(pl_cpu) >= 0.98,
+          f"f16 card vs CPU at crop 224: serving labels agree "
+          f"{serve_cpu:.4f}, pseudo-labels refined / CRF {pl_cpu} (bound "
+          f"0.98)")
+    secs["d"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    # -- (e) the f16 tanh GELU -------------------------------------------------
+    t = time.perf_counter()
+
+    def tanh_fwd_bwd(x_, g_, fn=gelu.gelu_tanh):
+        xr = x_.detach().clone().requires_grad_(True)
+        y_ = fn(xr)
+        return y_.detach(), torch.autograd.grad(y_, xr, g_)[0]
+
+    card = tanh_fwd_bwd(x, gx)
+    tanh_un = {"all": [bits_unequal(a_.cpu(), b_) for a_, b_ in zip(
+        card, tanh_fwd_bwd(x.cpu(), gx.cpu()))]}
+    nine = [bits_unequal(a_, b_) for a_, b_ in zip(
+        tanh_fwd_bwd(x, gx, gelu_tanh_f16_nine_ops), card)]
+    h = (torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev) * 1.5).to(f16)
+    gh = torch.randn(P30_MLP_ROWS, 3072, generator=g, device=dev).to(f16)
+    rows = slice(0, P31_TANH_CPU_ROWS)
+    tanh_un["main_shape_rows"] = [
+        bits_unequal(a_[rows].cpu(), b_) for a_, b_ in zip(
+            tanh_fwd_bwd(h, gh), tanh_fwd_bwd(h[rows].cpu(), gh[rows].cpu()))]
+    check(all(n == 0 for v in tanh_un.values() for n in v)
+          and all(n > 0 for n in nine),
+          f"f16 tanh GELU [forward, backward]: card unequal to the CPU "
+          f"{tanh_un} (bound 0), the nine-operation chain unequal {nine} "
+          f"(must be > 0)")
+    tanh_t = {}
+    for name, fn in (("recipe", gelu.gelu_tanh),
+                     ("nine_ops", gelu_tanh_f16_nine_ops)):
+        hr = h.clone().requires_grad_(True)
+        y_ = fn(hr)
+        tanh_t[name] = {
+            "forward": times(lambda: fn(h)),
+            "backward": times(lambda: torch.autograd.grad(
+                y_, hr, gh, retain_graph=True))}
+        del hr, y_
+    # each input read once, each output written once: 2 bytes a value
+    tb = bound(0, "fp32", 4 * h.numel())
+    tanh16 = {"unequal": tanh_un, "nine_ops_unequal": nine,
+              "shape": [P30_MLP_ROWS, 3072], "times": tanh_t,
+              "bound_ms": tb[0], "bound_ms_bwd": 1.5 * tb[0]}
+    del h, gh, card
+    torch.cuda.empty_cache()
+    secs["e"] = time.perf_counter() - t
+    print(f"[gelu_tanh f16] {smi} | torch operations, no kernel | card "
+          f"against CPU [forward, backward] {json.dumps(tanh_un)} (all "
+          f"65,536 patterns; {P31_TANH_CPU_ROWS} rows of 12560 x 3072; bound "
+          f"0) | the nine-operation chain unequal {nine} | ms one call / "
+          f"back to back at 12560 x 3072: recipe forward "
+          f"{pair(tanh_t['recipe']['forward'])}, backward "
+          f"{pair(tanh_t['recipe']['backward'])}; nine operations forward "
+          f"{pair(tanh_t['nine_ops']['forward'])}, backward "
+          f"{pair(tanh_t['nine_ops']['backward'])} (bytes bound "
+          f"{tb[0]:.4f} / {1.5 * tb[0]:.4f})", flush=True)
+
+    def med(v):
+        return statistics.median(v)
+
+    print(f"[f16 path] {smi} | ViT-B/16 dual student, crop 448, exact GELU | "
+          f"serving dispatch of 8 (InferenceSession.from_weights; MSC "
+          f"1.0/1.5/1.25 x flip, ensemble, fast CRF): launches "
+          f"{json.dumps(serve_launches)}; ms median of 5 in turns f16 "
+          f"{med(serve_ms['float16']):.1f}, bf16 {med(serve_ms['bfloat16']):.1f}"
+          f" ({json.dumps({k_: [round(v, 1) for v in v_] for k_, v_ in serve_ms.items()})})"
+          f"; labels f16 = bf16 on {serve_agree:.4f} | pseudo-label call of "
+          f"16 (PAR f16): launches {json.dumps(pl_launches)}; ms median of 3 "
+          f"in turns " + ", ".join(f"{k_} {med(v_):.1f}"
+                                   for k_, v_ in pl_ms.items())
+          + f" ({json.dumps({k_: [round(v, 1) for v in v_] for k_, v_ in pl_ms.items()})})"
+          f"; refined / CRF labels equal to f16's {json.dumps(pl_agree)} | "
+          f"card vs CPU at crop 224, {P31_CPU_DEPTH} blocks: serving "
+          f"labels {serve_cpu:.4f}, "
+          f"pseudo-labels refined / CRF {pl_cpu[0]:.4f} / {pl_cpu[1]:.4f} "
+          f"(bound 0.98)", flush=True)
+    print(f"[phase 31] s {json.dumps({k_: round(v_, 1) for k_, v_ in secs.items()})}"
+          f" | {time.perf_counter() - t31:.1f} s", flush=True)
+    rec.update(gelu_erf_f16=g16, par_propagate_f16=k4, gelu_tanh_f16=tanh16,
+               serve_launches=serve_launches, pl_launches=pl_launches,
+               serve_ms=serve_ms, pl_ms=pl_ms, card_vs_cpu=[serve_cpu, *pl_cpu])
     return rec
 
 
@@ -6533,6 +7068,12 @@ def main() -> int:
     print(f"[GELU and int8] phase 30 took {time.perf_counter() - t30:.1f} s",
           flush=True)
 
+    # -- 31. float16: G's and K4's f16 modes, the f16 serving and labels ----------
+    t31 = time.perf_counter()
+    rec31 = phase31(dev, smi)
+    print(f"[float16] phase 31 took {time.perf_counter() - t31:.1f} s",
+          flush=True)
+
     # The kernels line.  ``launches``: the count of one run of the main path
     # that uses the kernel (the serving round for K1 and K5, the timed
     # pseudo-label calls for K3 and K4, one full-phase training step for K2,
@@ -6869,9 +7410,56 @@ def main() -> int:
         by_name[name]["launches_tensor_parallel"] = int8_tp26[name]
     by_name["par_affinity"]["past_cap"] = k3["past_cap"]
     by_name["par_propagate"]["past_cap"] = k4["past_cap"]
-    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 19,
+    # Phase 31: G's and K4's f16 modes (their launches: the f16 serving
+    # dispatch's for G, the f16 pseudo-label call's for K4; times at the
+    # MLP's hidden shape and at 16 x 224^2, C 40, the recipe's dilations)
+    g31, k31 = rec31["gelu_erf_f16"], rec31["par_propagate_f16"]
+    k31_key = next(iter(k31["ms"]))
+    kernels += [
+        {"name": "gelu_erf_f16", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/gelu_erf.cu",
+         "replaces": "dupl_tpu/models/vit.py:90 (nn.gelu on float16, an XLA "
+                     "fusion; no Pallas kernel)",
+         "launches": rec31["serve_launches"]["gelu_erf_f16"],
+         "launches_pseudo_label": rec31["pl_launches"]["gelu_erf_f16"],
+         "max_abs_err": g31["max_abs_err"], "ms": g31["times"][0],
+         "ms_back_to_back": g31["times"][1], "graph_ms": g31["graph_ms"],
+         "plain_ms": g31["plain_ms"], "bound_ms": g31["bound_ms"],
+         "bound_by": g31["bound_by"], "library_ms": g31["library_times"][0],
+         "library_ms_back_to_back": g31["library_times"][1],
+         "library_graph_ms": g31["library_graph_ms"],
+         **{k_: g31[k_] for k_ in ("unequal", "unequal_main_shape",
+                                   "wrong_unequal", "shape", "bwd_times",
+                                   "bwd_graph_ms", "bf16_times",
+                                   "bf16_bwd_times", "library_bwd_times",
+                                   "plain_ms_bwd", "bound_ms_bwd",
+                                   "bound_by_bwd", "registers")}},
+        {"name": "par_propagate_f16", "route": "cuda",
+         "source": "dupl_tpu_torch/csrc/par_propagate.cu",
+         "replaces": "dupl_tpu/ops/par_pallas.py:37 (propagate_pallas's "
+                     "_kernel at compute_dtype float16)",
+         "launches": rec31["pl_launches"]["par_propagate_f16"],
+         "max_abs_err": k31["max_abs_err"], "ms": k31["ms"][k31_key],
+         "ms_back_to_back": k31["ms_back_to_back"][k31_key],
+         "plain_ms": k31["plain_ms"][k31_key],
+         "bound_ms": k31["bound"][k31_key][0],
+         "bound_by": k31["bound"][k31_key][1], "library_ms": None,
+         "shape": k31_key, "unequal": k31["unequal"],
+         "unequal_bf16_twin": k31["unequal_bf16_twin"],
+         "ms_by_shape": k31["ms"],
+         "ms_back_to_back_by_shape": k31["ms_back_to_back"],
+         "plain_ms_by_shape": k31["plain_ms"], "bound_by_shape": k31["bound"],
+         "bf16_ms_by_shape": k31["bf16"], "fp32_ms_by_shape": k31["fp32"]},
+    ]
+    check(all(e["launches"] > 0 for e in kernels) and len(kernels) == 21,
           "a kernel of a main path never launched")
-    print(f"[chip_smoke] phases 1-30 took {time.perf_counter() - t_main:.1f} s"
+    check(all(isinstance(e[k_], (int, float))
+              for e in kernels for k_ in ("launches", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms"))
+          and all(isinstance(e["library_ms"], (int, float, type(None)))
+                  for e in kernels),
+          "the kernels line holds a non-number where a number belongs")
+    print(f"[chip_smoke] phases 1-31 took {time.perf_counter() - t_main:.1f} s"
           f" (limit 1200)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Kernel G: the exact (erf) GELU of the JAX package for Hopper (sm_90a),
-// forward and backward, each one elementwise pass over bf16 or fp32
+// forward and backward, each one elementwise pass over bf16, f16 or fp32
 // tensors of any shape:
 //     forward   y  = gelu(x)  = (0.5 x) erfc(-x s)
 //     backward  dx = -(((0.5x g) c) exp(-z^2)) s + (g erfc(z)) 0.5, z = -x s
@@ -40,6 +40,15 @@
 // entries.  A window of the table staged in shared memory by every block
 // tied this forward and lost 9% backward on the card (PERF.md).
 //
+// f16: the same design.  An f16 result, too, depends on the 16 input bits
+// alone: G keeps a second pair of tables (build_tables_f16), the forward's
+// f16 result and the backward's f16 erfc(f32(z)) | f16 exp(-f16(z z)) << 16
+// with z = f16(-x s), each f16 operation rounded on its own, as XLA's CPU
+// code rounds them (ops/gelu.py:_f16_tables).  The backward's products that
+// mix x and g are f16 multiplies (mul.rn.f16, one rounding each, never
+// contracted), and its last product and sum one f16 FMA (fma.rn.f16), where
+// XLA's code has one (vfnmadd231ph).
+//
 // fp32: the expansion (csrc/gelu_xla.cuh, shared with Q1's fused GELU),
 // forward and backward as separate kernels (the backward's registers no
 // longer limit the forward's residency).
@@ -54,6 +63,7 @@
 // a grid-stride loop over the resident blocks (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -120,11 +130,70 @@ __device__ __forceinline__ float bwd_bf16(float x, float g, uint32_t w) {
   return __fadd_rn(left, right);               // rounded to bf16 by the caller
 }
 
-// The table entry of x's bits, through L1.
-template <bool kBwd>
+// ---- the f16 tables ------------------------------------------------------------
+
+__device__ uint16_t g_fwd_table_f16[65536];  // f16 gelu(x), by the bits of x
+__device__ uint32_t g_bwd_table_f16[65536];  // f16 erfc(z) | f16 exp(..) << 16
+
+// f16 operations on bit patterns, each rounded once to nearest (PTX .rn:
+// no contraction into an fma, subnormals kept)
+__device__ __forceinline__ uint16_t hmul(uint16_t a, uint16_t b) {
+  uint16_t d;
+  asm("mul.rn.f16 %0, %1, %2;\n" : "=h"(d) : "h"(a), "h"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint16_t hfma(uint16_t a, uint16_t b, uint16_t c) {
+  uint16_t d;
+  asm("fma.rn.f16 %0, %1, %2, %3;\n" : "=h"(d) : "h"(a), "h"(b), "h"(c));
+  return d;
+}
+
+__device__ __forceinline__ float h_value(uint16_t bits) {
+  return __half2float(__ushort_as_half(bits));
+}
+
+__device__ __forceinline__ uint16_t h_bits(float v) {
+  return __half_as_ushort(__float2half_rn(v));
+}
+
+// f16 bits of 0.5, of sqrt(1/2) (0.70703125) and of -2/sqrt(pi) rounded to
+// f16 (-0x1.20cp+0)
+constexpr uint16_t kHalfF16 = 0x3800, kSqrtHalfF16 = 0x39a8, kNegCF16 = 0xbc83;
+
+// One thread a bit pattern: the forward f16(f16(0.5 x) f16(erfc(f32(z)))),
+// z = f16(-x s), and the backward's erfc(z) and exp(-f16(z z)), each
+// rounded to f16.
+__global__ void __launch_bounds__(256) build_tables_f16() {
+  const uint32_t i = blockIdx.x * 256 + threadIdx.x;
+  const uint16_t x = static_cast<uint16_t>(i);
+  const uint16_t z = hmul(x ^ 0x8000, kSqrtHalfF16);
+  const uint16_t ec = h_bits(erfc_xla(h_value(z)));
+  g_fwd_table_f16[i] = hmul(hmul(x, kHalfF16), ec);
+  const uint16_t e = h_bits(exp_xla(h_value(hmul(z, z) ^ 0x8000)));
+  g_bwd_table_f16[i] = ec | (static_cast<uint32_t>(e) << 16);
+}
+
+// The backward's products that mix x and g, from the packed word w of x:
+// -(((0.5x g) c) e) s + (g ec) 0.5, the last product and sum one fma.
+__device__ __forceinline__ uint16_t bwd_f16(uint16_t x, uint16_t g,
+                                            uint32_t w) {
+  const uint16_t ec = static_cast<uint16_t>(w), e = static_cast<uint16_t>(w >> 16);
+  const uint16_t t = hmul(hmul(hmul(hmul(x, kHalfF16), g), kNegCF16), e);
+  const uint16_t right = hmul(hmul(g, ec), kHalfF16);
+  return hfma(t ^ 0x8000, kSqrtHalfF16, right);
+}
+
+// The table entry of x's bits, through L1: bf16's tables, or f16's.
+template <bool kBwd, bool kF16 = false>
 __device__ __forceinline__ uint32_t look(uint32_t bits) {
-  if constexpr (kBwd) return __ldg(g_bwd_table + bits);
-  else return __ldg(g_fwd_table + bits);
+  if constexpr (kF16) {
+    if constexpr (kBwd) return __ldg(g_bwd_table_f16 + bits);
+    else return __ldg(g_fwd_table_f16 + bits);
+  } else {
+    if constexpr (kBwd) return __ldg(g_bwd_table + bits);
+    else return __ldg(g_fwd_table + bits);
+  }
 }
 
 // ---- the elementwise pass ------------------------------------------------------
@@ -140,12 +209,16 @@ __device__ __forceinline__ uint4 ld_stream(const void* p) {
   return v;
 }
 
-// One element: T is uint16_t (bf16 bits) or float.
-template <typename T, bool kBwd>
+// One element: T is uint16_t (bf16 bits, or f16 bits if kF16) or float.
+template <typename T, bool kBwd, bool kF16>
 __device__ __forceinline__ T elem(T x, T g) {
   if constexpr (std::is_same<T, float>::value) {
     if constexpr (kBwd) return bwd_f32(x, g);
     else return fwd_f32(x);
+  } else if constexpr (kF16) {
+    const uint32_t w = look<kBwd, true>(x);
+    if constexpr (!kBwd) return static_cast<T>(w);
+    else return bwd_f16(x, g, w);
   } else {
     const uint32_t w = look<kBwd>(x);
     if constexpr (!kBwd) return static_cast<T>(w);
@@ -154,8 +227,9 @@ __device__ __forceinline__ T elem(T x, T g) {
 }
 
 // out[i] = forward(x[i]) or backward(x[i], g[i]); kVec elements a chunk
-// (16 bytes), or 1 where a pointer is off 16-byte alignment.
-template <typename T, bool kBwd, int kVec>
+// (16 bytes), or 1 where a pointer is off 16-byte alignment.  kF16: T's
+// 16 bits are an f16 value.
+template <typename T, bool kBwd, int kVec, bool kF16 = false>
 __global__ void __launch_bounds__(kThreads)
 gelu_kernel(const T* __restrict__ x, const T* __restrict__ g,
             T* __restrict__ out, int64_t n) {
@@ -187,7 +261,7 @@ gelu_kernel(const T* __restrict__ x, const T* __restrict__ g,
       Chunk o;
 #pragma unroll
       for (int k = 0; k < kVec; ++k)
-        o.e[k] = elem<T, kBwd>(xv[c].e[k], kBwd ? gv[c].e[k] : T(0));
+        o.e[k] = elem<T, kBwd, kF16>(xv[c].e[k], kBwd ? gv[c].e[k] : T(0));
       if constexpr (kVec > 1)
         *reinterpret_cast<uint4*>(out + i * kVec) = o.v;
       else
@@ -196,7 +270,7 @@ gelu_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
   if (blockIdx.x == 0 && threadIdx.x < n - nvec * kVec) {  // the tail
     const int64_t i = nvec * kVec + threadIdx.x;
-    out[i] = elem<T, kBwd>(x[i], kBwd ? g[i] : T(0));
+    out[i] = elem<T, kBwd, kF16>(x[i], kBwd ? g[i] : T(0));
   }
 }
 
@@ -204,9 +278,11 @@ gelu_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 constexpr int kMaxDevices = 64;
 
-// Build the bf16 tables on the current device once: on `stream`, waited
-// for, so that a launch on any stream of the device finds them.  Not under
-// stream capture: a captured build would not run until the graph does.
+// Build the bf16 (kF16 false) or f16 tables on the current device once: on
+// `stream`, waited for, so that a launch on any stream of the device finds
+// them.  Not under stream capture: a captured build would not run until
+// the graph does.
+template <bool kF16>
 int tables_ready(cudaStream_t stream) {
   static std::mutex mu;
   static bool built[kMaxDevices] = {};
@@ -221,7 +297,8 @@ int tables_ready(cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (capture != cudaStreamCaptureStatusNone)
     return static_cast<int>(cudaErrorStreamCaptureUnsupported);
-  build_tables<<<65536 / 256, 256, 0, stream>>>();
+  if constexpr (kF16) build_tables_f16<<<65536 / 256, 256, 0, stream>>>();
+  else build_tables<<<65536 / 256, 256, 0, stream>>>();
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -229,7 +306,7 @@ int tables_ready(cudaStream_t stream) {
   return 0;
 }
 
-template <typename T, bool kBwd, int kVec>
+template <typename T, bool kBwd, int kVec, bool kF16>
 int launch_one(const void* x, const void* g, void* out, long long n,
                cudaStream_t stream) {
   // a block for every kThreads * kChunks chunks: each thread's loop runs
@@ -237,40 +314,51 @@ int launch_one(const void* x, const void* g, void* out, long long n,
   const long long per_block = static_cast<long long>(kThreads) * kChunks;
   const long long want = (n / kVec + per_block - 1) / per_block;
   const int blocks = static_cast<int>(want < 1 ? 1 : want < (1 << 30) ? want : 1 << 30);
-  gelu_kernel<T, kBwd, kVec><<<blocks, kThreads, 0, stream>>>(
+  gelu_kernel<T, kBwd, kVec, kF16><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kF16 = false>
 int launch(const void* x, const void* g, void* out, long long n,
            cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (!std::is_same<T, float>::value) {
-    const int status = tables_ready(stream);
+    const int status = tables_ready<kF16>(stream);
     if (status != 0) return status;
   }
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(out)) % 16) == 0;
-  return aligned ? launch_one<T, kBwd, 16 / sizeof(T)>(x, g, out, n, stream)
-                 : launch_one<T, kBwd, 1>(x, g, out, n, stream);
+  return aligned
+             ? launch_one<T, kBwd, 16 / sizeof(T), kF16>(x, g, out, n, stream)
+             : launch_one<T, kBwd, 1, kF16>(x, g, out, n, stream);
 }
 
 }  // namespace
 
+// dtype: 0 fp32, 1 bf16, 2 f16; x, y (and g, dx) n contiguous elements of
+// it on the device.  Returns the first CUDA error.
 extern "C" int dupl_gelu_erf_fwd(const void* x, void* y, long long n,
-                                 int bf16, void* stream) {
+                                 int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<uint16_t, false>(x, nullptr, y, n, st)
-              : launch<float, false>(x, nullptr, y, n, st);
+  switch (dtype) {
+    case 0: return launch<float, false>(x, nullptr, y, n, st);
+    case 1: return launch<uint16_t, false>(x, nullptr, y, n, st);
+    case 2: return launch<uint16_t, false, true>(x, nullptr, y, n, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int dupl_gelu_erf_bwd(const void* x, const void* g, void* dx,
-                                 long long n, int bf16, void* stream) {
+                                 long long n, int dtype, void* stream) {
   if (g == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<uint16_t, true>(x, g, dx, n, st)
-              : launch<float, true>(x, g, dx, n, st);
+  switch (dtype) {
+    case 0: return launch<float, true>(x, g, dx, n, st);
+    case 1: return launch<uint16_t, true>(x, g, dx, n, st);
+    case 2: return launch<uint16_t, true, true>(x, g, dx, n, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 

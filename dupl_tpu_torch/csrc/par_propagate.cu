@@ -13,11 +13,12 @@
 // larger than the 50 MB L2, and each round reads neighbours up to 24 px away
 // that the previous round wrote; so every round is one launch.
 //
-// Two modes, as _kernel:
+// Three modes, as _kernel's compute types:
 //   fp32: the taps are summed one by one in tap order (fused multiply-adds);
 //   bf16: the mask is rounded to bf16 when staged, the affinity arrives in
 //         bf16, every product and partial sum inside a group of 8 taps is
-//         rounded to bf16, and the group sums are added in fp32.
+//         rounded to bf16, and the group sums are added in fp32;
+//   f16:  the same in f16 (float16), on f16x2 multiplies and adds.
 //
 // Design.  A block takes a 32 x 24 pixel tile of one image: a warp two
 // neighbouring rows, a lane one column, so each thread sums two pixels and
@@ -41,12 +42,12 @@
 // thread then reads its K taps of both channels and pixels, at offsets the
 // host precomputes (a warp reads 32 consecutive floats: no bank
 // conflicts), as four independent FMA chains, and stores four coalesced
-// output rows.  In bf16 mode each thread first pairs the two channels of
-// the positions it copied as bf16 in place, and the sums run on bf16x2
-// multiplies and adds, both channels of a pixel in one register.  On the
-// card the time grew as the tile shrank (more halo a pixel) and fell when
-// 16-byte copies replaced 4-byte ones: the staging weighs as much as the
-// tap reads.
+// output rows.  In the bf16 and f16 modes each thread first pairs the two
+// channels of the positions it copied in the type, in place, and the sums
+// run on bf16x2 or f16x2 multiplies and adds, both channels of a pixel in
+// one register.  On the card the time grew as the tile shrank (more halo a
+// pixel) and fell when 16-byte copies replaced 4-byte ones: the staging
+// weighs as much as the tap reads.
 //
 // Bound.  Per round and pixel-channel: K shared-memory reads of 4 bytes and
 // K FMAs, 4 bytes out, 7.5 staged loads; per pixel 4K bytes of affinity.
@@ -61,10 +62,19 @@
 // pixel-channel, each tap read from global memory (through L1) at clamped
 // coordinates, the dilations from a small device array, any number of
 // 8-tap groups, in the same two modes (fp32: fused multiply-adds in tap
-// order; bf16: bf16 products and partial sums within a group of 8 taps,
-// group sums in fp32).  A simple kernel, for sets no recipe uses.
+// order; bf16 and f16: products and partial sums in the 16-bit type within a
+// group of 8 taps, group sums in fp32).  A simple kernel, for sets no recipe
+// uses.
+//
+// The 16-bit modes share one code path: Pair<T> packs two values of the
+// type in a 32-bit word and multiplies or adds two words lane by lane with
+// one rounding to nearest a lane (mul.rn / add.rn: never contracted into an
+// fma, subnormals kept), the exact product or sum rounded once, which is
+// what the twin's fp32 product or sum rounded to the type gives on operands
+// of that type (24 >= 2 x 11 + 2 bits: f16 too rounds once).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,29 +122,67 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   return v;
 }
 
-// bf16x2 arithmetic with one rounding to nearest a lane (no contraction
-// into an fma): the exact product or sum rounded once, which is what the
-// twin's fp32 product or sum rounded to bf16 gives on bf16 operands.
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
+// Two 16-bit values in a word (the first in the low half) and their
+// lane-wise arithmetic, rounded once a lane, for T = __nv_bfloat16 or
+// __half (the head of the file says why).
+template <typename T>
+struct Pair;
 
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
+template <>
+struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return make_float2(__uint_as_float(v << 16),
+                       __uint_as_float(v & 0xffff0000u));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() {
+    return __float2bfloat16_rn(0.f);
+  }
+  static __device__ __forceinline__ uint32_t of(__nv_bfloat16 lo,
+                                                __nv_bfloat16 hi) {
+    const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
+template <>
+struct Pair<__half> {
+  static __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("add.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  }
+  static __device__ __forceinline__ __half zero() { return __float2half_rn(0.f); }
+  static __device__ __forceinline__ uint32_t of(__half lo, __half hi) {
+    const __half2 v = __halves2half2(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
 
 // Tile rows, two a warp: as many as the block's registers allow without
 // spills at K = 48 (ptxas -v on sm_90a: 32 rows spill).
@@ -153,9 +201,9 @@ __host__ __device__ constexpr size_t stage_bytes(int pad) {
   return 2 * sizeof(float) * (kTileH + 2 * pad) * row_stride(pad);
 }
 
-// T: the type of the affinity (float or bf16; bf16 also rounds the staged
-// mask).  Grid: (column tiles, row tiles, images x groups of channel
-// pairs); a block sums its group's pairs.
+// T: the type of the affinity (float, bf16 or f16; a 16-bit type also
+// rounds the staged mask).  Grid: (column tiles, row tiles, images x groups
+// of channel pairs); a block sums its group's pairs.
 template <int K, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
@@ -227,8 +275,8 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
 
   // The first pair's copies fly while the affinities load.
   fill(p_begin);
-  // The two pixels' affinities: fp32 in two arrays, bf16 as one pair a tap
-  // (pixel 0 in the low half).
+  // The two pixels' affinities: fp32 in two arrays, 16-bit as one pair a
+  // tap (pixel 0 in the low half).
   float a0[K], a1[K];
   uint32_t ap[K];
   const T* ab = aff + static_cast<int64_t>(b) * K * hw + pix;
@@ -238,10 +286,8 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
       a0[k] = in0 ? ab[k * hw] : 0.f;
       a1[k] = in1 ? ab[k * hw + w] : 0.f;
     } else {
-      const T zero = __float2bfloat16_rn(0.f);
-      const __nv_bfloat162 v = __halves2bfloat162(in0 ? ab[k * hw] : zero,
-                                                  in1 ? ab[k * hw + w] : zero);
-      ap[k] = *reinterpret_cast<const uint32_t*>(&v);
+      const T zero = Pair<T>::zero();
+      ap[k] = Pair<T>::of(in0 ? ab[k * hw] : zero, in1 ? ab[k * hw + w] : zero);
     }
   }
 
@@ -249,7 +295,7 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // pair p landed
     float* st = stages + (p % kStages) * 2 * plane;
     if constexpr (sizeof(T) == 2) {
-      // bf16 mode: the positions this thread copied hold the bf16 pair of
+      // 16-bit modes: the positions this thread copied hold the pair of
       // their two channels in the first plane, in place
       if (lane < nq) {
         for (int r = warp; r < th; r += kWarps) {
@@ -258,7 +304,7 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
           for (int e = 0; e < 4; ++e)
             if (4 * lane + e < tw)
               *reinterpret_cast<uint32_t*>(c0 + e) =
-                  pack_bf16x2(c0[e], c0[plane + e]);
+                  Pair<T>::pack(c0[e], c0[plane + e]);
         }
       }
     }
@@ -285,8 +331,8 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
         o[3] = fmaf(lds32f(t1 + pb), a1[k], o[3]);
       }
     } else {
-      // Both channels of a pixel in one bf16x2 register: products and the
-      // partial sums of a group of 8 taps in bf16, group sums in fp32.
+      // Both channels of a pixel in one register: products and the
+      // partial sums of a group of 8 taps in T, group sums in fp32.
 #pragma unroll
       for (int g = 0; g < K; g += kGroup) {
         uint32_t acc0 = 0, acc1 = 0;
@@ -294,12 +340,12 @@ par_propagate_kernel(const float* __restrict__ src, const T* __restrict__ aff,
         for (int k = g; k < g + kGroup; ++k) {
           const uint32_t a_lo = __byte_perm(ap[k], 0, 0x1010);  // (a0, a0)
           const uint32_t a_hi = __byte_perm(ap[k], 0, 0x3232);  // (a1, a1)
-          const uint32_t t0 = mul_bf16x2(lds32(s0 + taps.off[k]), a_lo);
-          const uint32_t t1 = mul_bf16x2(lds32(s1 + taps.off[k]), a_hi);
-          acc0 = k == g ? t0 : add_bf16x2(acc0, t0);
-          acc1 = k == g ? t1 : add_bf16x2(acc1, t1);
+          const uint32_t t0 = Pair<T>::mul(lds32(s0 + taps.off[k]), a_lo);
+          const uint32_t t1 = Pair<T>::mul(lds32(s1 + taps.off[k]), a_hi);
+          acc0 = k == g ? t0 : Pair<T>::add(acc0, t0);
+          acc1 = k == g ? t1 : Pair<T>::add(acc1, t1);
         }
-        const float2 f0 = unpack_bf16x2(acc0), f1 = unpack_bf16x2(acc1);
+        const float2 f0 = Pair<T>::unpack(acc0), f1 = Pair<T>::unpack(acc1);
         o[0] = g == 0 ? f0.x : o[0] + f0.x;
         o[1] = g == 0 ? f0.y : o[1] + f0.y;
         o[2] = g == 0 ? f1.x : o[2] + f1.x;
@@ -411,16 +457,16 @@ par_propagate_any_kernel(const float* __restrict__ src, const T* __restrict__ af
       if constexpr (sizeof(T) == 4) {
         o = fmaf(v, a, o);
       } else {
-        // the value and the affinity in both halves of a bf16x2 word: the
-        // low half's product and sum round as the twin's bf16 operations
-        const uint32_t vv = pack_bf16x2(v, v);
+        // the value and the affinity in both halves of a word: the low
+        // half's product and sum round as the twin's 16-bit operations
+        const uint32_t vv = Pair<T>::pack(v, v);
         const uint16_t ab16 = *reinterpret_cast<const uint16_t*>(&a);
-        const uint32_t p = mul_bf16x2(vv, ab16 | (static_cast<uint32_t>(ab16) << 16));
-        acc = t == 0 ? p : add_bf16x2(acc, p);
+        const uint32_t p = Pair<T>::mul(vv, ab16 | (static_cast<uint32_t>(ab16) << 16));
+        acc = t == 0 ? p : Pair<T>::add(acc, p);
       }
     }
     if constexpr (sizeof(T) == 2) {
-      const float f = unpack_bf16x2(acc).x;
+      const float f = Pair<T>::unpack(acc).x;
       o = g == 0 ? f : o + f;
     }
   }
@@ -429,40 +475,44 @@ par_propagate_any_kernel(const float* __restrict__ src, const T* __restrict__ af
 
 }  // namespace
 
-// src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) float32 (bf16 == 0)
-// or bfloat16 (bf16 != 0), contiguous, on the device, src != dst; dil (nd
-// ints, each >= 1) on the device: any dilation set, by the kernel past the
-// cap.
+// src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) in the mode's type:
+// float32 (mode 0), bfloat16 (1) or float16 (2); contiguous, on the device,
+// src != dst; dil (nd ints, each >= 1) on the device: any dilation set, by
+// the kernel past the cap.
 extern "C" int dupl_par_propagate_any(const void* src, const void* aff,
                                       void* dst, int batch, int channels,
                                       int h, int w, int nd, const int* dil,
-                                      int bf16, void* stream) {
+                                      int mode, void* stream) {
   if (nd < 1 || batch < 1 || channels < 1 || h < 1 || w < 1 ||
-      static_cast<int64_t>(batch) * channels > 65535)
+      static_cast<int64_t>(batch) * channels > 65535 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kAnyRows - 1) / kAnyRows,
                   batch * channels);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(src);
   float* d = static_cast<float*>(dst);
-  if (bf16)
+  if (mode == 1)
     par_propagate_any_kernel<__nv_bfloat16><<<grid, 32 * kAnyRows, 0, st>>>(
         s, static_cast<const __nv_bfloat16*>(aff), d, channels, h, w, dil, nd);
+  else if (mode == 2)
+    par_propagate_any_kernel<__half><<<grid, 32 * kAnyRows, 0, st>>>(
+        s, static_cast<const __half*>(aff), d, channels, h, w, dil, nd);
   else
     par_propagate_any_kernel<float><<<grid, 32 * kAnyRows, 0, st>>>(
         s, static_cast<const float*>(aff), d, channels, h, w, dil, nd);
   return static_cast<int>(cudaGetLastError());
 }
 
-// src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) float32 (bf16 == 0)
-// or bfloat16 (bf16 != 0): contiguous, on the device, src != dst.  dil: nd
-// host ints, 1 <= nd <= 6, each in [1, 40].  Returns the first CUDA error.
+// src, dst (B, C, H, W) float32 and aff (B, 8*nd, H, W) float32 (mode 0),
+// bfloat16 (1) or float16 (2): contiguous, on the device, src != dst.  dil:
+// nd host ints, 1 <= nd <= 6, each in [1, 40].  Returns the first CUDA
+// error.
 extern "C" int dupl_par_propagate(const void* src, const void* aff, void* dst,
                                   int batch, int channels, int h, int w,
-                                  int nd, const int* dil, int bf16,
+                                  int nd, const int* dil, int mode,
                                   void* stream) {
   if (nd < 1 || nd > kMaxDilations || batch < 1 || channels < 1 || h < 1 ||
-      w < 1)
+      w < 1 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int pad = 0;
   for (int i = 0; i < nd; ++i) {
@@ -480,8 +530,11 @@ extern "C" int dupl_par_propagate(const void* src, const void* aff, void* dst,
   const float* s = static_cast<const float*>(src);
   float* d = static_cast<float*>(dst);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(nd, s, aff, d, batch, channels, h, w,
-                                        pad, taps, st)
-              : dispatch<float>(nd, s, aff, d, batch, channels, h, w, pad,
-                                taps, st);
+  if (mode == 1)
+    return dispatch<__nv_bfloat16>(nd, s, aff, d, batch, channels, h, w, pad,
+                                   taps, st);
+  if (mode == 2)
+    return dispatch<__half>(nd, s, aff, d, batch, channels, h, w, pad, taps,
+                            st);
+  return dispatch<float>(nd, s, aff, d, batch, channels, h, w, pad, taps, st);
 }

@@ -4,7 +4,8 @@ in the evaluation of one native-resolution batch, on one card.
     python -m dupl_tpu_torch.engine.profile
         [--path pseudo_label|train|serve|eval]
         [--batch N] [--crop 448] [--phase full] [--image-size 375 500]
-        [--transfer-dtype uint8|float32] [--out build/profile]
+        [--transfer-dtype uint8|float32]
+        [--compute-dtype bfloat16|float16|float32] [--out build/profile]
 
 ``--path pseudo_label`` (the default, batch 16) builds ``voc_config()``'s
 ViT-B/16 dual student from seed 0 and feeds ``make_pseudo_label_fn`` the
@@ -47,6 +48,10 @@ CRF, and the histograms on the host.  ``--transfer-dtype float32`` reads
 the images in the reference's wire format (host-normalised float32, four
 times the bytes of the default uint8) to weigh the copy to the device
 (the question of the JAX package's ``tools/val_feed_experiment.py``).
+
+``--compute-dtype`` sets the model's compute dtype on the pseudo-label and
+serving paths (the recipe's ``bfloat16`` by default; PAR keeps its own
+dtype), so that two dtypes' kernel tables can be set side by side.
 
 The trace goes to ``<out>/<path>_trace.json`` (open it in Perfetto), and the
 last line of the output is a JSON summary.
@@ -347,7 +352,7 @@ def profile_train(args, trace_path: str) -> None:
 def profile_pseudo_label(args, trace_path: str) -> None:
     import torch
 
-    from dupl_tpu_torch.config import voc_config
+    from dupl_tpu_torch.config import ModelConfig, voc_config
     from dupl_tpu_torch.engine import train
     from dupl_tpu_torch.engine.export import make_pseudo_label_fn
     from dupl_tpu_torch.models.convert import init_weights
@@ -357,7 +362,7 @@ def profile_pseudo_label(args, trace_path: str) -> None:
     from dupl_tpu_torch.ops import image as image_ops
 
     dev = torch.device("cuda:0")
-    cfg = voc_config()
+    cfg = voc_config(model=ModelConfig(compute_dtype=args.compute_dtype))
     model = DualStudent(cfg.model)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev)
@@ -397,6 +402,7 @@ def profile_pseudo_label(args, trace_path: str) -> None:
 
     summary = {"device": torch.cuda.get_device_name(0),
                "path": "pseudo_label", "batch": args.batch, "crop": args.crop,
+               "compute_dtype": args.compute_dtype,
                **summary, "stages_ms": stages,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     report(summary, kernels, trace_path)
@@ -405,13 +411,13 @@ def profile_pseudo_label(args, trace_path: str) -> None:
 def profile_serve(args, trace_path: str) -> None:
     import torch
 
-    from dupl_tpu_torch.config import voc_config
+    from dupl_tpu_torch.config import ModelConfig, voc_config
     from dupl_tpu_torch.engine.serve import InferenceSession
     from dupl_tpu_torch.models.convert import init_weights
     from dupl_tpu_torch.models.network import DualStudent
 
     dev = torch.device("cuda:0")
-    cfg = voc_config()
+    cfg = voc_config(model=ModelConfig(compute_dtype=args.compute_dtype))
     model = DualStudent(cfg.model)
     init_weights(model, torch.Generator().manual_seed(0))
     session = InferenceSession.from_model(
@@ -423,7 +429,8 @@ def profile_serve(args, trace_path: str) -> None:
     torch.cuda.synchronize()
     summary, kernels = measure(lambda: session.predict(images), trace_path)
     summary = {"device": torch.cuda.get_device_name(0), "path": "serve",
-               "batch": args.batch, "crop": cfg.data.crop_size, **summary,
+               "batch": args.batch, "crop": cfg.data.crop_size,
+               "compute_dtype": args.compute_dtype, **summary,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     report(summary, kernels, trace_path)
 
@@ -445,6 +452,10 @@ def main(argv=None) -> int:
     ap.add_argument("--transfer-dtype", default="uint8",
                     choices=("uint8", "float32"),
                     help="the image wire format of --path eval")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"),
+                    help="the model's compute dtype of --path pseudo_label "
+                         "and serve")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args(argv)
     if args.batch is None:

@@ -125,12 +125,6 @@ class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, compute_dtype: torch.dtype,
                  gelu_approximate: bool, quant: bool = False):
         super().__init__()
-        if not (gelu_approximate or quant
-                or compute_dtype in (torch.bfloat16, torch.float32)):
-            # the int8 path's GELU runs on fc1's float32 output
-            raise ValueError(f"the exact GELU (gelu_approximate=False) takes "
-                             f"bfloat16 or float32; compute_dtype "
-                             f"{compute_dtype} is not supported")
         self.fc1 = Linear(dim, hidden, compute_dtype=compute_dtype,
                           quant=quant)
         self.fc2 = Linear(hidden, dim, compute_dtype=compute_dtype,

@@ -30,12 +30,25 @@ rounded on its own.  They equal the jitted JAX function bit for bit on every
 normal bf16 input and on f32 (``tests/test_torch_gelu.py``); XLA's CPU
 flushes subnormal inputs and results to zero, which the twins do not.
 
+On f16 ``x`` XLA keeps the fused loop in f16, and its CPU code generator
+(on an x86 host with AVX512-FP16: ``vmulph``, ``vfmadd231ph``) rounds every
+f16 operation on its own; only the ``erfc`` and the exps run in f32:
+
+    f16( f16(0.5 * x) * f16( erfc( f32( f16(-x * s) ) ) ) )
+
+with s = f16(sqrt(1/2)) = 0.70703125, so the ``erfc`` argument IS rounded,
+unlike bf16.  The VJP rounds every product to f16, takes its exp of
+``-f16(z * z)`` in f32 rounded to f16, and contracts the last product with
+the sum into one f16 FMA (:func:`_fma_f16`).  f16 arithmetic there keeps
+subnormals, and so do the twins: they equal the jitted function on every
+finite f16 input.
+
 ``dupl::gelu_erf`` and ``dupl::gelu_erf_bwd`` (``ops/library.py``) run the
 twins on CPU tensors and kernel G (``csrc/gelu_erf.cu``: one elementwise
-pass each, the same roundings; bf16 reads tables of all 65,536 inputs that
-G's own code builds on the device, as the twins read ``_bf16_tables``) on
-CUDA tensors.  :func:`gelu_erf` pairs them
-in a ``torch.autograd.Function`` that saves only ``x``.  Their flop formula
+pass each, the same roundings; bf16 and f16 read tables of all 65,536
+inputs that G's own code builds on the device, as the twins read
+``_bf16_tables`` and ``_f16_tables``) on CUDA tensors.  :func:`gelu_erf`
+pairs them in a ``torch.autograd.Function`` that saves only ``x``.  Their flop formula
 is 0: elementwise work is not counted (``utils/flops.py``).
 
 :func:`gelu_tanh` is ``jax.nn.gelu(x, approximate=True)`` as jitted JAX
@@ -47,7 +60,12 @@ LLVM IR and the machine code of the jitted function on the CPU (jax 0.9.0):
 Q(v^2)`` with each Horner step one FMA and an IEEE division; +-1 from |v|
 = 20; then ``x ((t + 1) 0.5)``.  XLA's CPU flushes subnormal inputs and
 results to zero, and so does the f32 twin (the card's kernel, the fused
-GELU of ``ops/quant.py``'s fc2 quantization, does the same).
+GELU of ``ops/quant.py``'s fc2 quantization, does the same).  In f16 the
+operations are f16 ones, each rounded, ``x^3 * c + x`` one f16 FMA, and the
+tanh is the f32 rational one on ``f32(v)``, rounded to f16; subnormals are
+kept, as in bf16 (XLA's f16 arithmetic keeps them too).  Its backward is
+the f16 VJP of ``jax.vjp`` of the jitted function (:class:`_GeluTanhF16`),
+read from the same code: f16 operations with three f16 FMAs.
 """
 
 from __future__ import annotations
@@ -61,8 +79,10 @@ import torch
 from dupl_tpu_torch.ops import library
 from dupl_tpu_torch.ops.attention import _raw_stream, _require_cuda
 
-_BF16, _F32 = torch.bfloat16, torch.float32
-_DTYPES = (_BF16, _F32)
+_BF16, _F16, _F32 = torch.bfloat16, torch.float16, torch.float32
+_DTYPES = (_BF16, _F16, _F32)
+# G's dtype code (csrc/gelu_erf.cu): 0 fp32, 1 bf16, 2 f16
+_MODE = {_F32: 0, _BF16: 1, _F16: 2}
 
 
 def _hex(*values: str):
@@ -93,8 +113,10 @@ _EXP_POLY = _hex("0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.11121p-7",
                  "0x1.555382p-5", "0x1.555554p-3", "0x1p-1")
 # sqrt(1/2) and -2/sqrt(pi) in the input's dtype, as jax.nn.gelu and its
 # VJP round them
-_SQRT_HALF = {_BF16: 0.70703125, _F32: float.fromhex("0x1.6a09e6p-1")}
-_NEG_TWO_OVER_SQRT_PI = {_BF16: -1.125, _F32: float.fromhex("-0x1.20dd76p+0")}
+_SQRT_HALF = {_BF16: 0.70703125, _F16: 0.70703125,
+              _F32: float.fromhex("0x1.6a09e6p-1")}
+_NEG_TWO_OVER_SQRT_PI = {_BF16: -1.125, _F16: float.fromhex("-0x1.20cp+0"),
+                         _F32: float.fromhex("-0x1.20dd76p+0")}
 
 
 def _as64(t):
@@ -103,12 +125,13 @@ def _as64(t):
 
 
 def _round_to_odd(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``p + c`` of float64 values rounded to odd: TwoSum's error picks the
-    odd neighbour of an inexact sum."""
+    """``p + c`` of float64 or float32 values rounded to odd: TwoSum's error
+    picks the odd neighbour of an inexact sum."""
     s = p + c
     bv = s - p
     err = (p - (s - bv)) + (c - bv)
-    even = (s.view(torch.int64) & 1) == 0
+    bits = s.view(torch.int64 if s.dtype == torch.float64 else torch.int32)
+    even = (bits & 1) == 0
     away = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     return torch.where((err != 0) & even, torch.nextafter(s, away), s)
 
@@ -171,6 +194,17 @@ def fma_f32(a, b, c) -> torch.Tensor:
     return _fma_emulated(a, b, c)
 
 
+def _fma_f16(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float16 values (``b`` may be a Python float that
+    float16 holds) rounded once to float16, as an f16 FMA: the product is
+    exact in float32, the sum is rounded to odd there (24 bits >= 11 + 2),
+    so that the last rounding, to float16, is the only one that counts."""
+    p = a.float() * b
+    c32 = c.float().expand_as(p)
+    s = p + c32
+    return torch.where(torch.isfinite(s), _round_to_odd(p, c32), s).half()
+
+
 def _exp_xla(x: torch.Tensor) -> torch.Tensor:
     """XLA's f32 exp on the CPU, bit for bit."""
     x = x.clamp(_EXP_LO, _EXP_HI)
@@ -222,8 +256,8 @@ def _erfc_xla(z: torch.Tensor, e: torch.Tensor = None) -> torch.Tensor:
 
 def _check_dtype(x: torch.Tensor, what: str) -> None:
     if x.dtype not in _DTYPES:
-        raise TypeError(f"{what}: x must be bfloat16 or float32, got "
-                        f"{x.dtype}")
+        raise TypeError(f"{what}: x must be bfloat16, float16 or float32, "
+                        f"got {x.dtype}")
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -247,19 +281,37 @@ def _bf16_tables(device: torch.device):
     return fwd[order], ec[order], e[order]
 
 
-def _bf16_index(x: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _f16_tables(device: torch.device):
+    """The same over all 65,536 f16 values x: the forward's result,
+    f16(erfc(f32(z))) and f16(exp(-f16(z^2))) with z = f16(-x s), each f16
+    operation rounded on its own (module docstring), as float16."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=device)
+    x = bits.to(torch.int16).view(_F16)
+    z = (-x) * _SQRT_HALF[_F16]
+    ec = _erfc_xla(z.float()).half()
+    fwd = (x * 0.5) * ec
+    e = _exp_xla((-(z * z)).float()).half()
+    order = torch.argsort(bits & 0xFFFF)
+    return fwd[order], ec[order], e[order]
+
+
+def _table_index(x: torch.Tensor) -> torch.Tensor:
+    """The table index of 16-bit values: their bits."""
     return x.view(torch.int16).to(torch.int32).bitwise_and(0xFFFF).long()
 
 
 def gelu_erf_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain twin of G's forward: ``jax.jit(jax.nn.gelu(approximate=
-    False))`` on bf16 or f32 ``x``, in ``x``'s dtype.  bf16 reads the
-    function's value from a table of all 65,536 inputs made by the same
-    expression."""
+    False))`` on bf16, f16 or f32 ``x``, in ``x``'s dtype.  bf16 and f16
+    read the function's value from a table of all 65,536 inputs made by the
+    same expression."""
     _check_dtype(x, "gelu_erf")
     with torch.no_grad():
         if x.dtype == _BF16:
-            return _bf16_tables(x.device)[0][_bf16_index(x)]
+            return _bf16_tables(x.device)[0][_table_index(x)]
+        if x.dtype == _F16:
+            return _f16_tables(x.device)[0][_table_index(x)]
         z = (-x) * _SQRT_HALF[_F32]
         return (x * 0.5) * _erfc_xla(z)
 
@@ -271,8 +323,10 @@ def gelu_erf_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     = sqrt(1/2) and ``c`` = -2/sqrt(pi) in that dtype.  In bf16 every
     product rounds, and the exp's argument is ``-bf16(bf16(z)^2)``; the
     erfc is the forward's (f32 ``z``); the two factors that depend on x
-    alone come from tables of all bf16 inputs.  In f32 the erfc shares the
-    exp, and the last product and the sum are one FMA."""
+    alone come from tables of all bf16 inputs.  In f16 the same, but ``z``
+    and ``z^2`` are f16 products and the last product and the sum are one
+    f16 FMA.  In f32 the erfc shares the exp, and the last product and the
+    sum are one FMA."""
     _check_dtype(x, "gelu_erf_bwd")
     if g.dtype != x.dtype or g.shape != x.shape:
         raise ValueError(f"gelu_erf_bwd: g must be {x.dtype} of shape "
@@ -283,12 +337,18 @@ def gelu_erf_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     with torch.no_grad():
         if dt == _BF16:
             _, ec_tab, e_tab = _bf16_tables(x.device)
-            i = _bf16_index(x)
+            i = _table_index(x)
             gf = g.float()
             t = _bf(_bf(_bf(x.float() * 0.5) * gf) * c)
             left = -_bf(_bf(t * e_tab[i]) * s)
             right = _bf(_bf(gf * ec_tab[i]) * 0.5)
             return (left + right).to(_BF16)
+        if dt == _F16:
+            _, ec_tab, e_tab = _f16_tables(x.device)
+            i = _table_index(x)
+            t = (((x * 0.5) * g) * c) * e_tab[i]
+            right = (g * ec_tab[i]) * 0.5
+            return _fma_f16(-t, s, right)      # XLA contracts the last step
         t = ((x * 0.5) * g) * c
         z = (-x) * s
         e = _exp_xla(-(z * z))
@@ -315,10 +375,8 @@ def _flush(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t.abs() < _F32_TINY, t * 0.0, t)
 
 
-def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
-    """The jitted f32 tanh GELU, bit for bit (module docstring)."""
-    x = _flush(x)
-    v = fma_f32((x * x) * x, _TANH_C3, x) * _TANH_S
+def _tanh_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 tanh inside the jitted tanh GELU, bit for bit."""
     vc = v.clamp(-_TANH_CLAMP, _TANH_CLAMP)
     v2 = vc * vc
     p = fma_f32(v2, _TANH_P[0], _TANH_P[1])
@@ -328,13 +386,73 @@ def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
     for c in _TANH_Q[2:]:
         q = fma_f32(q, v2, c)
     t = torch.where(v.abs() < _TANH_SMALL, v, (vc * p) / q)
-    t = torch.where(v.abs() >= 20.0, torch.copysign(torch.ones_like(v), v), t)
+    return torch.where(v.abs() >= 20.0, torch.copysign(torch.ones_like(v), v),
+                       t)
+
+
+def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """The jitted f32 tanh GELU, bit for bit (module docstring)."""
+    x = _flush(x)
+    t = _tanh_xla(fma_f32((x * x) * x, _TANH_C3, x) * _TANH_S)
     return _flush(x * ((t + 1.0) * 0.5))
+
+
+# jax.nn.gelu(approximate=True)'s constants in f16: the cubic's
+# coefficient, sqrt(2/pi), and their f16 product, which XLA folds into the
+# VJP's chain
+_TANH_F16_C3, _TANH_F16_S, _TANH_F16_CS = 0.044708251953125, 0.7978515625, \
+    0.035675048828125
+
+
+def _tanh_f16(x: torch.Tensor):
+    """``x * x`` and the tanh of the jitted f16 tanh GELU: the cubic's ``x^3
+    c + x`` one f16 FMA, XLA's f32 tanh of ``f32(v)`` rounded to f16."""
+    xx = x * x
+    v = _fma_f16(xx * x, _TANH_F16_C3, x) * _TANH_F16_S
+    return xx, _tanh_xla(v.float()).half()
+
+
+@functools.lru_cache(maxsize=None)
+def _f16_tanh_tables(device: torch.device):
+    """Over all 65,536 f16 values x (indexed by their bits): the jitted f16
+    tanh GELU's result, its tanh t and ``x * x``, as float16."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=device)
+    x = bits.to(torch.int16).view(_F16)
+    xx, t = _tanh_f16(x)
+    order = torch.argsort(bits & 0xFFFF)
+    return (x * ((t + 1.0) * 0.5))[order], t[order], xx[order]
+
+
+class _GeluTanhF16(torch.autograd.Function):
+    """The jitted f16 tanh GELU and its ``jax.vjp``, bit for bit; saves only
+    ``x``.  The forward, and the backward's tanh and ``x * x``, depend on
+    the 16 input bits alone and are read from :func:`_f16_tanh_tables`.
+    The VJP is XLA's fused loop: every product and sum an f16 operation,
+    three of them contracted into f16 FMAs, and the cubic's chain rule by
+    the folded constant c s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _f16_tanh_tables(x.device)[0][_table_index(x)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        _, t_tab, xx_tab = _f16_tanh_tables(x.device)
+        i = _table_index(x)
+        t, xx = t_tab[i], xx_tab[i]
+        g = g.to(_F16)
+        d = ((x * g) * 0.5) * (1.0 - t)
+        d = _fma_f16(d, t, d)                 # the tanh's 1 - t^2
+        dx = _fma_f16(g, (t + 1.0) * 0.5, d * _TANH_F16_S)
+        return _fma_f16(d * _TANH_F16_CS, xx * 3.0, dx)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximate GELU as jitted ``jax.nn.gelu(approximate=True)``
-    computes it.  f32: XLA's expansion (module docstring).  Other dtypes:
+    computes it.  f32: XLA's expansion; f16: its f16 recipe (module
+    docstring), and the backward its VJP's.  Other dtypes:
     ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` one operation at
     a time in ``x``'s dtype, the constants rounded to it and ``x^3`` as
     ``x * (x * x)``; in bf16 this rounds where the JAX package rounds
@@ -342,6 +460,8 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     bit on ~40% of elements)."""
     if x.dtype == _F32:
         return _gelu_tanh_f32(x)
+    if x.dtype == _F16:
+        return _GeluTanhF16.apply(x)
 
     def c(v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=x.dtype, device=x.device)
@@ -383,10 +503,11 @@ def _fwd_kernel(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         with torch.cuda.device(x.device):
             status = _entries()[0](x.data_ptr(), out.data_ptr(), x.numel(),
-                                   int(x.dtype == _BF16),
+                                   _MODE[x.dtype],
                                    _raw_stream(x.device))
         build.check(status, "gelu_erf")
         gelu_erf_cuda.launches += 1
+        gelu_erf_cuda.launches_f16 += x.dtype == _F16
     return out
 
 
@@ -406,7 +527,7 @@ def _bwd_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(x.device):
             status = _entries()[1](x.data_ptr(), g.data_ptr(),
                                    out.data_ptr(), x.numel(),
-                                   int(x.dtype == _BF16),
+                                   _MODE[x.dtype],
                                    _raw_stream(x.device))
         build.check(status, "gelu_erf_bwd")
         gelu_erf_bwd_cuda.launches += 1
@@ -429,12 +550,13 @@ _G_BWD = library.register("gelu_erf_bwd(Tensor x, Tensor g) -> Tensor",
 
 def gelu_erf_cuda(x: torch.Tensor) -> torch.Tensor:
     """Kernel G's forward on a CUDA tensor, through ``dupl::gelu_erf``;
-    raises for any other device.  Counts in ``gelu_erf_cuda.launches``."""
+    raises for any other device.  Counts in ``gelu_erf_cuda.launches``, the
+    f16 mode's also in ``gelu_erf_cuda.launches_f16``."""
     _require_cuda("gelu_erf", x)
     return _G(x)
 
 
-gelu_erf_cuda.launches = 0
+gelu_erf_cuda.launches = gelu_erf_cuda.launches_f16 = 0
 
 
 def gelu_erf_bwd_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -464,7 +586,7 @@ class _GeluErf(torch.autograd.Function):
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
-    """The exact GELU of the JAX package (bf16 or f32, any shape): CPU
+    """The exact GELU of the JAX package (bf16, f16 or f32, any shape): CPU
     tensors run the twins, CUDA tensors kernel G, forward and backward."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gelu_erf: unsupported device {x.device}")

@@ -11,8 +11,9 @@
   registered op ``dupl::par_propagate``.  CUDA tensors launch kernel K4
   (``csrc/par_propagate.cu``) once per round; CPU tensors run the rounds of
   :func:`propagate_ref`, which follows ``propagate_pallas``:
-  fp32, or with ``compute_dtype="bfloat16"`` taps and affinities in bf16,
-  products summed in bf16 within groups of 8 taps, group sums in fp32.
+  fp32, or with ``compute_dtype="bfloat16"`` (``"float16"``) taps and
+  affinities in bf16 (f16), products summed in that type within groups of
+  8 taps, group sums in fp32.
 
 K3 and K4 stage a tile's haloed input in shared memory and hold a pixel's
 taps in registers, for 1 to 6 dilations of at most 40 (every recipe's set
@@ -36,8 +37,11 @@ from dupl_tpu_torch.ops.par import position_affinity, tap_offsets
 
 _MAX_DILATIONS = 6     # taps held in registers: 8 per dilation
 _MAX_DILATION = 40     # K3's and K4's haloed tiles fit shared memory up to here
-_GROUP = 8             # bf16 mode: taps summed in bf16 before the fp32 sum
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_GROUP = 8             # 16-bit modes: taps summed in the type before fp32
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+# K4's mode code (csrc/par_propagate.cu): its affinity's type
+_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_dilations(dilations: Sequence[int]) -> None:
@@ -97,9 +101,10 @@ def propagate_ref(masks: torch.Tensor, aff: torch.Tensor,
                   compute_dtype: str = "float32") -> torch.Tensor:
     """Plain twin of K4.  masks (B, H, W, C), aff (B, K, H, W) ->
     (B, H, W, C) float32.  fp32: taps accumulated one by one in tap order.
-    bf16: each round rounds the mask and the affinity to bf16, rounds every
-    product and partial sum within a group of 8 taps to bf16, and adds the
-    group sums in fp32, as ``propagate_pallas``'s ``_kernel``."""
+    bf16 (f16): each round rounds the mask and the affinity to bf16 (f16),
+    rounds every product and partial sum within a group of 8 taps to it,
+    and adds the group sums in fp32, as ``propagate_pallas``'s
+    ``_kernel``."""
     m = masks.float().permute(0, 3, 1, 2)                      # (B, C, H, W)
     out = _propagate_bchw(m, aff.to(_compute_dtype(compute_dtype)), dilations,
                           num_iter)
@@ -109,7 +114,8 @@ def propagate_ref(masks: torch.Tensor, aff: torch.Tensor,
 def _propagate_bchw(m: torch.Tensor, a: torch.Tensor,
                     dilations: Sequence[int], num_iter: int) -> torch.Tensor:
     """:func:`propagate_ref`'s rounds on masks (B, C, H, W) float32 and the
-    affinity (B, K, H, W) in the compute type (float32 or bfloat16)."""
+    affinity (B, K, H, W) in the compute type (float32, bfloat16 or
+    float16)."""
     cdt = a.dtype
     offs = tap_offsets(dilations)
     for _ in range(num_iter):
@@ -219,8 +225,8 @@ def _propagate_kernel(masks: torch.Tensor, aff: torch.Tensor,
                       dilations: Sequence[int], num_iter: int) -> torch.Tensor:
     """``dupl::par_propagate`` on CUDA tensors: launch kernel K4 once per
     round on the current stream.  masks (B, C, H, W) float32, aff
-    (B, K, H, W) float32 (fp32 mode) or bfloat16 (bf16 mode), both
-    contiguous -> (B, C, H, W) float32."""
+    (B, K, H, W) float32 (fp32 mode), bfloat16 (bf16 mode) or float16 (f16
+    mode), both contiguous -> (B, C, H, W) float32."""
     from dupl_tpu_torch.kernels import build
 
     _check_cuda(masks, "masks", (torch.float32,), "par propagate")
@@ -252,9 +258,10 @@ def _propagate_kernel(masks: torch.Tensor, aff: torch.Tensor,
             dst = bufs[i % 2]
             status = entry(src.data_ptr(), aff.data_ptr(), dst.data_ptr(),
                            b, c, h, w, len(dilations), dil,
-                           int(aff.dtype == torch.bfloat16), stream)
+                           _MODE[aff.dtype], stream)
             build.check(status, "par_propagate")
             propagate_cuda.launches += 1
+            propagate_cuda.launches_f16 += aff.dtype == torch.float16
             src = dst
     return src
 
@@ -304,12 +311,13 @@ def propagate_cuda(masks: torch.Tensor, aff: torch.Tensor,
                    num_iter: int = 10) -> torch.Tensor:
     """Kernel K4 on CUDA tensors, through ``dupl::par_propagate``; raises
     for any other device.  Counts one launch a round in
-    ``propagate_cuda.launches``."""
+    ``propagate_cuda.launches``, the f16 mode's also in
+    ``propagate_cuda.launches_f16``."""
     _require_cuda("par propagate", masks)
     return _K4(masks, aff, list(dilations), num_iter)
 
 
-propagate_cuda.launches = 0
+propagate_cuda.launches = propagate_cuda.launches_f16 = 0
 
 
 def affinity(imgs: torch.Tensor, dilations: Sequence[int] = (1, 2, 4, 8, 12, 24),

@@ -270,15 +270,21 @@ def test_autograd_pair_saves_x_only(dtype):
 
 
 def test_float16_exact_gelu_is_refused_where_configured():
-    """A float16 ViT with the exact GELU fails at construction, naming the
-    dtype; the tanh GELU and the int8 path (GELU on float32) still build."""
+    """Where G refuses a dtype: no longer float16, since it has an f16
+    mode (a float16 ViT with the exact GELU builds and runs its blocks'
+    GELU in f16, as the tanh GELU and the int8 path do), but a dtype it has
+    no mode for,
+    naming it."""
     from dupl_tpu_torch.models.vit import VIT_CONFIGS, ViT
 
     spec = VIT_CONFIGS["test_tiny_patch16"]
-    with pytest.raises(ValueError, match="torch.float16"):
-        ViT(spec, compute_dtype=torch.float16, gelu_approximate=False)
+    vit = ViT(spec, compute_dtype=torch.float16, gelu_approximate=False)
+    h = torch.randn(2, 3, vit.blocks[0].mlp.fc1.out_features).half()
+    assert torch.equal(gelu.gelu_erf(h), gelu.gelu_erf_ref(h))
     ViT(spec, compute_dtype=torch.float16, gelu_approximate=True)
     ViT(spec, compute_dtype=torch.float16, gelu_approximate=False, quant=True)
+    with pytest.raises(TypeError, match="torch.float64"):
+        gelu.gelu_erf(torch.zeros(3, dtype=torch.float64))
 
 
 # Bounds over the output's largest magnitude s: at most ``max_ulps`` bf16

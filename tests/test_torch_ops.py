@@ -49,10 +49,15 @@ def _cases():
         "par_propagate": (masks.clone().requires_grad_(True), aff, DIL, 2),
         "par_propagate_bf16": (masks.clone().requires_grad_(True),
                                aff.to(bf), DIL, 2),
+        "par_propagate_f16": (masks.clone().requires_grad_(True),
+                              aff.half(), DIL, 2),
         "gelu_erf": (_randn(3, 7, 16, dtype=bf, grad=True),),
         "gelu_erf_fp32": (_randn(3, 7, 16, grad=True),),
+        "gelu_erf_f16": (_randn(3, 7, 16, dtype=torch.float16, grad=True),),
         "gelu_erf_bwd": (_randn(3, 7, 16, dtype=bf, grad=True),
                          _randn(3, 7, 16, dtype=bf, seed=1)),
+        "gelu_erf_bwd_f16": (_randn(3, 7, 16, dtype=torch.float16, grad=True),
+                             _randn(3, 7, 16, dtype=torch.float16, seed=1)),
         "quantize_pair": (_randn(10, 64, dtype=bf, grad=True),
                           _randn(16, 64, seed=1)),
         "gelu_quantize_pair": (_randn(10, 64, grad=True),
@@ -79,7 +84,8 @@ def _cases():
 
 @pytest.mark.parametrize("case", sorted(_cases()))
 def test_opcheck(case):
-    name = case.removesuffix("_bf16").removesuffix("_fp32")
+    name = case.removesuffix("_bf16").removesuffix("_fp32").removesuffix(
+        "_f16")
     name = name.removesuffix("_erf") if name.endswith("pair_erf") else name
     op = getattr(torch.ops.dupl, name).default
     torch.library.opcheck(op, _cases()[case])

@@ -204,8 +204,10 @@ def test_dispatch_by_device():
         par_cuda.affinity(imgs.to("meta"), DIL)
     with pytest.raises(ValueError, match="unsupported device"):
         par_cuda.propagate(masks.to("meta"), aff.to("meta"), DIL, 2)
+    par_cuda.propagate(masks, aff, DIL, 2, compute_dtype="float16")
+    assert par_cuda.propagate_cuda.launches == n0[1]
     with pytest.raises(ValueError, match="compute_dtype"):
-        par_cuda.propagate(masks, aff, DIL, 2, compute_dtype="float16")
+        par_cuda.propagate(masks, aff, DIL, 2, compute_dtype="float64")
     with pytest.raises(ValueError, match="CUDA"):
         par_cuda.affinity_cuda(imgs, DIL)
     with pytest.raises(ValueError, match="CUDA"):

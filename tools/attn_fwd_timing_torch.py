@@ -80,17 +80,19 @@ def _host_us(fn, reps=201):
 
 def _sass_digests(lib) -> list:
     """A digest of each kernel's SASS in ``lib``, in file order: of its
-    instruction lines alone, each with its encoding words.  The names are
-    left out (they carry the template arguments, which may be spelt
+    instruction lines alone, each with its encoding words, their runs of
+    blanks collapsed (cuobjdump pads its columns to the widest instruction
+    of the whole library, which moves when a kernel is added).  The names
+    are left out (they carry the template arguments, which may be spelt
     differently in two checkouts), and so is the text that follows the
     dump's last kernel, which moves when a kernel is added after it."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return [hashlib.sha256("\n".join(re.findall(
-        r".*/\*.*", body)).encode()).hexdigest()[:12]
-        for body in sass.split("Function : ")[1:]]
+    return [hashlib.sha256("\n".join(
+        " ".join(line.split()) for line in re.findall(r".*/\*.*", body)
+    ).encode()).hexdigest()[:12] for body in sass.split("Function : ")[1:]]
 
 
 def measure(root: str) -> dict:
